@@ -1,0 +1,287 @@
+"""Schedules of the packed attention launches and the CUDA kernel wrappers.
+
+``TriSched`` / ``PackedTriSched`` port the reference's static schedule
+metadata; ``PackedTriSched.table()`` is the (7, R) int32 member table ABI
+(kernel.py:194-218 of the reference), byte for byte. ``DECODE_NO_EMIT``
+is the decode pad member's sentinel.
+
+``packed_fwd`` and ``packed_decode_fwd`` wrap the hand-written kernels in
+``csrc/packed_fwd.cu`` and ``csrc/packed_decode.cu`` (see the notes at
+the top of each source for what bounds them on the H100 and why the grid
+is one block per accumulator owner). On a CUDA tensor a wrapper launches
+its kernel, through ``obs.launch.instrumented_launch``, or raises; it runs
+the plain PyTorch version (scan_impl.py) only when its inputs lie on the
+CPU. Each wrapper counts its launches in a plain integer attribute,
+``packed_fwd.launches`` and ``packed_decode_fwd.launches``, incremented
+where the kernel is launched and nowhere else.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import mapping as M
+from repro_torch.kernels import build as BUILD
+from repro_torch.obs import launch as OBS
+
+MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
+
+# pad-member kv_tiles sentinel of the (5, R) decode table: emit never fires
+DECODE_NO_EMIT = 2 ** 30
+
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
+SUPPORTED_BLOCKS = (16, 32, 64, 128)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@dataclasses.dataclass(frozen=True)
+class TriSched:
+    """Static schedule of one request's tile domain (bq == bk)."""
+
+    kind: str  # 'ltm' | 'band' | 'prefix'
+    n: int  # tiles per side
+    bq: int
+    bk: int
+    window: Optional[int] = None  # tokens (band)
+    prefix: int = 0  # tokens (prefix)
+
+    def __post_init__(self):
+        if self.kind not in ("ltm", "band", "prefix"):
+            raise ValueError(f"unknown schedule kind {self.kind!r}")
+        if self.kind == "band" and (self.window is None or self.window < 1
+                                    or self.bq != self.bk):
+            raise ValueError("band schedules need window >= 1 and square "
+                             "tiles")
+
+    @property
+    def w_b(self) -> int:
+        """Band width in tiles (tile j needed iff some q, k in the tiles
+        have 0 <= q - k < window)."""
+        if self.window is None:
+            return self.n
+        return min((self.window - 2) // self.bk + 2, self.n)
+
+    @property
+    def p_b(self) -> int:
+        return -(-self.prefix // self.bk) if self.prefix else 0
+
+    @property
+    def rm_steps(self) -> int:
+        if self.kind == "ltm":
+            return M.tri(self.n)
+        if self.kind == "band":
+            return M.band_blocks(self.n, self.w_b)
+        return M.prefix_full_blocks(self.n, self.p_b)
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedTriSched:
+    """Static metadata of ONE packed ragged-attention launch: member r's
+    tokens occupy packed rows [rows[r] * blk, rows[r+1] * blk)."""
+
+    members: tuple  # Tuple[TriSched, ...]
+
+    def __post_init__(self):
+        if not self.members:
+            raise ValueError("packed schedule needs at least one member")
+        blk = self.members[0].bq
+        if any(m.bq != blk or m.bk != blk for m in self.members):
+            raise ValueError("packed members must share one square block")
+
+    @property
+    def blk(self) -> int:
+        return self.members[0].bq
+
+    @property
+    def steps(self) -> int:
+        return sum(m.rm_steps for m in self.members)
+
+    @property
+    def total_tiles(self) -> int:
+        return sum(m.n for m in self.members)
+
+    @property
+    def s_total(self) -> int:
+        return self.total_tiles * self.blk
+
+    @property
+    def windows(self) -> tuple:
+        return tuple(m.window or 0 for m in self.members)
+
+    @property
+    def prefixes(self) -> tuple:
+        return tuple(m.prefix for m in self.members)
+
+    def table(self) -> np.ndarray:
+        """(7, R) int32 member table. Rows: 0 starts (cumulative tile-step
+        offsets), 1 rows (cumulative tile-row offsets), 2 n, 3 w_b (== n
+        unbanded), 4 p_b (0 = band family), 5 win (tokens, 0 = none),
+        6 pre (tokens, 0 = none)."""
+        starts, rows = [0], [0]
+        for m in self.members:
+            starts.append(starts[-1] + m.rm_steps)
+            rows.append(rows[-1] + m.n)
+        cols = [(s, t, m.n, m.w_b, m.p_b, w, p)
+                for s, t, m, w, p in zip(starts[:-1], rows[:-1], self.members,
+                                         self.windows, self.prefixes)]
+        return np.asarray(cols, np.int32).T.copy()
+
+
+@functools.lru_cache(maxsize=64)
+def device_table(psched: PackedTriSched, device: torch.device) -> torch.Tensor:
+    """The (7, R) table as an int32 tensor on ``device``, copied once per
+    schedule so every layer of a packed forward shares one upload."""
+    return torch.as_tensor(psched.table(), device=device)
+
+
+def _check(cond: bool, msg: str):
+    if not cond:
+        raise ValueError(msg)
+
+
+def _stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def packed_fwd(q, k, v, psched: PackedTriSched, *, sm_scale=None):
+    """Ragged batched prefill attention in ONE launch.
+
+    q: (B, H, S_total, D); k, v: (B, Hkv, S_total, D), one dtype (f32 or
+    bf16), contiguous. Returns (out (B, H, S_total, D) in q's dtype,
+    lse (B, H, S_total) f32)."""
+    b, h, s_len, d = q.shape
+    scale = float(sm_scale if sm_scale is not None else 1.0 / (d ** 0.5))
+    if not q.is_cuda:
+        from repro_torch.kernels.tri_attn import scan_impl as SC
+
+        return SC.packed_fwd_torch(q, k, v, psched, scale)
+    hkv = k.shape[1]
+    _check(k.is_cuda and v.is_cuda and k.device == q.device == v.device,
+           "packed_fwd: q, k, v must lie on one CUDA device")
+    _check(q.dtype in _DTYPE_CODES and k.dtype == q.dtype == v.dtype,
+           f"packed_fwd: q/k/v must share f32 or bf16, got "
+           f"{q.dtype}/{k.dtype}/{v.dtype}")
+    _check(k.shape == v.shape == (b, hkv, s_len, d) and h % hkv == 0,
+           f"packed_fwd: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+           f"v {tuple(v.shape)}")
+    _check(all(x.is_contiguous() for x in (q, k, v)),
+           "packed_fwd: q, k, v must be contiguous")
+    _check(s_len == psched.s_total,
+           f"packed_fwd: S={s_len} but the schedule covers "
+           f"{psched.s_total}")
+    _check(d in SUPPORTED_HEAD_DIMS and psched.blk in SUPPORTED_BLOCKS,
+           f"packed_fwd: head_dim {d} / block {psched.blk} unsupported "
+           f"(head_dim in {SUPPORTED_HEAD_DIMS}, block in "
+           f"{SUPPORTED_BLOCKS})")
+    lib = BUILD.load("packed_fwd")
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, s_len), dtype=torch.float32, device=q.device)
+    tbl = device_table(psched, q.device)
+    meta = OBS.meta_from_packed("tri_attn.packed_fwd", psched, impl="cuda",
+                                cells=b * h,
+                                grid=(b, h, psched.total_tiles))
+    OBS.instrumented_launch(
+        meta, lib.packed_fwd_launch, (q, k, v),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), tbl.data_ptr(), len(psched.members), b, h, hkv,
+        s_len, d, psched.blk, psched.total_tiles, scale,
+        _DTYPE_CODES[q.dtype], _stream_ptr(q))
+    packed_fwd.launches += 1
+    return out, lse
+
+
+packed_fwd.launches = 0
+
+
+def packed_decode_fwd(q, k, v, tbl, *, capacity: int, blk: int, tiles: int,
+                      sm_scale=None):
+    """One launch for a whole mixed-position decode round.
+
+    q: (B, H, D); k, v: (B, S_cache, Hkv, D), the native cache layout with
+    the new token written; tbl: (5, R) int32 member table on q's device.
+    ``tiles`` is the round's live tile count (sum of member kv_tiles),
+    what the grid walks. Returns (B + 1, H, D) in q's dtype; rows of
+    slots without a live member (and the pad row B) are left unwritten,
+    so callers mask by the table's coverage (ops._covered_slots)."""
+    b, h, d = q.shape
+    s_cache, hkv = k.shape[1], k.shape[2]
+    scale = float(sm_scale if sm_scale is not None else 1.0 / (d ** 0.5))
+    if not q.is_cuda:
+        from repro_torch.kernels.tri_attn import scan_impl as SC
+
+        full = torch.zeros((b + 1, h, d), dtype=q.dtype, device=q.device)
+        full[:b] = SC.packed_decode_torch(q, k, v, tbl, capacity=capacity,
+                                          blk=blk, tiles=tiles, scale=scale)
+        return full
+    n_members = tbl.shape[1]
+    _check(k.is_cuda and v.is_cuda and tbl.is_cuda
+           and k.device == q.device == v.device == tbl.device,
+           "packed_decode_fwd: q, caches and table must lie on one CUDA "
+           "device")
+    _check(q.dtype in _DTYPE_CODES and k.dtype in _DTYPE_CODES
+           and v.dtype == k.dtype,
+           f"packed_decode_fwd: q in f32/bf16 and k == v in f32/bf16, got "
+           f"{q.dtype}/{k.dtype}/{v.dtype}")
+    _check(k.shape == v.shape == (b, s_cache, hkv, d) and h % hkv == 0,
+           f"packed_decode_fwd: shapes q {tuple(q.shape)} k "
+           f"{tuple(k.shape)} v {tuple(v.shape)}")
+    _check(tbl.dtype == torch.int32 and tuple(tbl.shape) == (5, n_members),
+           f"packed_decode_fwd: table must be (5, R) int32, got "
+           f"{tuple(tbl.shape)} {tbl.dtype}")
+    _check(all(x.is_contiguous() for x in (q, k, v, tbl))
+           and k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0,
+           "packed_decode_fwd: q, caches and table must be contiguous, "
+           "the caches 16-byte aligned")
+    _check(s_cache % blk == 0 and blk in SUPPORTED_BLOCKS
+           and d in SUPPORTED_HEAD_DIMS,
+           f"packed_decode_fwd: block {blk} must divide S_cache {s_cache}, "
+           f"block in {SUPPORTED_BLOCKS}, head_dim {d} in "
+           f"{SUPPORTED_HEAD_DIMS}")
+    lib = BUILD.load("packed_decode")
+    out = torch.empty((b + 1, h, d), dtype=q.dtype, device=q.device)
+    meta = OBS.meta_exact("tri_attn.packed_decode_fwd", "tri_attn",
+                          impl="cuda", kind="decode_round", steps=tiles,
+                          block_shape=(1, blk),
+                          bb_bound=b * (s_cache // blk), cells=hkv,
+                          grid=(n_members, hkv),
+                          extra=(("capacity", capacity),))
+    OBS.instrumented_launch(
+        meta, lib.packed_decode_launch, (q, k, v),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        tbl.data_ptr(), n_members, b, h, hkv, s_cache, d, blk, scale,
+        _DTYPE_CODES[q.dtype], _DTYPE_CODES[k.dtype], _stream_ptr(q))
+    packed_decode_fwd.launches += 1
+    return out
+
+
+packed_decode_fwd.launches = 0
+
+
+def member_map_device(local, n, w, p):
+    """Evaluate the device ``member_map_params`` (csrc/packing.cuh) on
+    int32 CUDA tensors of member-local lambdas and (n, w, p) parameters:
+    the g(lambda) the prefill kernel walks, exposed so tests can hold it
+    against the torch form. Not a kernel of the serving path."""
+    _check(local.is_cuda and local.dtype == torch.int32,
+           "member_map_device: int32 CUDA tensors only")
+    count = local.numel()
+    nwp = torch.stack([torch.as_tensor(x, device=local.device,
+                                       dtype=torch.int32).expand(count)
+                       for x in (n, w, p)]).contiguous()
+    local = local.contiguous()
+    out_i = torch.empty_like(local)
+    out_j = torch.empty_like(local)
+    lib = BUILD.load("packed_fwd")
+    meta = OBS.meta_exact("core.member_map_probe", "core", impl="cuda",
+                          kind="probe", steps=count, block_shape=(1,),
+                          bb_bound=None)
+    OBS.instrumented_launch(meta, lib.member_map_probe, (local, nwp),
+                            local.data_ptr(), nwp.data_ptr(),
+                            out_i.data_ptr(), out_j.data_ptr(), count,
+                            _stream_ptr(local))
+    return out_i, out_j

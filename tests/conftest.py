@@ -25,6 +25,11 @@ settings.register_profile(
 settings.load_profile("repro")
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card and nvcc; skips elsewhere")
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _drop_compiled_executables_between_modules():
     """Free XLA executables after each test module.

@@ -1,0 +1,96 @@
+"""Member-table ABI and package isolation of repro_torch.
+
+* PackedTriSched.table() (7, R) and make_decode_table (5, R), pad column
+  included, are byte-identical int32 arrays to the reference's.
+* No module of src/repro_torch, nor chip_smoke.py, imports jax or the
+  JAX package (an AST scan of every import statement).
+* ``import repro_torch`` (and its serving modules) succeeds in a process
+  where importing jax is impossible.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from repro.kernels.tri_attn import kernel as JK
+from repro.kernels.tri_attn import ops as JOPS
+from repro_torch.kernels.tri_attn import kernel as K
+from repro_torch.kernels.tri_attn import ops as OPS
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+
+
+@pytest.mark.parametrize("blk,lens,window,prefix", [
+    (8, [40, 16, 24, 8], [None, None, 11, None], [0, 9, 0, 0]),
+    (16, [16], None, 0),
+    (4, [4, 8, 12, 16, 20], 6, 0),
+    (16, [64, 32], None, [20, 3]),
+])
+def test_packed_table_bytes_match(blk, lens, window, prefix):
+    want = JOPS.make_packed_sched(lens, block=blk, window=window,
+                                  prefix=prefix)
+    got = OPS.make_packed_sched(lens, block=blk, window=window,
+                                prefix=prefix)
+    wt, gt = want.table(), got.table()
+    assert gt.dtype == wt.dtype == np.int32 and gt.shape == wt.shape
+    assert gt.tobytes() == wt.tobytes()
+    assert (got.steps, got.total_tiles, got.s_total) == \
+        (want.steps, want.total_tiles, want.s_total)
+
+
+@pytest.mark.parametrize("kv_lens,slots,n_members,window", [
+    ([64, 3, 17], [0, 2, 4], 6, None),
+    ([5], [3], 4, None),
+    ([40, 33, 9, 1], [1, 0, 3, 2], 5, [None, 8, None, 1]),
+    ([], [], 3, None),
+])
+def test_decode_table_bytes_match(kv_lens, slots, n_members, window):
+    # the reference's s_cache check calls max() on the lengths, so an empty
+    # round is built without it there (ROADMAP queue C)
+    kw = dict(blk=8, n_members=n_members, n_slots=5,
+              s_cache=64 if kv_lens else 0, window=window)
+    wt, wn = JOPS.make_decode_table(kv_lens, slots, **kw)
+    gt, gn = OPS.make_decode_table(kv_lens, slots, **kw)
+    assert gn == wn
+    assert gt.dtype == wt.dtype == np.int32 and gt.shape == wt.shape
+    assert gt.tobytes() == wt.tobytes()
+    assert tuple(gt[:, -1][1:]) == (5, K.DECODE_NO_EMIT, 0, 0)
+    assert K.DECODE_NO_EMIT == JK.DECODE_NO_EMIT
+    assert K.MASK_VALUE == JK.MASK_VALUE
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
+           if m.split(".")[0] in ("jax", "jaxlib", "flax", "repro")]
+    assert not bad, bad
+
+
+def test_port_imports_with_jax_blocked():
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['repro'] = None; "
+            "import repro_torch, repro_torch.serve.engine, "
+            "repro_torch.kernels.tri_attn.ops, repro_torch.models.model; "
+            "print('ok')")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
