@@ -7,10 +7,12 @@ Phases (any failure exits non-zero; nothing is caught):
   2. build the CUDA kernels from src/repro_torch/csrc (nvcc, sm_90a);
   3. kernels: each kernel of the serving path at full yi-9b width (H=32,
      Hkv=4, D=128, blk=64, bf16 q/k/v, f32 decode cache) against its
-     plain PyTorch version on the card (bf16 tolerance 2e-2), timed with
-     CUDA events beside the plain version, one library call
-     (scaled_dot_product_attention with the equivalent mask; used nowhere
-     in the port) and the bound max(bytes / 3.35 TB/s, flops / peak);
+     plain PyTorch version on the card (outputs within atol 4e-3 + rtol
+     1e-2, log-sum-exp within atol 1e-2), timed with CUDA events beside
+     the plain version, one library call (scaled_dot_product_attention
+     with the equivalent mask; used nowhere in the port) and the bound
+     max(bytes / 3.35 TB/s, flops / peak), both counted from what this
+     run's masks and kv lengths need;
   4. serving: yi-9b at full width (48 layers unless --layers cuts it) with
      random seeded bf16 weights, an Engine with both kernels serving 8
      skewed requests; asserts every request done, no degrade, no failure,
@@ -37,7 +39,10 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, no TF32
-BF16_TOL = dict(atol=2e-2, rtol=2e-2)
+# bf16 outputs of ~0.05-1 differ by at most a bf16 ulp; a skipped 64-key
+# tile moves out by ~1e-2 and lse by ~6e-2, so both limits catch it
+OUT_TOL = dict(atol=4e-3, rtol=1e-2)
+LSE_TOL = dict(atol=1e-2, rtol=0.0)
 
 
 def _fail(msg: str):
@@ -67,11 +72,11 @@ def _bound(nbytes: float, flops: float, dtype) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _close(name, got, want):
+def _close(name, got, want, tol=OUT_TOL):
     err = float((got.float() - want.float()).abs().max())
-    if not torch.allclose(got.float(), want.float(), **BF16_TOL):
-        _fail(f"{name}: kernel disagrees with its plain version "
-              f"(max abs err {err})")
+    if not torch.allclose(got.float(), want.float(), **tol):
+        _fail(f"{name}: kernel disagrees with its reference "
+              f"(max abs err {err}, tolerance {tol})")
     return err
 
 
@@ -99,7 +104,7 @@ def kernel_phase(dev, K, OPS, SC):
     torch.cuda.synchronize()
     want_out, want_lse = SC.packed_fwd_torch(q, k, v, psched, d ** -0.5)
     err_fwd = max(_close("packed_fwd out", out, want_out),
-                  _close("packed_fwd lse", lse, want_lse))
+                  _close("packed_fwd lse", lse, want_lse, LSE_TOL))
     mask = torch.zeros((s, s), dtype=torch.bool, device=dev)
     base = 0
     for m in psched.members:
@@ -123,7 +128,9 @@ def kernel_phase(dev, K, OPS, SC):
     fwd_lib = _median_ms(lib, 20)
     fwd_bytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel()) \
         + 4 * lse.numel()
-    fwd_flops = 4 * blk * blk * d * psched.steps * h
+    # QK^T and PV: 2 * D multiply-adds per head for each unmasked pair
+    pairs = int(mask.sum())
+    fwd_flops = 4 * d * h * pairs
     fwd_bound, fwd_by = _bound(fwd_bytes, fwd_flops, dt)
 
     # decode round: 4 skewed slots over a 2048-token f32 cache
@@ -156,8 +163,11 @@ def kernel_phase(dev, K, OPS, SC):
         qd, kc, vc, tbl, capacity=needed, blk=blk, tiles=needed,
         scale=d ** -0.5), 3, 1)
     dec_lib_ms = _median_ms(dec_lib, 50)
-    dec_bytes = 2 * qd.numel() * 2 + needed * blk * hkv * d * 4 * 2
-    dec_flops = 4 * h * d * needed * blk
+    # each slot reads its [kv_first, kv_len) rows of K and V once
+    kv_tokens = int((tbl_np[3] - tbl_np[4]).sum())
+    dec_bytes = (qd.numel() + b * h * d) * qd.element_size() \
+        + tbl.numel() * 4 + kv_tokens * hkv * d * kc.element_size() * 2
+    dec_flops = 4 * h * d * kv_tokens
     dec_bound, dec_by = _bound(dec_bytes, dec_flops, torch.float32)
     return [
         {"name": "tri_attn.packed_fwd", "route": "cuda",
@@ -166,7 +176,7 @@ def kernel_phase(dev, K, OPS, SC):
          "max_abs_err": err_fwd, "ms": fwd_ms, "plain_ms": fwd_plain,
          "bound_ms": fwd_bound, "bound_by": fwd_by, "library_ms": fwd_lib,
          "shape": {"lens": lens, "H": h, "Hkv": hkv, "D": d, "blk": blk,
-                   "steps": psched.steps}},
+                   "steps": psched.steps, "pairs": pairs}},
         {"name": "tri_attn.packed_decode_fwd", "route": "cuda",
          "source": "src/repro_torch/csrc/packed_decode.cu",
          "replaces": "src/repro/kernels/tri_attn/kernel.py:742",
@@ -174,7 +184,8 @@ def kernel_phase(dev, K, OPS, SC):
          "bound_ms": dec_bound, "bound_by": dec_by,
          "library_ms": dec_lib_ms,
          "shape": {"kv_lens": kv_lens, "H": h, "Hkv": hkv, "D": d,
-                   "blk": blk, "S_cache": s_cache, "tiles": needed}},
+                   "blk": blk, "S_cache": s_cache, "tiles": needed,
+                   "kv_tokens": kv_tokens}},
     ]
 
 

@@ -88,8 +88,8 @@ def _decode_qkv(params, x, cfg, cache_k, cache_v, pos):
 
 
 def decode_attention(params, x, cfg, *, cache_k, cache_v, pos):
-    """Lockstep single-token decode against the full cache (the decode
-    ladder's last rung). x: (B, 1, d); cache_k/v: (B, S_cache, Hkv, hd);
+    """Lockstep single-token decode against the full cache (the plain
+    decode_mode="lockstep" and the sequential prefill). x: (B, 1, d); cache_k/v: (B, S_cache, Hkv, hd);
     pos: scalar or (B,). Returns (out (B, 1, d), cache_k, cache_v)."""
     b = x.shape[0]
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim

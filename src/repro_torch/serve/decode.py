@@ -24,8 +24,7 @@ from repro_torch.kernels.tri_attn import ops as attn_ops
 from repro_torch.models import model as MD
 
 
-def sample_logits(logits, *, temperature: float = 0.0,
-                  top_k: Optional[int] = None, vocab_size: int = 0,
+def sample_logits(logits, *, temperature: float = 0.0, vocab_size: int = 0,
                   generator: Optional[torch.Generator] = None):
     """logits: (B, Vp) f32 -> (B,) int tokens. temperature 0 is greedy
     argmax (first maximum, as the reference); otherwise a draw from
@@ -37,10 +36,6 @@ def sample_logits(logits, *, temperature: float = 0.0,
     if temperature == 0.0:
         return torch.argmax(logits, dim=-1)
     logits = logits / temperature
-    if top_k is not None:
-        kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
-        logits = torch.where(logits < kth, torch.finfo(torch.float32).min,
-                             logits)
     probs = torch.softmax(logits, dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
@@ -59,13 +54,11 @@ def states_finite(states) -> bool:
     return bool(torch.isfinite(states).all())
 
 
-def traced_prefill_ok(lens: Sequence[int], block: int,
-                      max_lam: Optional[int] = None) -> bool:
+def traced_prefill_ok(lens: Sequence[int], block: int) -> bool:
     """True iff every member's largest lambda, tri(ceil(S_r / block)) - 1,
-    stays inside the certified int32 map envelope LTM_TRACED_MAX_LAM;
-    beyond it the engine takes the host-map (sequential) path."""
-    cap = M.LTM_TRACED_MAX_LAM if max_lam is None else max_lam
-    return all(M.tri(-(-int(s) // block)) - 1 <= cap for s in lens)
+    stays inside the certified int32 map envelope LTM_TRACED_MAX_LAM."""
+    return all(M.tri(-(-int(s) // block)) - 1 <= M.LTM_TRACED_MAX_LAM
+               for s in lens)
 
 
 def round_capacity(needed: int, floor: int = 8) -> int:
@@ -95,29 +88,21 @@ def decode_block_for(block: int, s_cache: int) -> int:
 
 
 def decode_step_packed(params, cfg, cache, tokens, pos, kv_lens, slots, *,
-                       block: int = 16, impl: str = "cuda",
-                       n_members: int = 0, capacity: int = 0, window=None):
+                       block: int = 16, impl: str = "cuda"):
     """One PACKED decode round: every live slot advances one token, one
     launch per attention layer. tokens: (B, 1); pos: (B,) (stale entries
     of retired slots are fine); kv_lens/slots: host lists for the live
-    slots. Returns (logits, cache, info) with info the round's tile
-    accounting {"tiles", "tiles_padded", "capacity", "blk",
-    "rebucketed"}."""
+    slots. The member table is B + 1 wide (the pad member last). Returns
+    (logits, cache, info) with info the round's tile accounting
+    {"tiles", "tiles_padded", "capacity", "blk"}."""
     b = tokens.shape[0]
-    n_members = n_members or b + 1
-    if cfg.sliding_window is not None and window is not None:
-        raise ValueError("window= band-limiting is invalid over a rolling "
-                         "sliding-window cache; keep window=None")
     s_cache = _attn_cache_len(cfg, cache)
     blk = decode_block_for(block, s_cache)
     tbl, needed = attn_ops.make_decode_table(
-        kv_lens, slots, blk=blk, n_members=n_members, n_slots=b,
-        s_cache=s_cache, window=window)
-    capacity = capacity or round_capacity(needed)
-    rebucketed = capacity < needed
-    if rebucketed:
-        capacity = round_capacity(needed)
-    spec = attn_ops.DecodeRoundSpec(n_members=n_members, capacity=capacity,
+        kv_lens, slots, blk=blk, n_members=b + 1, n_slots=b,
+        s_cache=s_cache)
+    capacity = round_capacity(needed)
+    spec = attn_ops.DecodeRoundSpec(n_members=b + 1, capacity=capacity,
                                     blk=blk, impl=impl, tiles=needed)
     logits, cache = MD.decode_step(
         params, cfg, cache, tokens, pos,
@@ -126,17 +111,17 @@ def decode_step_packed(params, cfg, cache, tokens, pos, kv_lens, slots, *,
     n_live = len(list(kv_lens))
     tiles_max = int(np.max(tbl[2, :n_live])) if n_live else 0
     info = {"tiles": needed, "tiles_padded": n_live * tiles_max,
-            "capacity": capacity, "blk": blk, "rebucketed": rebucketed}
+            "capacity": capacity, "blk": blk}
     return logits, cache, info
 
 
 def packed_prefill(params, cfg, prompts, *, block: int = 16,
-                   attn_impl: str = "cuda", bucket: int = 0, device="cuda"):
+                   attn_impl: str = "cuda", device="cuda"):
     """Prefill a ragged prompt batch in ONE packed forward.
 
-    Each prompt is zero-padded to a multiple of ``block`` (``bucket`` > 0
-    rounds the padded length up to a multiple of it) at its causal tail:
-    real rows never attend the pad and pad rows are never spliced out.
+    Each prompt is zero-padded to a multiple of ``block`` at its causal
+    tail: real rows never attend the pad and pad rows are never spliced
+    out.
     Returns (psched, starts, lens, hidden, states); request r's tokens
     occupy packed rows [starts[r], starts[r] + lens[r])."""
     if not all(k == "attn" for k in cfg.layer_kinds):
@@ -144,8 +129,7 @@ def packed_prefill(params, cfg, prompts, *, block: int = 16,
                          "mixers; recurrent state would leak across the "
                          "packed request boundary")
     lens = [int(len(p)) for p in prompts]
-    quantum = max(block, -(-bucket // block) * block if bucket else block)
-    pads = [-(-s // quantum) * quantum for s in lens]
+    pads = [-(-s // block) * block for s in lens]
     starts = [int(x) for x in np.cumsum([0] + pads[:-1])]
     s_total = sum(pads)
     tokens = np.zeros((1, s_total), np.int64)

@@ -1,39 +1,43 @@
 """Batched serving engine, split mode (port of ``repro/serve/engine.py``;
-the fused step, snapshot/restore and the fleet are not ported yet).
+the fused step, snapshot/restore, the fleet and the reference's options
+that no caller here sets — deadlines, load shedding, fifo admission,
+prompt buckets, the decode auto-mode — are not ported yet).
 
 A fixed batch of B slots, each with its own absolute position, so a
 finished slot is refilled without draining the batch. Every admit round
 prefills all its requests in ONE packed ragged launch per layer
 (``decode.packed_prefill``) and splices each request's KV rows into its
 slot; every decode round advances all live slots in one packed launch per
-layer (``decode.decode_step_packed``), or in the lockstep full-cache
-einsum. Which requests ride together is cost-ordered: the oldest queued
-request always rides, the remaining free slots alternate the lightest and
-heaviest pending by tile count tri(ceil(S / block)).
+layer (``decode.decode_step_packed``), or, with the plain impl only, in
+the lockstep full-cache einsum. Which requests ride together is
+cost-ordered: the oldest queued request always rides, the remaining free
+slots alternate the lightest and heaviest pending by tile count
+tri(ceil(S / block)).
 
-Every round may fail; the engine then walks the declared degradation
-ladder (``resilience.faults.LADDERS``):
+A NaN/Inf guard inspects every round's output. A poisoned admit round is
+retried with bounded, seeded backoff and then walks the admit ladder
+(``resilience.faults.LADDERS``), each transition counted in
+``launches_degraded_total``:
 
-  admit   packed -> packed_scan -> sequential
-          (packed_scan is the plain PyTorch version of the kernel, taken
-          only when prefill_impl="cuda" failed)
-  decode  packed -> lockstep
+  prefill_impl="torch"   packed -> sequential
+  prefill_impl="cuda"    packed (no rung runs the plain version)
 
-with bounded, seeded retries per stage. Each transition is counted in
-``launches_degraded_total``. A NaN/Inf guard inspects every round's
-output; a poisoned slot is quarantined and its request replayed from
-prompt + emitted tokens. Every submitted request ends in exactly one
-terminal status (done / shed / deadline_miss / failed).
+A poisoned decode slot is quarantined and its request replayed from
+prompt + emitted tokens. Any other exception — a kernel's launch error, a
+failed shape check — is neither retried nor degraded: it leaves ``run``
+as an ``EngineStepError``, so a failing kernel never hides behind the
+plain version. Every request that ``run`` returns ended ``done`` or
+``failed`` (poisoned past the last rung).
 
 Kernel builds happen at construction when an impl is "cuda", so a build
-failure raises there instead of being absorbed by the ladder.
+failure raises there.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +55,9 @@ from repro_torch.resilience import health as H
 from repro_torch.serve import decode as D
 from repro_torch.serve import kv_cache as KV
 
+STATS_LOG_ROUNDS = 1024  # rounds kept by the stats ring logs
+QUARANTINE_ROUNDS = 8    # decode rounds a poisoned slot sits out
+
 
 @dataclasses.dataclass
 class Request:
@@ -60,8 +67,6 @@ class Request:
     out: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
     status: str = "queued"
-    deadline_s: Optional[float] = None
-    submitted_at: float = 0.0
     replays: int = 0
     error: Optional[str] = None
 
@@ -74,19 +79,22 @@ class Request:
                                np.asarray(self.out, np.int32)])
 
 
-# Decode auto-mode cost model, copied from the reference: "auto" goes
-# packed only when RATIO * sum(tiles) < B * max(tiles). The reference
-# measured 2.3 on its CPU harness; it has not been measured on the card.
-PACKED_TILE_COST_RATIO = 2.3
-
-
 class EngineStepError(RuntimeError):
-    """A round failed past the last rung of its degradation ladder."""
+    """A round raised something other than a poisoned output (a kernel's
+    launch error, a failed check). Never retried or degraded."""
 
     def __init__(self, phase: str, rnd: int, cause: BaseException):
-        super().__init__(f"{phase} round {rnd} failed after retries and "
-                         f"degradation: {type(cause).__name__}: {cause}")
+        super().__init__(f"{phase} round {rnd} failed: "
+                         f"{type(cause).__name__}: {cause}")
         self.phase, self.round, self.cause = phase, rnd, cause
+
+
+def admit_ladder(prefill_mode: str, prefill_impl: str) -> Tuple[str, ...]:
+    """The admit round's rungs, fastest first. The kernel's ladder holds
+    no rung that runs the plain version."""
+    if prefill_mode == "sequential":
+        return ("sequential",)
+    return ("packed",) if prefill_impl == "cuda" else ("packed", "sequential")
 
 
 class Engine:
@@ -98,25 +106,27 @@ class Engine:
                  cache_dtype=torch.float32, temperature: float = 0.0,
                  seed: int = 0, prefill_mode: str = "packed",
                  prefill_block: int = 16, prefill_impl: str = "cuda",
-                 prefill_bucket: int = 0, decode_mode: str = "auto",
-                 decode_block: int = 16, decode_impl: str = "cuda",
-                 admit_order: str = "cost",
-                 stats_log_rounds: int = 1024, clock=None,
+                 decode_mode: str = "packed", decode_block: int = 16,
+                 decode_impl: str = "cuda",
                  retry: Optional[F.RetryPolicy] = None,
-                 deadline_s: Optional[float] = None,
-                 max_queue_tiles: int = 0, quarantine_rounds: int = 8,
-                 traced_max_lam: Optional[int] = None,
-                 guard_output: bool = True, device=DEV.DEFAULT_DEVICE):
-        self.device = DEV.resolve(device)
+                 device=DEV.DEFAULT_DEVICE):
         if prefill_mode not in ("packed", "sequential"):
             raise ValueError(f"prefill_mode {prefill_mode!r}")
-        if decode_mode not in ("auto", "packed", "lockstep"):
+        if decode_mode not in ("packed", "lockstep"):
             raise ValueError(f"decode_mode {decode_mode!r}")
-        if admit_order not in ("cost", "fifo"):
-            raise ValueError(f"admit_order {admit_order!r}")
         for impl in (prefill_impl, decode_impl):
             if impl not in self.IMPLS:
                 raise ValueError(f"impl {impl!r}; known {self.IMPLS}")
+        if (prefill_mode, prefill_impl) == ("sequential", "cuda") or \
+                (decode_mode, decode_impl) == ("lockstep", "cuda"):
+            raise ValueError("sequential prefill and lockstep decode run the "
+                             "plain version: pass impl='torch' with them")
+        if not D.traced_prefill_ok([max_len], prefill_block):
+            raise ValueError(
+                f"max_len {max_len} at block {prefill_block} exceeds the "
+                f"traced map envelope (LTM_TRACED_MAX_LAM); the host-map "
+                f"prefill is not ported")
+        self.device = DEV.resolve(device)
         if "cuda" in (prefill_impl, decode_impl):
             if self.device.type != "cuda":
                 raise ValueError("impl='cuda' needs device='cuda'; pass "
@@ -136,32 +146,23 @@ class Engine:
         self.finished: List[Request] = []
         self.temperature = temperature
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
-        self.prefill_mode = prefill_mode
         self.prefill_block = prefill_block
         self.prefill_impl = prefill_impl
-        self.prefill_bucket = prefill_bucket
+        self._admit_stages = admit_ladder(prefill_mode, prefill_impl)
         self.decode_mode = decode_mode
         self.decode_impl = decode_impl
         self.s_cache = D._attn_cache_len(cfg, self.cache)
         self.decode_block = D.decode_block_for(decode_block, self.s_cache)
-        self.admit_order = admit_order
-        self.clock = clock if clock is not None else time.monotonic
         self.retry = retry if retry is not None else F.RetryPolicy(seed=seed)
-        self.default_deadline_s = deadline_s
-        self.max_queue_tiles = max_queue_tiles
-        self.quarantine_rounds = quarantine_rounds
-        self._traced_max_lam = (M.LTM_TRACED_MAX_LAM if traced_max_lam
-                                is None else traced_max_lam)
-        self.guard_output = guard_output
         self.quarantined: Dict[int, int] = {}  # slot -> release round
         self._rolling = cfg.sliding_window is not None
         self._round_watch = H.RoundWatch()
         self._admit_round_idx = 0
         self._decode_round_idx = 0
         self.registry = MET.Registry("engine")
-        self._admit_order_log = MET.RingLog(maxlen=stats_log_rounds)
-        self._admit_round_tiles = MET.RingLog(maxlen=stats_log_rounds)
-        self._failures = MET.RingLog(maxlen=stats_log_rounds)
+        self._admit_order_log = MET.RingLog(maxlen=STATS_LOG_ROUNDS)
+        self._admit_round_tiles = MET.RingLog(maxlen=STATS_LOG_ROUNDS)
+        self._failures = MET.RingLog(maxlen=STATS_LOG_ROUNDS)
 
     # -- telemetry -----------------------------------------------------------
     _COUNTERS = ("prefill_launches", "prefill_requests", "prefill_tokens",
@@ -203,15 +204,6 @@ class Engine:
                 for r in reqs}
 
     # -- resilience plumbing -------------------------------------------------
-    def _sleep(self, dt: float):
-        if dt <= 0.0:
-            return
-        sleeper = getattr(self.clock, "sleep", None)
-        if sleeper is not None:
-            sleeper(dt)
-        else:
-            time.sleep(min(dt, self.retry.cap_s))
-
     def _finish(self, req: Request, status: str,
                 error: Optional[str] = None):
         req.status = status
@@ -239,35 +231,36 @@ class Engine:
                            "to": to, "round": rnd, "reason": reason[:200]})
 
     def _attempt(self, fn, n_affected: int):
-        """One ladder stage with bounded retries + seeded backoff.
-        Returns (ok, result, err)."""
-        err: Optional[BaseException] = None
+        """One ladder stage; a poisoned output is retried with bounded,
+        seeded backoff and re-raised once the retries are spent."""
         for attempt in range(self.retry.max_retries + 1):
             try:
-                return True, fn(attempt), None
-            except Exception as e:  # noqa: BLE001 — hardening boundary
-                err = e
-                if attempt < self.retry.max_retries:
-                    self._inc_res("requests_retried_total", n_affected)
-                    self._sleep(self.retry.delay(attempt))
-        return False, None, err
+                return fn()
+            except F.PoisonedOutput:
+                if attempt == self.retry.max_retries:
+                    raise
+                self._inc_res("requests_retried_total", n_affected)
+                time.sleep(self.retry.delay(attempt))
 
-    def _run_ladder(self, phase: str, rnd: int, stages: List[str],
-                    runner, n_affected: int):
-        err: Optional[BaseException] = None
+    def _run_ladder(self, phase: str, rnd: int, stages, runner,
+                    n_affected: int):
+        """Walk ``stages`` fastest first: a stage whose output stays
+        poisoned hands the round to the next one, and past the last one
+        the PoisonedOutput propagates. Anything else raises
+        EngineStepError at once."""
         for si, stage in enumerate(stages):
-            ok, result, err = self._attempt(
-                lambda a, s=stage: runner(s, a), n_affected)
-            if ok:
-                return result, stage
-            if si + 1 < len(stages):
+            try:
+                return self._attempt(lambda: runner(stage), n_affected)
+            except F.PoisonedOutput as e:
+                if si + 1 == len(stages):
+                    raise
                 self._degrade(phase, rnd, stage, stages[si + 1],
-                              reason=f"{type(err).__name__}: {err}")
-        raise EngineStepError(phase, rnd, err)
+                              reason=f"{type(e).__name__}: {e}")
+            except Exception as e:  # noqa: BLE001 — surfaced, not absorbed
+                raise EngineStepError(phase, rnd, e) from e
 
     # -- admission -----------------------------------------------------------
-    def submit(self, prompt: np.ndarray, max_new: int, uid: int,
-               deadline_s: Optional[float] = None):
+    def submit(self, prompt: np.ndarray, max_new: int, uid: int):
         prompt = np.asarray(prompt, np.int32)
         if prompt.size == 0:
             raise ValueError(f"request {uid}: empty prompt")
@@ -276,52 +269,7 @@ class Engine:
                 f"request {uid}: prompt of {prompt.size} tokens exceeds "
                 f"max_len={self.max_len} — its KV splice would overflow "
                 f"the slot cache (raise max_len or truncate)")
-        req = Request(uid, prompt, max_new,
-                      deadline_s=(self.default_deadline_s
-                                  if deadline_s is None else deadline_s),
-                      submitted_at=float(self.clock()))
-        self.queue.append(req)
-        self._shed_overload()
-
-    def _shed_overload(self):
-        """While the queue's tile total exceeds max_queue_tiles, shed the
-        heaviest request that is not the queue head."""
-        if not self.max_queue_tiles:
-            return
-        while len(self.queue) > 1 and \
-                sum(self._prefill_tiles(r) for r in self.queue) \
-                > self.max_queue_tiles:
-            victim_i = max(range(1, len(self.queue)),
-                           key=lambda i: (self._prefill_tiles(self.queue[i]),
-                                          i))
-            victim = self.queue.pop(victim_i)
-            self._inc_res("requests_shed_total")
-            self._finish(victim, "shed", error=(
-                f"shed: queue over capacity ({self.max_queue_tiles} "
-                f"tiles) and this was the heaviest non-head request"))
-
-    def _expire_deadlines(self):
-        """Retire queued and running requests past their deadline."""
-        now = float(self.clock())
-
-        def missed(req):
-            return req.deadline_s is not None and \
-                now - req.submitted_at > req.deadline_s
-
-        for req in [r for r in self.queue if missed(r)]:
-            self.queue.remove(req)
-            self._miss(req, now)
-        for slot in range(self.B):
-            req = self.slot_req[slot]
-            if req is not None and missed(req):
-                self.slot_req[slot] = None
-                self._miss(req, now)
-
-    def _miss(self, req: Request, now: float):
-        self._inc_res("deadline_misses_total")
-        self._finish(req, "deadline_miss", error=(
-            f"deadline {req.deadline_s}s exceeded after "
-            f"{now - req.submitted_at:.3f}s"))
+        self.queue.append(Request(uid, prompt, max_new))
 
     def _prefill_into_slot(self, slot: int, req: Request):
         """Sequential host-map prefill: run the request's feed through
@@ -340,23 +288,7 @@ class Engine:
         self._inc("prefill_requests")
         self._inc("prefill_tokens", len(toks))
 
-    def _admit_stages(self, rnd: int, reqs: List[Request]) -> List[str]:
-        if self.prefill_mode != "packed":
-            return ["sequential"]
-        if not D.traced_prefill_ok([len(r.feed) for r in reqs],
-                                   self.prefill_block,
-                                   self._traced_max_lam):
-            self._degrade("admit", rnd, "traced", "host", reason=(
-                "member exceeds the certified traced-isqrt envelope "
-                f"(traced_max_lam={self._traced_max_lam})"))
-            return ["sequential"]
-        stages = ["packed"]
-        if self.prefill_impl == "cuda":
-            stages.append("packed_scan")
-        stages.append("sequential")
-        return stages
-
-    def _admit_packed(self, pairs, rnd: int, impl: str):
+    def _admit_packed(self, pairs, rnd: int):
         """ONE packed prefill launch per layer for every (slot, request)
         pair, then per-slot KV splicing, committed only after the output
         guard passes."""
@@ -364,10 +296,9 @@ class Engine:
         with TR.span("engine.admit_batch", requests=len(pairs)) as sp:
             _, starts, lens, _, states = D.packed_prefill(
                 self.params, self.cfg, prompts, block=self.prefill_block,
-                attn_impl=impl, bucket=self.prefill_bucket,
-                device=self.device)
+                attn_impl=self.prefill_impl, device=self.device)
             sp.attach(states["l0"]["k"])
-        if self.guard_output and not D.states_finite(states):
+        if not D.states_finite(states):
             raise F.PoisonedOutput(
                 f"admit round {rnd}: non-finite packed prefill states")
         self._inc("prefill_launches")
@@ -381,26 +312,13 @@ class Engine:
             self.slot_req[slot] = req
             self.remaining[slot] = req.max_new - len(req.out)
 
-    def _admit_sequential(self, pairs, rnd: int):
-        """Per-request sequential prefill; each request is retried and
-        failed individually."""
-        for slot, req in pairs:
-            ok, _, err = self._attempt(
-                lambda attempt, s=slot, r=req: self._prefill_into_slot(s, r),
-                n_affected=1)
-            if not ok:
-                self._record_failure(req, "admit", rnd, err)
-
     def _prefill_tiles(self, req: Request) -> int:
         """Packed-prefill cost of one request: tri(ceil(S / block))."""
         return M.tri(-(-len(req.feed) // self.prefill_block))
 
     def _pick_requests(self, take: int) -> List[Request]:
         """Pop ``take`` queued requests: the oldest always rides, then the
-        lightest / heaviest alternate ("cost"), or arrival order
-        ("fifo")."""
-        if self.admit_order != "cost":
-            return [self.queue.pop(0) for _ in range(take)]
+        lightest / heaviest pending alternate."""
         tiles = [self._prefill_tiles(r) for r in self.queue]
         heavy = iter(sorted(range(len(tiles)), key=lambda i: (-tiles[i], i)))
         light = iter(sorted(range(len(tiles)), key=lambda i: (tiles[i], i)))
@@ -445,47 +363,41 @@ class Engine:
             sum(self._prefill_tiles(r) for r in reqs))
         rnd = self._admit_round_idx
         self._admit_round_idx += 1
-        stages = self._admit_stages(rnd, reqs)
 
-        def runner(stage, attempt):
-            if stage == "sequential":
-                return self._admit_sequential(pairs, rnd)
-            impl = "torch" if stage == "packed_scan" else self.prefill_impl
-            return self._admit_packed(pairs, rnd, impl)
+        def runner(stage):
+            if stage == "packed":
+                return self._admit_packed(pairs, rnd)
+            for slot, req in pairs:
+                self._prefill_into_slot(slot, req)
 
         try:
-            self._run_ladder("admit", rnd, stages, runner,
+            self._run_ladder("admit", rnd, self._admit_stages, runner,
                              n_affected=len(pairs))
-        except (EngineStepError, F.PoisonedOutput) as e:
+        except F.PoisonedOutput as e:
             for slot, req in pairs:
                 if self.slot_req[slot] is req:
                     self.slot_req[slot] = None
-                self._record_failure(req, "admit", rnd,
-                                     getattr(e, "cause", e))
+                self._record_failure(req, "admit", rnd, e)
 
     # -- decode loop ---------------------------------------------------------
-    def _decode_stage(self, stage: str, live, kv_lens):
-        if stage == "packed":
-            with TR.span("engine.decode_round", mode="packed",
-                         live=len(live)) as sp:
-                logits, cache, info = D.decode_step_packed(
+    def _decode_round(self, live, kv_lens):
+        with TR.span("engine.decode_round", mode=self.decode_mode,
+                     live=len(live)) as sp:
+            if self.decode_mode == "packed":
+                logits, cache, _ = D.decode_step_packed(
                     self.params, self.cfg, self.cache, self.last_tok,
                     self.pos, kv_lens, live, block=self.decode_block,
                     impl=self.decode_impl)
-                sp.attach(logits)
-        else:
-            with TR.span("engine.decode_round", mode="lockstep",
-                         live=len(live)) as sp:
+            else:
                 logits, cache = MD.decode_step(self.params, self.cfg,
                                                self.cache, self.last_tok,
                                                self.pos)
-                sp.attach(logits)
+            sp.attach(logits)
         return logits, cache
 
     def step(self):
-        """One decode round across all live slots (packed or lockstep),
-        under the decode ladder; logits pass the NaN/Inf guard before any
-        token is committed."""
+        """One decode round across all live slots (packed or lockstep);
+        logits pass the NaN/Inf guard before any token is committed."""
         active = np.array([r is not None for r in self.slot_req])
         if not active.any():
             return
@@ -493,40 +405,27 @@ class Engine:
         pos_np = self.pos.cpu().numpy()
         kv_lens = [int(min(pos_np[s] + 1, self.s_cache)) for s in live]
         tiles = [-(-kl // self.decode_block) for kl in kv_lens]
-        use_packed = self.decode_mode == "packed" or (
-            self.decode_mode == "auto"
-            and PACKED_TILE_COST_RATIO * sum(tiles) < self.B * max(tiles))
         self._inc("decode_rounds")
         self._inc("decode_tiles_packed", sum(tiles))
         self._inc("decode_tiles_padded", len(live) * max(tiles))
         rnd = self._decode_round_idx
         self._decode_round_idx += 1
-        stages = ["packed", "lockstep"] if use_packed else ["lockstep"]
-        t0 = float(self.clock())
+        t0 = time.monotonic()
         try:
-            (logits, cache), stage = self._run_ladder(
-                "decode", rnd, stages,
-                lambda s, a: self._decode_stage(s, live, kv_lens),
-                n_affected=len(live))
-        except EngineStepError as e:
-            for slot in live:
-                req = self.slot_req[slot]
-                self.slot_req[slot] = None
-                self._record_failure(req, "decode", rnd, e.cause)
-            return
-        self._inc("decode_packed_launches" if stage == "packed"
+            logits, cache = self._decode_round(live, kv_lens)
+        except Exception as e:  # noqa: BLE001 — surfaced, not absorbed
+            raise EngineStepError("decode", rnd, e) from e
+        self._inc("decode_packed_launches" if self.decode_mode == "packed"
                   else "decode_lockstep_launches")
-        if self._round_watch.observe(float(self.clock()) - t0):
+        if self._round_watch.observe(time.monotonic() - t0):
             self._inc_res("rounds_straggler_total")
         logits = logits[:, 0]
-        bad: List[int] = []
-        if self.guard_output:
-            bad = D.poisoned_slots(logits.cpu().numpy(), live)
+        bad = D.poisoned_slots(logits.cpu().numpy(), live)
         replays: List[Request] = []
         for slot in bad:
             req = self.slot_req[slot]
             self.slot_req[slot] = None
-            self.quarantined[slot] = rnd + 1 + self.quarantine_rounds
+            self.quarantined[slot] = rnd + 1 + QUARANTINE_ROUNDS
             req.replays += 1
             req.status = "queued"
             replays.append(req)
@@ -566,9 +465,9 @@ class Engine:
     def run(self, max_steps: int = 10_000) -> Dict[int, List[int]]:
         """Drive admission + decode until drained (or max_steps rounds).
         Returns {uid: tokens} for every request that reached a terminal
-        state (see report() for statuses)."""
+        state (see report() for statuses); raises EngineStepError when a
+        round raised anything but a poisoned output."""
         for _ in range(max_steps):
-            self._expire_deadlines()
             self._admit()
             if self.idle():
                 break

@@ -137,3 +137,29 @@ def test_device_member_map_equals_torch(dev):
     gi, gj = K.member_map_device(lam.to(dev), n, n, 0)
     assert torch.equal(gi.cpu(), wi) and torch.equal(gj.cpu(), wj)
     assert int(gi[-1]) == M.LTM_TRACED_MAX_I
+
+
+@pytest.mark.parametrize("kernel", ["packed_fwd", "packed_decode_fwd"])
+def test_engine_raises_when_a_kernel_fails(dev, monkeypatch, kernel):
+    """A kernel that raises on the card stops the engine: no rung falls
+    back to the plain version, nothing is degraded or retried."""
+    from repro_torch.configs import registry as REG
+    from repro_torch.models import model as MD
+    from repro_torch.serve.engine import Engine, EngineStepError
+
+    def boom(*a, **k):
+        raise RuntimeError("kernel launch failed")
+
+    cfg = REG.smoke_config("yi-9b")
+    params = MD.init_params(cfg, seed=0, device=dev)
+    eng = Engine(params, cfg, slots=2, max_len=64, device=dev)
+    rng = np.random.default_rng(1)
+    for uid, s in enumerate((20, 7, 33)):
+        eng.submit(rng.integers(1, cfg.vocab_size, size=s), max_new=3,
+                   uid=uid)
+    monkeypatch.setattr(K, kernel, boom)
+    with pytest.raises(EngineStepError, match="kernel launch failed"):
+        eng.run()
+    st = eng.stats
+    assert st["launches_degraded_total"] == st["requests_retried_total"] \
+        == st["decode_lockstep_launches"] == 0

@@ -19,7 +19,11 @@ from repro.configs import registry as JREG
 from repro.models import model as JMD
 from repro.serve.engine import Engine as JEngine
 from repro_torch.configs import registry as REG
+from repro_torch.kernels.tri_attn import scan_impl as SC
 from repro_torch.models import model as MD
+from repro_torch.resilience import faults as F
+from repro_torch.serve import decode as D
+from repro_torch.serve import engine as E
 from repro_torch.serve.engine import Engine
 
 torch.set_num_threads(2)
@@ -100,3 +104,61 @@ def test_no_silent_cpu_fallback():
         Engine(params, cfg)
     with pytest.raises(RuntimeError, match="cuda"):
         MD.init_params(cfg)
+
+
+def test_kernel_ladder_holds_no_plain_rung():
+    """With impl="cuda" no rung runs the plain version: the admit ladder
+    is the packed kernel alone, and the plain-only modes are refused."""
+    assert E.admit_ladder("packed", "cuda") == ("packed",)
+    assert E.admit_ladder("packed", "torch") == ("packed", "sequential")
+    assert E.admit_ladder("sequential", "torch") == ("sequential",)
+    cfg = REG.smoke_config("yi-9b")
+    params = MD.init_params(cfg, seed=0, device="cpu")
+    for kw in (dict(prefill_mode="sequential", decode_impl="torch"),
+               dict(decode_mode="lockstep", prefill_impl="torch")):
+        with pytest.raises(ValueError, match="plain version"):
+            Engine(params, cfg, device="cpu", **kw)
+
+
+def _smoke_engine(**kw):
+    cfg = REG.smoke_config("yi-9b")
+    params = MD.init_params(cfg, seed=0, device="cpu")
+    eng = Engine(params, cfg, prefill_impl="torch", decode_impl="torch",
+                 device="cpu", **dict(SHARED, **kw))
+    rng = np.random.default_rng(5)
+    for uid, s in enumerate((9, 4, 14)):
+        eng.submit(rng.integers(1, cfg.vocab_size, size=s), max_new=3,
+                   uid=uid)
+    return eng
+
+
+@pytest.mark.parametrize("phase,fn", [("admit", "packed_fwd_torch"),
+                                      ("decode", "packed_decode_torch")])
+def test_launch_error_raises_instead_of_degrading(monkeypatch, phase, fn):
+    """An exception inside a round (here the attention op) is neither
+    retried nor absorbed by a lower rung: run() raises EngineStepError."""
+    def boom(*a, **k):
+        raise RuntimeError("launch failed")
+
+    monkeypatch.setattr(SC, fn, boom)
+    eng = _smoke_engine()
+    with pytest.raises(E.EngineStepError, match="launch failed") as info:
+        eng.run()
+    assert info.value.phase == phase
+    st = eng.stats
+    assert st["launches_degraded_total"] == st["requests_retried_total"] \
+        == st["requests_failed_total"] == 0
+
+
+def test_poisoned_admit_walks_the_ladder_to_sequential(monkeypatch):
+    """A packed admit whose states stay non-finite is retried, then
+    handed to the sequential rung, which emits the same tokens."""
+    want = _smoke_engine().run()
+    monkeypatch.setattr(D, "states_finite", lambda states: False)
+    eng = _smoke_engine(retry=F.RetryPolicy(max_retries=1, base_s=0.0))
+    assert eng.run() == want
+    st = eng.stats
+    assert st["launches_degraded_total"] == st["admit_rounds"] > 0
+    assert st["requests_retried_total"] == sum(
+        len(r) for r in st["admit_order_log"])
+    assert st["requests_failed_total"] == 0
