@@ -169,7 +169,10 @@ def kernel_phase(dev, K, OPS, SC):
         + tbl.numel() * 4 + kv_tokens * hkv * d * kc.element_size() * 2
     dec_flops = 4 * h * d * kv_tokens
     dec_bound, dec_by = _bound(dec_bytes, dec_flops, torch.float32)
-    return [
+    ctx = dict(psched=psched, qkv=(q, k, v), out=out, pairs=pairs,
+               fwd_lib=lib, kv_lens=kv_lens, dec=(qd, kc, vc), dec_out=got,
+               kv_tokens=kv_tokens, dec_lib=dec_lib)
+    return ctx, [
         {"name": "tri_attn.packed_fwd", "route": "cuda",
          "source": "src/repro_torch/csrc/packed_fwd.cu",
          "replaces": "src/repro/kernels/tri_attn/kernel.py:384",
@@ -189,7 +192,146 @@ def kernel_phase(dev, K, OPS, SC):
     ]
 
 
+def fused_kernel_phase(dev, K, OPS, SC, D, ctx):
+    """tri_attn.fused_step_fwd at full yi-9b width: the prefill members of
+    the packed_fwd row admitted into slots 4-7 of B = 8 while slots 0-3
+    decode the packed_decode row's kv_lens, on the same tensors. Held
+    against the plain version, and against the split kernels: bitwise on
+    the prefill half (same body, same 256 threads); the decode half runs
+    its body at 256 threads where packed_decode runs 512, so it is held at
+    OUT_TOL and its bitwise equality is reported."""
+    rng = np.random.default_rng(1)
+    psched = ctx["psched"]
+    qp, kp, vp = ctx["qkv"]
+    qd4, kc4, vc4 = ctx["dec"]
+    kv_lens, live = ctx["kv_lens"], list(range(len(ctx["kv_lens"])))
+    b, h, d = 8, qd4.shape[1], qd4.shape[2]
+    blk, s_cache = psched.blk, kc4.shape[1]
+
+    def more(x):  # slots 4-7 (being admitted) hold other data
+        extra = torch.as_tensor(rng.standard_normal(x.shape, np.float32),
+                                device=dev).to(x.dtype)
+        return torch.cat([x, extra]).contiguous()
+
+    qd, kc, vc = more(qd4), more(kc4), more(vc4)
+    n_members = len(psched.members) + b + 1
+    tbl_np, needed = OPS.make_fused_table(psched, kv_lens, live, blk=blk,
+                                          n_members=n_members, n_slots=b,
+                                          s_cache=s_cache)
+    tbl = torch.as_tensor(tbl_np, device=dev)
+    capacity = psched.steps + D.round_capacity(needed - psched.steps)
+    spec = OPS.FusedStepSpec(n_members=n_members, capacity=capacity,
+                             blk=blk, impl="cuda", tiles=needed)
+    ins = (qp, kp, vp, qd, kc, vc, tbl)
+    o_pack, o_dec = OPS.fused_step_attention(*ins, psched, spec)
+    torch.cuda.synchronize()
+    want_pack, want_dec = SC.fused_step_torch(
+        *ins, capacity=capacity, blk=blk, tiles=needed, scale=d ** -0.5)
+    err = max(_close("fused_step pack", o_pack, want_pack),
+              _close("fused_step decode", o_dec, want_dec))
+    if not torch.equal(o_pack, ctx["out"]):
+        _fail("fused_step: the prefill half is not bitwise equal to "
+              "packed_fwd on the same tensors")
+    _close("fused_step decode vs packed_decode_fwd", o_dec[live],
+           ctx["dec_out"])
+    dec_bitwise = torch.equal(o_dec[live], ctx["dec_out"])
+    if torch.count_nonzero(o_dec[len(live):]):
+        _fail("fused_step: slots without a live decode member are not 0")
+    raw = lambda: K.fused_step_fwd(*ins, psched=psched, capacity=capacity,
+                                   tiles=needed)
+    dtbl_np, dneeded = OPS.make_decode_table(kv_lens, live, blk=blk,
+                                             n_members=len(live) + 1,
+                                             n_slots=len(live),
+                                             s_cache=s_cache)
+    dtbl = torch.as_tensor(dtbl_np, device=dev)
+
+    def split():
+        K.packed_fwd(qp, kp, vp, psched)
+        K.packed_decode_fwd(qd4, kc4, vc4, dtbl, capacity=dneeded, blk=blk,
+                            tiles=dneeded)
+
+    def library():
+        ctx["fwd_lib"]()
+        ctx["dec_lib"]()
+
+    # re-read the split kernels beside the fused one, in turns
+    times = {"fused": [], "split": [], "fwd": [], "dec": []}
+    for _ in range(2):
+        times["fwd"].append(_median_ms(lambda: K.packed_fwd(qp, kp, vp,
+                                                            psched), 10))
+        times["dec"].append(_median_ms(lambda: K.packed_decode_fwd(
+            qd4, kc4, vc4, dtbl, capacity=dneeded, blk=blk,
+            tiles=dneeded), 25))
+        times["fused"].append(_median_ms(raw, 10))
+        times["split"].append(_median_ms(split, 10))
+    fused_ms = statistics.median(times["fused"])
+    plain_ms = _median_ms(lambda: SC.fused_step_torch(
+        *ins, capacity=capacity, blk=blk, tiles=needed, scale=d ** -0.5),
+        3, 1)
+    lib_ms = _median_ms(library, 10)
+    hkv = kp.shape[1]
+    elt = qp.element_size()
+    nbytes = elt * (2 * qp.numel() + kp.numel() + vp.numel()) \
+        + elt * 2 * len(live) * h * d + tbl.numel() * 4 \
+        + ctx["kv_tokens"] * hkv * d * kc.element_size() * 2
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (4 * d * h * ctx["pairs"] / PEAK_FLOPS[torch.bfloat16]
+             + 4 * h * d * ctx["kv_tokens"] / PEAK_FLOPS[torch.float32]) * 1e3
+    bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else \
+        (t_ops, "operations")
+    print(f"fused: fused_step_fwd {times['fused']} ms, split kernels summed "
+          f"{times['split']} ms, packed_fwd {times['fwd']} ms, "
+          f"packed_decode_fwd {times['dec']} ms (re-read in turns); decode "
+          f"half bitwise equal to packed_decode_fwd: {dec_bitwise}; "
+          f"{nbytes} bytes, grid {(n_members - len(psched.members)) * hkv} "
+          f"decode + {psched.total_tiles * h} prefill blocks", flush=True)
+    return {"name": "tri_attn.fused_step_fwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/fused_step.cu",
+            "replaces": "src/repro/kernels/tri_attn/kernel.py:909",
+            "max_abs_err": err, "ms": fused_ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+            "library": "two SDPA calls (prefill with the dense block mask, "
+                       "decode with the kv mask): no single PyTorch call "
+                       "computes the mixed function",
+            "split_ms": statistics.median(times["split"]),
+            "reread_ms": {"tri_attn.packed_fwd": times["fwd"],
+                          "tri_attn.packed_decode_fwd": times["dec"]},
+            "decode_half_bitwise": dec_bitwise,
+            "shape": {"lens": [m.n * blk for m in psched.members],
+                      "kv_lens": kv_lens, "B": b, "S_cache": s_cache,
+                      "tiles": needed, "capacity": capacity,
+                      "bytes": nbytes}}
+
+
+def _check_served(label, eng, results, uids, max_new, cfg):
+    report = eng.report()
+    st = eng.stats
+    if sorted(results) != sorted(uids) or any(
+            r["status"] != "done" for r in report.values()):
+        _fail(f"{label}: not every request is done: {report}")
+    if any(len(results[u]) != m for u, m in zip(uids, max_new)):
+        _fail(f"{label}: a request emitted the wrong number of tokens")
+    if any(not 0 <= t < cfg.vocab_size for u in results for t in results[u]):
+        _fail(f"{label}: a token lies outside the vocabulary")
+    if st["launches_degraded_total"] or st["requests_failed_total"]:
+        _fail(f"{label}: degraded={st['launches_degraded_total']} "
+              f"failed={st['requests_failed_total']}")
+    return st
+
+
+def _serve(eng, prompts, max_new):
+    for uid, (p, m) in enumerate(zip(prompts, max_new)):
+        eng.submit(p, max_new=m, uid=uid)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = eng.run()
+    torch.cuda.synchronize()
+    return results, time.perf_counter() - t0
+
+
 def serving_phase(dev, layers: int, card: str, K):
+    """Split then fused serving at full width on one set of random
+    weights; returns each kernel's launches on its path."""
     import dataclasses
 
     from repro_torch.configs import yi_9b
@@ -209,42 +351,29 @@ def serving_phase(dev, layers: int, card: str, K):
           f"vocab={cfg.vocab_size}: {torch.cuda.memory_allocated() / 1e9:.2f}"
           f" GB of bf16 weights in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    eng = Engine(params, cfg, slots=4, max_len=2048, prefill_block=64,
-                 decode_block=64, prefill_impl="cuda", decode_impl="cuda",
-                 decode_mode="packed", device=dev)
+    kw = dict(slots=4, max_len=2048, prefill_block=64, decode_block=64,
+              prefill_impl="cuda", decode_impl="cuda", decode_mode="packed",
+              device=dev)
+    n_l = cfg.n_layers
     rng = np.random.default_rng(1)
+
+    # split mode: 8 skewed prompts, 32 new tokens each
     prompt_lens = [1000, 90, 500, 250, 700, 60, 380, 150]
-    max_new = 32
-    for uid, n in enumerate(prompt_lens):
-        eng.submit(rng.integers(1, cfg.vocab_size, size=n), max_new=max_new,
-                   uid=uid)
-    K.packed_fwd.launches = 0
-    K.packed_decode_fwd.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    results = eng.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    prompts = [rng.integers(1, cfg.vocab_size, size=n) for n in prompt_lens]
+    max_new = [32] * len(prompts)
+    eng = Engine(params, cfg, **kw)
+    K.packed_fwd.launches = K.packed_decode_fwd.launches = 0
+    K.fused_step_fwd.launches = 0
+    results, wall = _serve(eng, prompts, max_new)
     launches = {"tri_attn.packed_fwd": K.packed_fwd.launches,
                 "tri_attn.packed_decode_fwd": K.packed_decode_fwd.launches}
-    st = eng.stats
-    report = eng.report()
-    if sorted(results) != list(range(len(prompt_lens))) or any(
-            r["status"] != "done" for r in report.values()):
-        _fail(f"serving: not every request is done: {report}")
-    if any(len(results[u]) != max_new for u in results):
-        _fail("serving: a request emitted the wrong number of tokens")
-    if any(not 0 <= t < cfg.vocab_size for u in results for t in results[u]):
-        _fail("serving: a token lies outside the vocabulary")
-    if st["launches_degraded_total"] or st["requests_failed_total"]:
-        _fail(f"serving: degraded={st['launches_degraded_total']} "
-              f"failed={st['requests_failed_total']}")
-    n_l = cfg.n_layers
+    st = _check_served("serving", eng, results, range(len(prompts)),
+                       max_new, cfg)
     if launches["tri_attn.packed_fwd"] != n_l * st["prefill_launches"] or \
             launches["tri_attn.packed_decode_fwd"] != \
             n_l * st["decode_packed_launches"] or \
             st["decode_packed_launches"] != st["decode_rounds"] or \
-            not all(launches.values()):
+            not all(launches.values()) or K.fused_step_fwd.launches:
         _fail(f"serving: kernel launches {launches} != {n_l} layers x "
               f"engine launches (prefill {st['prefill_launches']}, decode "
               f"{st['decode_packed_launches']} of {st['decode_rounds']})")
@@ -258,29 +387,109 @@ def serving_phase(dev, layers: int, card: str, K):
           f"{st['prefill_launches']}, decode rounds {st['decode_rounds']}; "
           f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
           f"card {card}", flush=True)
-    profile_decode(eng, cfg, rng, card)
-    del eng, params
+    for uid, n in enumerate((900, 40, 600, 200)):
+        eng.submit(rng.integers(1, cfg.vocab_size, size=n), max_new=6,
+                   uid=1000 + uid)
+    eng.round()  # admit + first decode round, outside the window
+    profile_rounds(eng, 4, "packed decode rounds", card)
+    eng.run()
+    del eng
+
+    # fused mode: 12 prompts with staggered budgets, so that admit rounds
+    # carry live decode slots; split mode on the same traffic beside it
+    prompt_lens = [1000, 90, 500, 250, 700, 60, 380, 150, 820, 45, 610, 220]
+    prompts = [rng.integers(1, cfg.vocab_size, size=n) for n in prompt_lens]
+    max_new = [8, 40, 16, 32, 24, 12, 36, 20, 28, 10, 18, 30]
+    eng = Engine(params, cfg, step_mode="fused", **kw)
+    K.packed_fwd.launches = K.packed_decode_fwd.launches = 0
+    K.fused_step_fwd.launches = 0
+    results, wall = _serve(eng, prompts, max_new)
+    fused_launches = K.fused_step_fwd.launches
+    st = _check_served("fused serving", eng, results, range(len(prompts)),
+                       max_new, cfg)
+    mixed = st["decode_rounds"] - st["decode_packed_launches"]
+    if fused_launches != n_l * st["fused_launches"] or \
+            K.packed_decode_fwd.launches != \
+            n_l * st["decode_packed_launches"] or K.packed_fwd.launches \
+            or not fused_launches or mixed < 4 or st["fused_fallbacks"]:
+        _fail(f"fused serving: launches fused {fused_launches}, decode "
+              f"{K.packed_decode_fwd.launches}, prefill "
+              f"{K.packed_fwd.launches} for {n_l} layers x engine fused "
+              f"{st['fused_launches']} / decode "
+              f"{st['decode_packed_launches']}; mixed rounds {mixed}")
+    new_tokens = sum(len(v) for v in results.values())
+    split_eng = Engine(params, cfg, **kw)
+    split_results, split_wall = _serve(split_eng, prompts, max_new)
+    _check_served("split serving", split_eng, split_results,
+                  range(len(prompts)), max_new, cfg)
+    del split_eng
+    print(f"fused serving: {len(results)} requests, {sum(prompt_lens)} "
+          f"prompt + {new_tokens} generated tokens: fused {wall:.3f} s, "
+          f"{new_tokens / wall:.1f} generated tokens/s; split on the same "
+          f"traffic {split_wall:.3f} s, {new_tokens / split_wall:.1f} "
+          f"generated tokens/s; fused rounds {st['fused_rounds']} "
+          f"({mixed} with live decode slots), decode-only rounds "
+          f"{st['decode_packed_launches']}, fused tiles {st['fused_tiles']}; "
+          f"card {card}", flush=True)
+    # a profiler window over fused rounds that carry admits: three long
+    # requests decode while one-token requests take the fourth slot
+    for uid, n in enumerate((900, 600, 200)):
+        eng.submit(rng.integers(1, cfg.vocab_size, size=n), max_new=40,
+                   uid=2000 + uid)
+    eng.round()  # admits the long ones, no live slot: outside the window
+    for uid, n in enumerate((700, 150, 400, 90, 300, 500)):
+        eng.submit(rng.integers(1, cfg.vocab_size, size=n), max_new=1,
+                   uid=2100 + uid)
+    eng.round()
+    profile_rounds(eng, 4, "fused rounds (1 admit + 3 live slots each)",
+                   card)
+    eng.run()
+    del eng
+    snapshot_phase(params, cfg, kw, rng, card)
+    del params
     torch.cuda.empty_cache()
-    return launches
+    return dict(launches, **{"tri_attn.fused_step_fwd": fused_launches})
 
 
-def profile_decode(eng, cfg, rng, card, rounds: int = 4):
-    """torch.profiler over a few packed decode rounds of 4 fresh requests:
-    device busy time against wall time, and the kernels that take it."""
+def snapshot_phase(params, cfg, kw, rng, card):
+    """Snapshot a fused engine mid-run, finish it, restore the snapshot on
+    the same params and finish again: identical tokens."""
+    from repro_torch.resilience import snapshot as SNAP
+    from repro_torch.serve.engine import Engine
+
+    eng = Engine(params, cfg, step_mode="fused", **kw)
+    max_new = [6, 14, 9, 12, 4, 10]
+    for uid, (n, m) in enumerate(zip((640, 90, 300, 1200, 40, 500),
+                                     max_new)):
+        eng.submit(rng.integers(1, cfg.vocab_size, size=n), max_new=m,
+                   uid=uid)
+    for _ in range(5):
+        eng.round()
+    t0 = time.perf_counter()
+    snap = SNAP.snapshot(eng)
+    snap_s = time.perf_counter() - t0
+    first = eng.run()
+    again = SNAP.restore(snap, params=params).run()
+    if first != again or sorted(first) != list(range(len(max_new))):
+        _fail(f"snapshot: restored tokens {again} != {first}")
+    print(f"snapshot: fused engine cut after 5 rounds ({snap_s:.3f} s to "
+          f"copy the cache to host), restored on the same params: identical "
+          f"tokens for {len(first)} requests; card {card}", flush=True)
+
+
+def profile_rounds(eng, rounds: int, label: str, card):
+    """torch.profiler over ``rounds`` engine rounds: device busy time
+    against wall time, and the kernels that take it."""
     from torch.profiler import ProfilerActivity, profile
 
-    for uid, n in enumerate((900, 40, 600, 200)):
-        eng.submit(rng.integers(1, cfg.vocab_size, size=n),
-                   max_new=rounds + 2, uid=1000 + uid)
-    eng.run(max_steps=1)  # admit + first decode round, outside the window
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.run(max_steps=rounds)
+        for _ in range(rounds):
+            eng.round()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    eng.run()
     rows = []  # device kernels only: host ops carry their kernels' time too
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total",
@@ -291,39 +500,62 @@ def profile_decode(eng, cfg, rng, card, rounds: int = 4):
     busy = sum(r[0] for r in rows)
     n_kernels = sum(r[1] for r in rows)
     top = "; ".join(f"{name[:60]} {ms:.2f} ms x{n}" for ms, n, name in rows[:6])
-    print(f"profile: {rounds} packed decode rounds, wall {wall_ms:.1f} ms, "
-          f"device busy {busy:.1f} ms ({100 * busy / wall_ms:.1f}%), "
+    print(f"profile: {rounds} {label}, wall {wall_ms:.1f} ms, device busy "
+          f"{busy:.1f} ms ({100 * busy / wall_ms:.1f}%), "
           f"{n_kernels / rounds:.0f} kernel launches a round; top: "
           f"{top or 'no device time in the trace'}; card {card}", flush=True)
 
 
 def smoke_identity(dev):
-    """Smoke-size float32 engine: kernels and plain versions emit identical
-    greedy tokens on the card."""
+    """Smoke-size float32 engines on the card: split and fused with the
+    kernels, fused with the plain versions, all emit identical greedy
+    tokens; a 2-replica fleet with one injected launch error per step mode
+    emits them too."""
     from repro_torch.configs import registry as REG
     from repro_torch.models import model as MD
+    from repro_torch.resilience import faults as F
     from repro_torch.serve.engine import Engine
+    from repro_torch.serve.fleet import Fleet
 
     cfg = REG.smoke_config("yi-9b")
     params = MD.init_params(cfg, seed=0, device=dev)
     rng = np.random.default_rng(2)
     prompts = [rng.integers(1, cfg.vocab_size, size=n)
                for n in (37, 5, 60, 18, 23)]
+    max_new = [8, 3, 6, 9, 5]
+    kw = dict(slots=2, max_len=128, prefill_block=16, decode_block=16,
+              decode_mode="packed", device=dev)
     outs = {}
-    for impl in ("cuda", "torch"):
-        eng = Engine(params, cfg, slots=2, max_len=128, prefill_block=16,
-                     decode_block=16, prefill_impl=impl, decode_impl=impl,
-                     decode_mode="packed", device=dev)
-        for uid, p in enumerate(prompts):
-            eng.submit(p, max_new=8, uid=uid)
-        outs[impl] = eng.run()
-        if eng.stats["launches_degraded_total"]:
-            _fail(f"smoke engine ({impl}) degraded")
-    if outs["cuda"] != outs["torch"]:
-        _fail(f"smoke engine: kernel tokens {outs['cuda']} != plain "
-              f"{outs['torch']}")
-    print(f"smoke: float32 engine, cuda == torch greedy tokens for "
-          f"{len(prompts)} requests", flush=True)
+    for name, impl, mode in (("split cuda", "cuda", "split"),
+                             ("split torch", "torch", "split"),
+                             ("fused cuda", "cuda", "fused"),
+                             ("fused torch", "torch", "fused")):
+        eng = Engine(params, cfg, prefill_impl=impl, decode_impl=impl,
+                     step_mode=mode, **kw)
+        outs[name], _ = _serve(eng, prompts, max_new)
+        _check_served(f"smoke {name}", eng, outs[name], range(len(prompts)),
+                      max_new, cfg)
+    for name, got in outs.items():
+        if got != outs["split cuda"]:
+            _fail(f"smoke: {name} tokens {got} != split cuda "
+                  f"{outs['split cuda']}")
+    for mode in ("split", "fused"):
+        fleet = Fleet(params, cfg, engines=2, heartbeat_timeout_s=5.0,
+                      engine_kw=dict(kw, step_mode=mode),
+                      fault_plan=F.FaultPlan([F.Fault(
+                          "launch_error", "decode", 1, times=99, engine=0)]))
+        for uid, (p, m) in enumerate(zip(prompts, max_new)):
+            fleet.submit(p, max_new=m, uid=uid)
+        got = fleet.run(max_steps=200)
+        st = fleet.stats
+        if got != outs["split cuda"] or not st["fleet_failovers_total"] or \
+                any(r["status"] != "done" for r in fleet.report().values()):
+            _fail(f"smoke fleet ({mode}): tokens {got} != "
+                  f"{outs['split cuda']} or no failover: {st}")
+    print(f"smoke: float32 engines, split/fused x cuda/torch greedy tokens "
+          f"identical for {len(prompts)} requests; 2-replica fleet with an "
+          f"injected launch error fails over to identical tokens in both "
+          f"step modes", flush=True)
 
 
 def main():
@@ -340,6 +572,7 @@ def main():
         from repro_torch.kernels.tri_attn import kernel as K
         from repro_torch.kernels.tri_attn import ops as OPS
         from repro_torch.kernels.tri_attn import scan_impl as SC
+        from repro_torch.serve import decode as D
     except ImportError as e:
         _fail(f"cannot import repro_torch from {src}: {e}")
     dev = torch.device("cuda")
@@ -352,7 +585,9 @@ def main():
     build_s = BUILD.build_all()
     print(f"build: {build_s:.1f} s (nvcc, sm_90a) into {BUILD.build_dir()}",
           flush=True)
-    kernels = kernel_phase(dev, K, OPS, SC)
+    ctx, kernels = kernel_phase(dev, K, OPS, SC)
+    kernels.append(fused_kernel_phase(dev, K, OPS, SC, D, ctx))
+    del ctx
     print("kernels: " + "; ".join(
         f"{k['name']} {k['ms']:.4f} ms (plain {k['plain_ms']:.3f}, SDPA "
         f"{k['library_ms']:.4f}, bound {k['bound_ms']:.4f} by "

@@ -28,26 +28,17 @@
 // KC = min(blk, 32) keys of K and V, the chunk's scores and the per-row
 // softmax state. Keys are consumed in chunks of KC, which keeps the
 // softmax one key per lane and the footprint at ~75 KB for blk = 64,
-// D = 128.
+// D = 128. The block's body is tri::prefill_row_tile (attn_tiles.cuh),
+// which the fused step kernel runs too.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "packing.cuh"
+#include "attn_tiles.cuh"
 
 namespace {
 
-constexpr int NT = 256;
-
-template <int BLK, int D>
-struct FwdShape {
-  static constexpr int KC = BLK < 32 ? BLK : 32;
-  static constexpr int DP = D + 1;
-  static constexpr int SP = KC + 1;
-  static constexpr int ACC = BLK * D / NT;
-  static constexpr int FLOATS = BLK * DP + KC * DP + KC * D + BLK * SP + 3 * BLK;
-  static constexpr size_t BYTES = sizeof(float) * FLOATS;
-};
+constexpr int NT = tri::PREFILL_NT;
 
 template <typename T, int BLK, int D>
 __global__ void __launch_bounds__(NT)
@@ -55,112 +46,22 @@ packed_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, T* __restrict__ out,
                   float* __restrict__ lse, const int* __restrict__ tbl,
                   int n_members, int H, int Hkv, int S, float scale) {
-  using Sh = FwdShape<BLK, D>;
-  constexpr int KC = Sh::KC, DP = Sh::DP, SP = Sh::SP, ACC = Sh::ACC;
-  static_assert(BLK * D % NT == 0, "tile must split evenly over threads");
-  extern __shared__ float smem[];
-  float* sq = smem;
-  float* sk = sq + BLK * DP;
-  float* sv = sk + KC * DP;
-  float* ss = sv + KC * D;
-  float* sm = ss + BLK * SP;
-  float* sl = sm + BLK;
-  float* sa = sl + BLK;
-
+  extern __shared__ __align__(16) unsigned char smem[];
+  // (7, R) table: starts | rows | n | w_b | p_b | win | pre
   const int R = n_members;
-  const int* starts = tbl;
   const int* rows = tbl + R;
   const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (H / Hkv);
   const int r = tri::request_from_starts(tile, rows, R);
-  const int i = tile - rows[r];
-  const int n_r = tbl[2 * R + r], w_r = tbl[3 * R + r], p_r = tbl[4 * R + r];
-  const int win = tbl[5 * R + r], pre = tbl[6 * R + r];
-  const int win_eff = win > 0 ? win : (1 << 30);
-  const int first = tri::first_col_params(i, w_r);
-  const int last = tri::last_col_params(i, p_r);
-  const int lam0 = tri::segment_origin_params(i, w_r, p_r);
-  (void)starts;
-
   const size_t head_elems = static_cast<size_t>(S) * D;
-  const T* qh = q + (static_cast<size_t>(b) * H + h) * head_elems;
-  const T* kh = k + (static_cast<size_t>(b) * Hkv + hk) * head_elems;
-  const T* vh = v + (static_cast<size_t>(b) * Hkv + hk) * head_elems;
-  const int q0 = (rows[r] + i) * BLK;
-
-  for (int e = threadIdx.x; e < BLK * D; e += NT) {
-    const int rr = e / D, d = e % D;
-    sq[rr * DP + d] = tri::to_f32(qh[static_cast<size_t>(q0 + rr) * D + d]);
-  }
-  for (int rr = threadIdx.x; rr < BLK; rr += NT) {
-    sm[rr] = tri::MASK_VALUE;
-    sl[rr] = 0.f;
-  }
-  float acc[ACC];
-#pragma unroll
-  for (int a = 0; a < ACC; ++a) acc[a] = 0.f;
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int s = 0; s <= last - first; ++s) {
-    int ii, j;
-    tri::member_map_params(lam0 + s, n_r, w_r, p_r, &ii, &j);
-    const int k0 = (rows[r] + j) * BLK;
-    for (int c0 = 0; c0 < BLK; c0 += KC) {
-      for (int e = threadIdx.x; e < KC * D; e += NT) {
-        const int cc = e / D, d = e % D;
-        const size_t off = static_cast<size_t>(k0 + c0 + cc) * D + d;
-        sk[cc * DP + d] = tri::to_f32(kh[off]);
-        sv[cc * D + d] = tri::to_f32(vh[off]);
-      }
-      __syncthreads();
-      for (int e = threadIdx.x; e < BLK * KC; e += NT) {
-        const int rr = e / KC, cc = e % KC;
-        float dot = 0.f;
-#pragma unroll 16
-        for (int d = 0; d < D; ++d) dot = fmaf(sq[rr * DP + d], sk[cc * DP + d], dot);
-        const int qp = ii * BLK + rr, kp = j * BLK + c0 + cc;
-        const bool keep = (kp <= qp && qp - kp < win_eff) || kp < pre;
-        ss[rr * SP + cc] = keep ? dot * scale : tri::MASK_VALUE;
-      }
-      __syncthreads();
-      for (int rr = warp; rr < BLK; rr += NT / 32) {
-        const float sval = lane < KC ? ss[rr * SP + lane] : -INFINITY;
-        const float m_prev = sm[rr];
-        const float m_new = fmaxf(m_prev, tri::warp_max(sval));
-        const float p = lane < KC ? expf(sval - m_new) : 0.f;
-        const float psum = tri::warp_sum(p);
-        if (lane < KC) ss[rr * SP + lane] = p;
-        if (lane == 0) {
-          const float alpha = expf(m_prev - m_new);
-          sa[rr] = alpha;
-          sl[rr] = sl[rr] * alpha + psum;
-          sm[rr] = m_new;
-        }
-      }
-      __syncthreads();
-#pragma unroll
-      for (int a = 0; a < ACC; ++a) {
-        const int e = threadIdx.x + a * NT;
-        const int rr = e / D, d = e % D;
-        float o = acc[a] * sa[rr];
-#pragma unroll 8
-        for (int cc = 0; cc < KC; ++cc) o = fmaf(ss[rr * SP + cc], sv[cc * D + d], o);
-        acc[a] = o;
-      }
-      __syncthreads();
-    }
-  }
-
-  T* oh = out + (static_cast<size_t>(b) * H + h) * head_elems;
-#pragma unroll
-  for (int a = 0; a < ACC; ++a) {
-    const int e = threadIdx.x + a * NT;
-    const int rr = e / D, d = e % D;
-    oh[static_cast<size_t>(q0 + rr) * D + d] = tri::from_f32<T>(acc[a] / sl[rr]);
-  }
-  float* lh = lse + (static_cast<size_t>(b) * H + h) * S;
-  for (int rr = threadIdx.x; rr < BLK; rr += NT) lh[q0 + rr] = sm[rr] + logf(sl[rr]);
+  tri::prefill_row_tile<T, BLK, D>(
+      q + (static_cast<size_t>(b) * H + h) * head_elems,
+      k + (static_cast<size_t>(b) * Hkv + hk) * head_elems,
+      v + (static_cast<size_t>(b) * Hkv + hk) * head_elems,
+      out + (static_cast<size_t>(b) * H + h) * head_elems,
+      lse + (static_cast<size_t>(b) * H + h) * S, rows[r], tile - rows[r],
+      tbl[2 * R + r], tbl[3 * R + r], tbl[4 * R + r], tbl[5 * R + r],
+      tbl[6 * R + r], scale, reinterpret_cast<float*>(smem));
 }
 
 template <typename T, int BLK, int D>
@@ -169,7 +70,7 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out,
                int Hkv, int S, int total_tiles, float scale,
                cudaStream_t stream) {
   auto kern = packed_fwd_kernel<T, BLK, D>;
-  constexpr size_t bytes = FwdShape<BLK, D>::BYTES;
+  constexpr size_t bytes = tri::FwdShape<BLK, D>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -23,7 +23,7 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
-SOURCES = ("packed_fwd", "packed_decode")
+SOURCES = ("packed_fwd", "packed_decode", "fused_step")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,6 +39,10 @@ SIGNATURES = {
     "packed_decode": {
         "packed_decode_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                  _I, _F, _I, _I, _P],
+    },
+    "fused_step": {
+        "fused_step_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                              _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     },
 }
 

@@ -5,15 +5,15 @@ metadata; ``PackedTriSched.table()`` is the (7, R) int32 member table ABI
 (kernel.py:194-218 of the reference), byte for byte. ``DECODE_NO_EMIT``
 is the decode pad member's sentinel.
 
-``packed_fwd`` and ``packed_decode_fwd`` wrap the hand-written kernels in
-``csrc/packed_fwd.cu`` and ``csrc/packed_decode.cu`` (see the notes at
-the top of each source for what bounds them on the H100 and why the grid
-is one block per accumulator owner). On a CUDA tensor a wrapper launches
-its kernel, through ``obs.launch.instrumented_launch``, or raises; it runs
-the plain PyTorch version (scan_impl.py) only when its inputs lie on the
-CPU. Each wrapper counts its launches in a plain integer attribute,
-``packed_fwd.launches`` and ``packed_decode_fwd.launches``, incremented
-where the kernel is launched and nowhere else.
+``packed_fwd``, ``packed_decode_fwd`` and ``fused_step_fwd`` wrap the
+hand-written kernels in ``csrc/packed_fwd.cu``, ``csrc/packed_decode.cu``
+and ``csrc/fused_step.cu`` (see the notes at the top of each source for
+what bounds them on the H100 and why the grid is one block per
+accumulator owner). On a CUDA tensor a wrapper launches its kernel,
+through ``obs.launch.instrumented_launch``, or raises; it runs the plain
+PyTorch version (scan_impl.py) only when its inputs lie on the CPU. Each
+wrapper counts its launches in a plain integer attribute (``.launches``),
+incremented where the kernel is launched and nowhere else.
 """
 
 from __future__ import annotations
@@ -260,6 +260,104 @@ def packed_decode_fwd(q, k, v, tbl, *, capacity: int, blk: int, tiles: int,
 
 
 packed_decode_fwd.launches = 0
+
+
+def fused_step_meta(impl: str, *, b: int, h: int, s_pack: int, s_cache: int,
+                    blk: int, tiles: int, capacity: int, n_members: int,
+                    grid=None):
+    """Launch geometry of one fused step: ``tiles`` (prefill steps + live
+    decode tiles) per query head, where the reference's grid walks the
+    bucketed ``capacity``; the BB bound is the pack's square plus every
+    slot's whole cache."""
+    return OBS.meta_exact(
+        "tri_attn.fused_step_fwd", "tri_attn", impl=impl, kind="fused_step",
+        steps=tiles, block_shape=(blk, blk),
+        bb_bound=(s_pack // blk) ** 2 + b * (s_cache // blk), cells=h,
+        grid=grid, extra=(("capacity", capacity), ("members", n_members)))
+
+
+def fused_step_fwd(q_pack, k_pack, v_pack, q_dec, k_cache, v_cache, tbl, *,
+                   psched: PackedTriSched, capacity: int, tiles: int,
+                   sm_scale=None):
+    """One launch for a whole continuous-batching engine step.
+
+    q_pack: (1, H, S_pack, D) and k_pack, v_pack: (1, Hkv, S_pack, D), the
+    round's admitted prompts in the packed layout of ``psched``; q_dec:
+    (B, H, D) against k_cache, v_cache: (B, S_cache, Hkv, D), the native
+    cache with the decode tokens written; tbl: the (8, R) int32 fused table
+    on q's device, prefill columns first. ``tiles`` is the round's live
+    tile count (psched.steps + live decode tiles), what the grid walks.
+    Returns (o_pack (1, H, S_pack, D), o_dec (B + 1, H, D)), both in q's
+    dtype; rows of o_dec whose slot has no live decode member (and the pad
+    row B) are left unwritten, so callers mask by the table's coverage
+    (ops._fused_covered_slots)."""
+    _, h, s_pack, d = q_pack.shape
+    b = q_dec.shape[0]
+    s_cache, hkv = k_cache.shape[1], k_cache.shape[2]
+    blk = psched.blk
+    scale = float(sm_scale if sm_scale is not None else 1.0 / (d ** 0.5))
+    if not q_pack.is_cuda:
+        from repro_torch.kernels.tri_attn import scan_impl as SC
+
+        o_pack, o_dec = SC.fused_step_torch(
+            q_pack, k_pack, v_pack, q_dec, k_cache, v_cache, tbl,
+            capacity=capacity, blk=blk, tiles=tiles, scale=scale)
+        full = torch.zeros((b + 1, h, d), dtype=q_dec.dtype,
+                           device=q_dec.device)
+        full[:b] = o_dec
+        return o_pack, full
+    n_members, r_p = tbl.shape[1], len(psched.members)
+    ins = (q_pack, k_pack, v_pack, q_dec, k_cache, v_cache, tbl)
+    _check(all(x.is_cuda and x.device == q_pack.device for x in ins),
+           "fused_step_fwd: every operand must lie on one CUDA device")
+    _check(q_pack.dtype in _DTYPE_CODES and k_cache.dtype in _DTYPE_CODES
+           and k_pack.dtype == v_pack.dtype == q_dec.dtype == q_pack.dtype
+           and v_cache.dtype == k_cache.dtype,
+           f"fused_step_fwd: pack and decode queries in one of f32/bf16, "
+           f"caches in one of f32/bf16, got {q_pack.dtype}/{k_pack.dtype}/"
+           f"{v_pack.dtype}/{q_dec.dtype} and {k_cache.dtype}/"
+           f"{v_cache.dtype}")
+    _check(k_pack.shape == v_pack.shape == (1, hkv, s_pack, d)
+           and q_dec.shape == (b, h, d)
+           and k_cache.shape == v_cache.shape == (b, s_cache, hkv, d)
+           and h % hkv == 0,
+           f"fused_step_fwd: shapes q_pack {tuple(q_pack.shape)} k_pack "
+           f"{tuple(k_pack.shape)} v_pack {tuple(v_pack.shape)} q_dec "
+           f"{tuple(q_dec.shape)} caches {tuple(k_cache.shape)}")
+    _check(tbl.dtype == torch.int32 and tbl.ndim == 2 and tbl.shape[0] == 8
+           and n_members > r_p,
+           f"fused_step_fwd: table must be (8, R > {r_p}) int32, got "
+           f"{tuple(tbl.shape)} {tbl.dtype}")
+    _check(all(x.is_contiguous() for x in ins)
+           and k_cache.data_ptr() % 16 == 0 and v_cache.data_ptr() % 16 == 0,
+           "fused_step_fwd: operands and table must be contiguous, the "
+           "caches 16-byte aligned")
+    _check(s_pack == psched.s_total and s_cache % blk == 0
+           and blk in SUPPORTED_BLOCKS and d in SUPPORTED_HEAD_DIMS,
+           f"fused_step_fwd: S_pack {s_pack} (schedule {psched.s_total}) "
+           f"and S_cache {s_cache} must be multiples of block {blk}, block "
+           f"in {SUPPORTED_BLOCKS}, head_dim {d} in {SUPPORTED_HEAD_DIMS}")
+    lib = BUILD.load("fused_step")
+    o_pack = torch.empty_like(q_pack)
+    o_dec = torch.empty((b + 1, h, d), dtype=q_dec.dtype,
+                        device=q_dec.device)
+    meta = fused_step_meta(
+        "cuda", b=b, h=h, s_pack=s_pack, s_cache=s_cache, blk=blk,
+        tiles=tiles, capacity=capacity, n_members=n_members,
+        grid=((n_members - r_p) * hkv + psched.total_tiles * h,))
+    OBS.instrumented_launch(
+        meta, lib.fused_step_launch, ins[:6],
+        q_pack.data_ptr(), k_pack.data_ptr(), v_pack.data_ptr(),
+        o_pack.data_ptr(), q_dec.data_ptr(), k_cache.data_ptr(),
+        v_cache.data_ptr(), o_dec.data_ptr(), tbl.data_ptr(), n_members, r_p,
+        psched.total_tiles, b, h, hkv, s_pack, s_cache, d, blk, scale,
+        _DTYPE_CODES[q_pack.dtype], _DTYPE_CODES[k_cache.dtype],
+        _stream_ptr(q_pack))
+    fused_step_fwd.launches += 1
+    return o_pack, o_dec
+
+
+fused_step_fwd.launches = 0
 
 
 def member_map_device(local, n, w, p):

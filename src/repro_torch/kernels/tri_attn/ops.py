@@ -5,6 +5,9 @@ lengths concatenated along S, attended block-diagonally in ONE launch.
 ``packed_decode_attention`` + ``make_decode_table`` + ``DecodeRoundSpec``:
 one mixed-position decode round per launch, each live slot attending only
 its own valid KV prefix.
+``fused_step_attention`` + ``make_fused_table`` + ``FusedStepSpec``: one
+continuous-batching engine step per launch, the round's admitted prompts
+(packed prefill members) and its live decode slots from one (8, R) table.
 
 impl names:
   'cuda'  — the hand-written kernel (kernel.py -> csrc/); CUDA tensors
@@ -207,3 +210,104 @@ def _masked_decode_einsum(q, k_cache, v_cache, valid, scale):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
     return o.reshape(b, h, d).to(q.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedStepSpec:
+    """Static half of a fused step; the dynamic half is the (8, R) table
+    from ``make_fused_table``. ``capacity`` (psched.steps + the bucketed
+    decode capacity) is the reference's grid size, kept for telemetry
+    parity: the CUDA grid walks ``tiles``, the round's live tiles."""
+
+    n_members: int  # prefill members + decode columns + the pad member
+    capacity: int   # bucketed grid size >= the round's live tiles
+    blk: int        # tile edge (divides S_pack and S_cache)
+    impl: str = "cuda"
+    tiles: int = 0  # psched.steps + the round's live decode tiles
+
+
+def make_fused_table(psched: PackedTriSched, kv_lens, slots, *, blk: int,
+                     n_members: int, n_slots: int, s_cache: int = 0,
+                     window=None):
+    """One fused step's (8, n_members) int32 table: the prefill columns
+    first (one per psched member, from its (7, R) table), then the decode
+    columns of ``make_decode_table`` rebased by psched.steps, the pad
+    member last. Rows:
+
+      0 starts | 1 kind (0 prefill, 1 decode/pad) | 2 n or kv_tiles |
+      3 w_b or kv_len | 4 p_b or kv_first | 5 q_off or slot | 6 win or 0 |
+      7 pre or 0
+
+    Returns (table, needed) with needed = psched.steps + live decode
+    tiles."""
+    pt = psched.table()
+    r_p = pt.shape[1]
+    if any(m.bq != blk or m.bk != blk for m in psched.members):
+        raise ValueError(f"fused step needs square tiles == blk {blk}")
+    dt, needed_dec = make_decode_table(
+        kv_lens, slots, blk=blk, n_members=n_members - r_p, n_slots=n_slots,
+        s_cache=s_cache, window=window)
+    cols = [(t[0], 0, t[2], t[3], t[4], t[1], t[5], t[6]) for t in pt.T]
+    cols += [(psched.steps + c[0], 1, c[2], c[3], c[4], c[1], 0, 0)
+             for c in dt.T]
+    return np.asarray(cols, np.int32).T.copy(), psched.steps + needed_dec
+
+
+def fused_step_attention(q_pack, k_pack, v_pack, q_dec, k_cache, v_cache,
+                         tbl, psched: PackedTriSched, spec: FusedStepSpec, *,
+                         sm_scale=None):
+    """One attention launch for a whole continuous-batching step.
+
+    q_pack: (1, H, S_pack, D) packed admitted prompts, k_pack/v_pack
+    (1, Hkv, S_pack, D); q_dec: (B, H, D) one new token per slot;
+    k_cache/v_cache: (B, S_cache, Hkv, D) with the decode tokens written;
+    tbl: the (8, R) int32 table on q's device. Returns (out_pack (1, H,
+    S_pack, D), out_dec (B, H, D)); slots without a live decode member
+    return zeros."""
+    b, h, d = q_dec.shape
+    scale = float(sm_scale if sm_scale is not None else 1.0 / (d ** 0.5))
+    if tuple(tbl.shape) != (8, spec.n_members):
+        raise ValueError(f"table {tuple(tbl.shape)} != (8, "
+                         f"{spec.n_members})")
+    if q_pack.shape[2] != psched.s_total or k_cache.shape[1] % spec.blk \
+            or spec.capacity < psched.steps:
+        raise ValueError(
+            f"pack of {q_pack.shape[2]} rows for a {psched.s_total}-row "
+            f"schedule, S_cache {k_cache.shape[1]} at block {spec.blk}, "
+            f"capacity {spec.capacity} < {psched.steps} prefill steps")
+    if spec.impl == "cuda":
+        _require_cuda(spec.impl, q_pack, "fused_step_attention")
+        o_pack, o_dec = K.fused_step_fwd(
+            q_pack, k_pack, v_pack, q_dec, k_cache, v_cache, tbl,
+            psched=psched, capacity=spec.capacity, tiles=spec.tiles,
+            sm_scale=scale)
+        covered = _fused_covered_slots(tbl, b)
+        return o_pack, torch.where(covered[:, None, None], o_dec[:b],
+                                   torch.zeros((), dtype=q_dec.dtype,
+                                               device=q_dec.device))
+    if spec.impl == "torch":
+        return SC.fused_step_torch(
+            q_pack, k_pack, v_pack, q_dec, k_cache, v_cache, tbl,
+            capacity=spec.capacity, blk=spec.blk, tiles=spec.tiles,
+            scale=scale)
+    if spec.impl == "ref":
+        r_p = len(psched.members)
+        out_pack = packed_prefill_attention(q_pack, k_pack, v_pack, psched,
+                                            sm_scale=scale, impl="ref")
+        dec = tbl[:, r_p:]
+        kv_len = _slot_reduce(dec[5], dec[3], b)
+        kv_first = _slot_reduce(dec[5], dec[4], b)
+        srng = torch.arange(k_cache.shape[1], device=q_dec.device)[None, :]
+        valid = (srng >= kv_first[:, None]) & (srng < kv_len[:, None])
+        out = _masked_decode_einsum(q_dec, k_cache, v_cache, valid, scale)
+        return out_pack, torch.where(
+            (kv_len > 0)[:, None, None], out,
+            torch.zeros((), dtype=q_dec.dtype, device=q_dec.device))
+    raise ValueError(f"unknown impl {spec.impl!r}; known {IMPLS}")
+
+
+def _fused_covered_slots(tbl, b):
+    """(B,) bool: slots owned by a live DECODE member of the fused table
+    (prefill columns scatter into the dropped extra row)."""
+    slots = torch.where(tbl[1] == 1, tbl[5], torch.full_like(tbl[5], b))
+    return _slot_reduce(slots, (tbl[3] > 0).to(torch.int32), b) > 0

@@ -1,10 +1,12 @@
 """Plain PyTorch versions of the packed attention kernels.
 
 Counterparts of the reference's ``scan`` impl (scan_impl.py: the forward
-of ``make_packed_scan_attention`` and ``packed_decode_scan``): the same
-member tables, the same tile enumeration and the same online-softmax
-order as the kernels, written as a Python loop over tiles with every
-(batch, head) pair vectorized. They are the CPU path and the reference
+of ``make_packed_scan_attention``, ``packed_decode_scan`` and
+``fused_step_scan``): the same member tables, the same tile enumeration
+and the same online-softmax order as the kernels, written as a Python loop
+over tiles with every (batch, head) pair vectorized. One prefill-member
+body and one decode-member body serve all three, as the kernels share
+theirs (csrc/attn_tiles.cuh). They are the CPU path and the reference
 the CUDA kernels are held against on the card; they are no yardstick of
 speed.
 """
@@ -14,7 +16,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.tri_attn.kernel import (DECODE_NO_EMIT, MASK_VALUE,
-                                                 PackedTriSched)
+                                                 PackedTriSched,
+                                                 fused_step_meta)
 from repro_torch.obs import launch as OBS
 
 
@@ -28,14 +31,46 @@ def _token_mask(i: int, j: int, blk: int, win: int, pre: int, device):
     return m | (kp < pre)
 
 
+def _prefill_member(qg, k, v, out, lse, row0: int, n: int, w_b: int,
+                    p_b: int, win: int, pre: int, blk: int, scale: float):
+    """The n q-row tiles of one packed prefill member whose tiles start at
+    tile row ``row0``: row i walks tiles j in [first_col, last_col] with the
+    online softmax in f32. qg/out (B, Hkv, g, S, D), k/v (B, Hkv, S, D),
+    lse (B, Hkv, g, S) or None."""
+    b, hkv, g, _, d = qg.shape
+    for i in range(n):
+        rows = slice((row0 + i) * blk, (row0 + i + 1) * blk)
+        qi = qg[:, :, :, rows].float()
+        m_s = torch.full((b, hkv, g, blk), MASK_VALUE, dtype=torch.float32,
+                         device=qg.device)
+        l_s = torch.zeros_like(m_s)
+        acc = torch.zeros((b, hkv, g, blk, d), dtype=torch.float32,
+                          device=qg.device)
+        for j in range(max(0, i - w_b + 1), max(i, p_b - 1) + 1):
+            cols = slice((row0 + j) * blk, (row0 + j + 1) * blk)
+            kj = k[:, :, cols].float()
+            vj = v[:, :, cols].float()
+            s = torch.einsum("bkgqd,bkcd->bkgqc", qi, kj) * scale
+            s = torch.where(_token_mask(i, j, blk, win, pre, qg.device), s,
+                            MASK_VALUE)
+            m_new = torch.maximum(m_s, s.amax(dim=-1))
+            alpha = torch.exp(m_s - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l_s = l_s * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgqc,bkcd->bkgqd", p, vj)
+            m_s = m_new
+        out[:, :, :, rows] = (acc / l_s[..., None]).to(out.dtype)
+        if lse is not None:
+            lse[:, :, :, rows] = m_s + torch.log(l_s)
+
+
 def packed_fwd_torch(q, k, v, psched: PackedTriSched, scale: float):
     """Packed ragged forward. q (B, H, S_total, D); k, v (B, Hkv, S_total,
-    D). Each member row i walks its tiles j in [first_col, last_col] with
-    the online softmax in f32. Returns (out in q.dtype, lse f32)."""
+    D). Returns (out in q.dtype, lse f32)."""
     b, h, s_len, d = q.shape
     hkv = k.shape[1]
     g = h // hkv
-    blk = psched.blk
     OBS.record_launch(
         OBS.meta_from_packed("tri_attn.packed_fwd", psched, impl="torch",
                              cells=b * h), (q, k, v))
@@ -45,78 +80,92 @@ def packed_fwd_torch(q, k, v, psched: PackedTriSched, scale: float):
                       device=q.device)
     row0 = 0
     for m, win, pre in zip(psched.members, psched.windows, psched.prefixes):
-        w_b, p_b = m.w_b, m.p_b
-        for i in range(m.n):
-            rows = slice((row0 + i) * blk, (row0 + i + 1) * blk)
-            qi = qg[:, :, :, rows].float()
-            m_s = torch.full((b, hkv, g, blk), MASK_VALUE,
-                             dtype=torch.float32, device=q.device)
-            l_s = torch.zeros_like(m_s)
-            acc = torch.zeros((b, hkv, g, blk, d), dtype=torch.float32,
-                              device=q.device)
-            for j in range(max(0, i - w_b + 1), max(i, p_b - 1) + 1):
-                cols = slice((row0 + j) * blk, (row0 + j + 1) * blk)
-                kj = k[:, :, cols].float()
-                vj = v[:, :, cols].float()
-                s = torch.einsum("bkgqd,bkcd->bkgqc", qi, kj) * scale
-                s = torch.where(_token_mask(i, j, blk, win, pre, q.device),
-                                s, MASK_VALUE)
-                m_new = torch.maximum(m_s, s.amax(dim=-1))
-                alpha = torch.exp(m_s - m_new)
-                p = torch.exp(s - m_new[..., None])
-                l_s = l_s * alpha + p.sum(dim=-1)
-                acc = acc * alpha[..., None] + torch.einsum(
-                    "bkgqc,bkcd->bkgqd", p, vj)
-                m_s = m_new
-            out[:, :, :, rows] = (acc / l_s[..., None]).to(q.dtype)
-            lse[:, :, :, rows] = m_s + torch.log(l_s)
+        _prefill_member(qg, k, v, out, lse, row0, m.n, m.w_b, m.p_b, win,
+                        pre, psched.blk, scale)
         row0 += m.n
     return out.reshape(b, h, s_len, d), lse.reshape(b, h, s_len)
+
+
+def _decode_member(q, k, v, out, slot: int, kv_tiles: int, kv_len: int,
+                   kv_first: int, blk: int, scale: float):
+    """One decode member: slot's query heads over its cache tokens
+    [kv_first, kv_len), kv_tiles tiles from kv_first // blk, written to
+    out[slot]. Columns owning no tiles (empty ones, the pad) write
+    nothing."""
+    b, h, d = q.shape
+    s_cache, hkv = k.shape[1], k.shape[2]
+    if not (0 <= slot < b) or kv_tiles <= 0 or \
+            kv_tiles == DECODE_NO_EMIT or kv_len <= 0:
+        return
+    g = h // hkv
+    cache_tiles = s_cache // blk
+    ar = torch.arange(blk, device=q.device)
+    qs = q[slot].float().reshape(hkv, g, d)
+    m_s = torch.full((hkv, g), MASK_VALUE, dtype=torch.float32,
+                     device=q.device)
+    l_s = torch.zeros_like(m_s)
+    acc = torch.zeros((hkv, g, d), dtype=torch.float32, device=q.device)
+    for t in range(kv_tiles):
+        tile = kv_first // blk + t
+        toks = slice(min(tile, cache_tiles - 1) * blk,
+                     (min(tile, cache_tiles - 1) + 1) * blk)
+        kb = k[slot, toks].float()  # (blk, Hkv, D)
+        vb = v[slot, toks].float()
+        s = torch.einsum("kgd,tkd->kgt", qs, kb) * scale
+        kpos = tile * blk + ar
+        s = torch.where((kpos >= kv_first) & (kpos < kv_len), s, MASK_VALUE)
+        m_new = torch.maximum(m_s, s.amax(dim=-1))
+        alpha = torch.exp(m_s - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l_s = l_s * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("kgt,tkd->kgd", p, vb)
+        m_s = m_new
+    out[slot] = (acc / l_s[..., None]).reshape(h, d).to(out.dtype)
 
 
 def packed_decode_torch(q, k, v, tbl, *, capacity: int, blk: int,
                         tiles: int, scale: float):
     """Packed mixed-position decode round. q (B, H, D); k, v (B, S_cache,
-    Hkv, D); tbl the (5, R) member table (any device). Each live member
-    walks its kv_tiles cache tiles from kv_first // blk, masked to
-    [kv_first, kv_len). Returns (B, H, D) with slots not covered by a live
-    member left zero."""
-    b, h, d = q.shape
-    s_cache, hkv = k.shape[1], k.shape[2]
-    g = h // hkv
-    cache_tiles = s_cache // blk
+    Hkv, D); tbl the (5, R) member table (any device). Returns (B, H, D)
+    with slots not covered by a live member left zero."""
+    b = q.shape[0]
     OBS.record_launch(
         OBS.meta_exact("tri_attn.packed_decode_fwd", "tri_attn",
                        impl="torch", kind="decode_round", steps=tiles,
-                       block_shape=(1, blk), bb_bound=b * cache_tiles,
+                       block_shape=(1, blk),
+                       bb_bound=b * (k.shape[1] // blk),
                        extra=(("capacity", capacity),)), (q, k, v))
     out = torch.zeros_like(q)
-    ar = torch.arange(blk, device=q.device)
     for _, slot, kv_tiles, kv_len, kv_first in tbl.cpu().T.tolist():
-        if not (0 <= slot < b) or kv_tiles <= 0 or \
-                kv_tiles == DECODE_NO_EMIT or kv_len <= 0:
-            continue
-        qs = q[slot].float().reshape(hkv, g, d)
-        m_s = torch.full((hkv, g), MASK_VALUE, dtype=torch.float32,
-                         device=q.device)
-        l_s = torch.zeros_like(m_s)
-        acc = torch.zeros((hkv, g, d), dtype=torch.float32, device=q.device)
-        for t in range(kv_tiles):
-            tile = kv_first // blk + t
-            toks = slice(min(tile, cache_tiles - 1) * blk,
-                         (min(tile, cache_tiles - 1) + 1) * blk)
-            kb = k[slot, toks].float()  # (blk, Hkv, D)
-            vb = v[slot, toks].float()
-            s = torch.einsum("kgd,tkd->kgt", qs, kb) * scale
-            kpos = tile * blk + ar
-            s = torch.where((kpos >= kv_first) & (kpos < kv_len), s,
-                            MASK_VALUE)
-            m_new = torch.maximum(m_s, s.amax(dim=-1))
-            alpha = torch.exp(m_s - m_new)
-            p = torch.exp(s - m_new[..., None])
-            l_s = l_s * alpha + p.sum(dim=-1)
-            acc = acc * alpha[..., None] + torch.einsum("kgt,tkd->kgd", p,
-                                                        vb)
-            m_s = m_new
-        out[slot] = (acc / l_s[..., None]).reshape(h, d).to(q.dtype)
+        _decode_member(q, k, v, out, slot, kv_tiles, kv_len, kv_first, blk,
+                       scale)
     return out
+
+
+def fused_step_torch(q_pack, k_pack, v_pack, q_dec, k_cache, v_cache, tbl, *,
+                     capacity: int, blk: int, tiles: int, scale: float):
+    """Fused continuous-batching step: walks the (8, R) table member by
+    member, prefill columns (kind 0) through the packed-prefill tile body
+    and decode columns (kind 1) through the decode one. q_pack (1, H,
+    S_pack, D); k_pack/v_pack (1, Hkv, S_pack, D); q_dec (B, H, D); caches
+    (B, S_cache, Hkv, D). Returns (out_pack (1, H, S_pack, D), out_dec
+    (B, H, D)) with slots not covered by a live decode member left zero."""
+    _, h, s_pack, d = q_pack.shape
+    b = q_dec.shape[0]
+    hkv = k_pack.shape[1]
+    OBS.record_launch(
+        fused_step_meta("torch", b=b, h=h, s_pack=s_pack,
+                        s_cache=k_cache.shape[1], blk=blk, tiles=tiles,
+                        capacity=capacity, n_members=tbl.shape[1]),
+        (q_pack, k_pack, v_pack, q_dec, k_cache, v_cache))
+    qg = q_pack.reshape(1, hkv, h // hkv, s_pack, d)
+    out_p = torch.zeros_like(qg)
+    out_d = torch.zeros_like(q_dec)
+    for _, kind, n, w, p, off, win, pre in tbl.cpu().T.tolist():
+        if kind == 0:
+            _prefill_member(qg, k_pack, v_pack, out_p, None, off, n, w, p,
+                            win, pre, blk, scale)
+        else:
+            _decode_member(q_dec, k_cache, v_cache, out_d, off, n, w, p, blk,
+                           scale)
+    return out_p.reshape(1, h, s_pack, d), out_d

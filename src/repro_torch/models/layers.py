@@ -132,6 +132,35 @@ def packed_decode_attention(params, x, cfg, *, cache_k, cache_v, pos,
     return out, cache_k, cache_v
 
 
+def fused_attention(params, x_pack, x_dec, cfg, *, pack_positions, packed,
+                    cache_k, cache_v, pos, fused_tbl, fused_spec):
+    """Fused continuous-batching attention: ONE launch covers the round's
+    admitted prompts (x_pack (1, S_pack, d), packed block-diagonal
+    self-attention as in ``attention``) and every live decode slot (x_dec
+    (B, 1, d), each over its own valid KV prefix as in
+    ``packed_decode_attention``, with the same projections and in-place
+    cache write). Returns (out_pack (1, S_pack, d), out_dec (B, 1, d),
+    k_pack, v_pack (1, S_pack, Hkv, hd) rotated for the admit splice,
+    cache_k, cache_v)."""
+    b = x_dec.shape[0]
+    s = x_pack.shape[1]
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x_pack @ params["wq"]).reshape(1, s, h, hd)
+    k = (x_pack @ params["wk"]).reshape(1, s, hkv, hd)
+    v = (x_pack @ params["wv"]).reshape(1, s, hkv, hd)
+    q = apply_rope(q, pack_positions, cfg.rope_theta)
+    k = apply_rope(k, pack_positions, cfg.rope_theta)
+    q_dec, cache_k, cache_v, _ = _decode_qkv(params, x_dec, cfg, cache_k,
+                                             cache_v, pos)
+    op, od = attn_ops.fused_step_attention(
+        q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+        v.transpose(1, 2).contiguous(), q_dec[:, 0].contiguous(), cache_k,
+        cache_v, fused_tbl, packed, fused_spec)
+    out_pack = op.transpose(1, 2).reshape(1, s, h * hd) @ params["wo"]
+    out_dec = od.reshape(b, 1, h * hd).to(x_dec.dtype) @ params["wo"]
+    return out_pack, out_dec, k, v, cache_k, cache_v
+
+
 def mlp(params, x, cfg):
     if cfg.mlp_activation != "swiglu":
         raise NotImplementedError(

@@ -7,6 +7,8 @@ Port of ``repro/models/model.py`` for the dense attention path:
   logits_from_hidden(params, cfg, hidden)    -> (B, S, padded_vocab) f32
   init_cache(cfg, batch, max_len, dtype, device)
   decode_step(params, cfg, cache, tok, pos)  -> (logits, cache)
+  fused_step(params, cfg, cache, ...)        -> (logits_admit, logits_dec,
+                                                 cache, states)
 Params keep the reference pytree layout (``layers`` stacked on a leading
 superlayer axis), so reference weights carry over leaf for leaf.
 """
@@ -160,3 +162,38 @@ def decode_step(params, cfg, cache, tokens, pos, decode_tbl=None,
                                decode_spec=decode_spec)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return logits_from_hidden(params, cfg, x), cache
+
+
+def fused_step(params, cfg, cache, pack_tokens, pack_positions, dec_tokens,
+               pos, psched, fused_tbl, fused_spec, admit_rows):
+    """One fused continuous-batching step: the admitted prompts and the
+    live decode slots go through the layers together, ONE attention launch
+    per layer.
+
+    pack_tokens: (1, S_pack) packed prompts; pack_positions: (S_pack,)
+    restarting per request; dec_tokens: (B, 1); pos: (B,) decode
+    positions; admit_rows: (A,) pack rows of each prompt's last real
+    token. Returns (logits_admit (1, A, Vp) f32, logits_dec (B, 1, Vp)
+    f32, cache (decode k/v written in place), states: each layer's pack
+    k/v stacked on a leading superlayer axis, for the admit splice)."""
+    x_pack = params["embed"][pack_tokens]
+    x_dec = params["embed"][dec_tokens]
+    per_layer = []
+    for l in range(cfg.n_superlayers):
+        lp = T.layer_params(params["layers"], l)
+        lc = T.layer_params(cache, l)
+        states = {}
+        for p in range(cfg.superlayer):
+            x_pack, x_dec, states[f"l{p}"] = T.layer_fused(
+                lp[f"l{p}"], x_pack, x_dec, cfg, lc[f"l{p}"], pos,
+                pack_positions=pack_positions, packed=psched,
+                fused_tbl=fused_tbl, fused_spec=fused_spec)
+        per_layer.append(states)
+    x_pack = L.rms_norm(x_pack, params["final_norm"], cfg.norm_eps)
+    x_dec = L.rms_norm(x_dec, params["final_norm"], cfg.norm_eps)
+    stacked = {f"l{p}": {kv: torch.stack([st[f"l{p}"][kv]
+                                          for st in per_layer])
+                         for kv in ("k", "v")}
+               for p in range(cfg.superlayer)}
+    return (logits_from_hidden(params, cfg, x_pack[:, admit_rows]),
+            logits_from_hidden(params, cfg, x_dec), cache, stacked)

@@ -64,6 +64,28 @@ def layer_decode(p, x, cfg, cache, pos, decode_tbl=None, decode_spec=None):
     return x + L.mlp(p["ffn"], h2, cfg)
 
 
+def layer_fused(p, x_pack, x_dec, cfg, cache, pos, *, pack_positions,
+                packed, fused_tbl, fused_spec):
+    """One layer of the fused step: both streams share the layer's
+    weights, the attention makes ONE fused launch, and the MLP runs on
+    each stream separately. Returns (x_pack, x_dec, {"k", "v"} pack
+    states); the decode half writes its token's k/v into ``cache`` in
+    place."""
+    h_p = L.rms_norm(x_pack, p["norm1"], cfg.norm_eps)
+    h_d = L.rms_norm(x_dec, p["norm1"], cfg.norm_eps)
+    out_p, out_d, k, v, _, _ = L.fused_attention(
+        p["mixer"], h_p, h_d, cfg, pack_positions=pack_positions,
+        packed=packed, cache_k=cache["k"], cache_v=cache["v"], pos=pos,
+        fused_tbl=fused_tbl, fused_spec=fused_spec)
+    x_pack = x_pack + out_p
+    x_dec = x_dec + out_d
+    h2_p = L.rms_norm(x_pack, p["norm2"], cfg.norm_eps)
+    h2_d = L.rms_norm(x_dec, p["norm2"], cfg.norm_eps)
+    x_pack = x_pack + L.mlp(p["ffn"], h2_p, cfg)
+    x_dec = x_dec + L.mlp(p["ffn"], h2_d, cfg)
+    return x_pack, x_dec, {"k": k, "v": v}
+
+
 def init_cache(cfg, batch: int, max_len: int, dtype, device):
     """Stacked (n_superlayers, B, S, Hkv, hd) k/v cache per pattern slot."""
     check_supported(cfg)

@@ -8,7 +8,10 @@ it, and the plain PyTorch versions record the same geometry with
 ``tiles_launched_total``, ``tiles_domain_total``, ``tiles_wasted_total``,
 ``tiles_bb_total`` and ``launch_bytes_total``, labelled ``{name, impl}``
 exactly as the reference names them, so the two packages' counts can be
-diffed kernel by kernel.
+diffed kernel by kernel. A pre-launch hook (``set_launch_hook``) runs at
+the top of ``record_launch``: before every kernel launch and every plain
+version's run, and may raise to abort it (the fault-injection surface of
+``resilience.faults.install_launch_hook``).
 """
 
 from __future__ import annotations
@@ -18,6 +21,17 @@ from typing import Optional, Tuple
 
 from repro_torch.obs import metrics as MET
 from repro_torch.obs import sinks as SK
+
+_LAUNCH_HOOK = None
+
+
+def set_launch_hook(hook):
+    """Install ``hook(meta)``, run before every recorded launch; returns
+    the previous hook (None when there was none) so callers can restore
+    it."""
+    global _LAUNCH_HOOK
+    prev, _LAUNCH_HOOK = _LAUNCH_HOOK, hook
+    return prev
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,7 +115,10 @@ def _operand_bytes(operands) -> int:
 
 
 def record_launch(meta: LaunchMeta, operands=()):
-    """Emit one launch's counters and trace event."""
+    """Run the pre-launch hook, then emit one launch's counters and trace
+    event."""
+    if _LAUNCH_HOOK is not None:
+        _LAUNCH_HOOK(meta)
     labels = {"name": meta.name, "impl": meta.impl}
     MET.counter_inc("launches_total", 1, labels)
     MET.counter_inc("tiles_launched_total",

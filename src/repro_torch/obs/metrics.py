@@ -1,4 +1,4 @@
-"""Metrics registry: label-aware counters and histograms.
+"""Metrics registry: label-aware counters, gauges and histograms.
 
 Port of the parts of ``repro/obs/metrics.py`` the port emits (pure
 Python, no torch). A ``Registry`` holds instrument values keyed by
@@ -33,6 +33,7 @@ class Registry:
         self.name = name
         self._lock = threading.Lock()
         self._counters: Dict[Tuple, float] = {}
+        self._gauges: Dict[Tuple, float] = {}
         self._hists: Dict[Tuple, dict] = {}
         self._hist_bounds: Dict[str, Tuple[float, ...]] = {}
 
@@ -69,8 +70,21 @@ class Registry:
             else:
                 h["bucket_counts"][-1] += 1
 
+    def gauge_set(self, name: str, value: float,
+                  labels: Optional[dict] = None):
+        with self._lock:
+            self._gauges[_key(name, labels)] = value
+
     def counter_value(self, name: str, labels: Optional[dict] = None):
         return self._counters.get(_key(name, labels), 0)
+
+    def counter_total(self, name: str):
+        """Sum of a counter over all its label sets."""
+        return sum(v for k, v in self._counters.items() if k[0] == name)
+
+    def gauge_value(self, name: str, labels: Optional[dict] = None,
+                    default=None):
+        return self._gauges.get(_key(name, labels), default)
 
 
 _GLOBAL = Registry("global")
@@ -104,6 +118,11 @@ def counter_inc(name: str, value: float = 1.0,
                 labels: Optional[dict] = None):
     for reg in active_registries():
         reg.counter_inc(name, value, labels)
+
+
+def gauge_set(name: str, value: float, labels: Optional[dict] = None):
+    for reg in active_registries():
+        reg.gauge_set(name, value, labels)
 
 
 def histogram_observe(name: str, value: float,

@@ -1,2 +1,3 @@
-"""Retry, degradation-ladder registry and straggler watch (ports of the
-parts of ``repro/resilience`` the engine uses)."""
+"""Fault injection, retry, degradation-ladder registry, liveness and
+straggler watch, and crash-safe engine snapshots (ports of
+``repro/resilience``)."""

@@ -1,9 +1,42 @@
-"""Straggler detection (``RoundWatch`` of ``repro/resilience/health.py``)."""
+"""Liveness and straggler detection (port of
+``repro/resilience/health.py``): ``HeartbeatMonitor`` tracks per-worker
+beats (a fleet's replicas), ``RoundWatch`` one engine's round durations.
+Both are host-side arithmetic on the caller's clock, so injected delays on
+a ``VirtualClock`` register deterministically."""
 
 from __future__ import annotations
 
+import dataclasses
+import time
 from collections import deque
-from typing import Optional
+from typing import Dict, Optional, Sequence, Set
+
+
+@dataclasses.dataclass
+class WorkerHealth:
+    last_beat: Optional[float] = None
+    last_step: int = -1
+
+
+class HeartbeatMonitor:
+    """Per-worker liveness: ``failed()`` lists the workers with no beat
+    for more than ``timeout_s``."""
+
+    def __init__(self, workers: Sequence[int], *, timeout_s: float = 60.0):
+        self.timeout_s = timeout_s
+        self.health: Dict[int, WorkerHealth] = {
+            w: WorkerHealth() for w in workers}
+
+    def beat(self, worker: int, step: int, now: Optional[float] = None):
+        h = self.health[worker]
+        h.last_beat = time.monotonic() if now is None else now
+        h.last_step = step
+
+    def failed(self, now: Optional[float] = None) -> Set[int]:
+        now = time.monotonic() if now is None else now
+        return {w for w, h in self.health.items()
+                if h.last_beat is not None
+                and now - h.last_beat > self.timeout_s}
 
 
 class RoundWatch:

@@ -10,6 +10,9 @@ block-diagonally over the packed schedule.
 ``decode_step_packed`` advances every live slot one token in one packed
 launch per layer, each slot attending only its own valid KV prefix —
 sum_r ceil(kv_len_r / blk) tiles instead of the lockstep pad-to-max.
+
+``fused_step`` does both at once: it prefills the newly admitted prompts
+and advances every live slot in ONE mixed launch per layer.
 """
 
 from __future__ import annotations
@@ -115,6 +118,22 @@ def decode_step_packed(params, cfg, cache, tokens, pos, kv_lens, slots, *,
     return logits, cache, info
 
 
+def _pack_prompts(prompts, block: int):
+    """Pad each prompt to a multiple of ``block`` at its causal tail and
+    concatenate. Returns (lens, pads, starts, tokens (1, S) int64,
+    positions (S,) int32 restarting per prompt)."""
+    lens = [int(len(p)) for p in prompts]
+    pads = [-(-s // block) * block for s in lens]
+    starts = [int(x) for x in np.cumsum([0] + pads[:-1])]
+    s_total = sum(pads)
+    tokens = np.zeros((1, s_total), np.int64)
+    positions = np.zeros((s_total,), np.int32)
+    for st, pad, p in zip(starts, pads, prompts):
+        tokens[0, st:st + len(p)] = np.asarray(p, np.int64)
+        positions[st:st + pad] = np.arange(pad)
+    return lens, pads, starts, tokens, positions
+
+
 def packed_prefill(params, cfg, prompts, *, block: int = 16,
                    attn_impl: str = "cuda", device="cuda"):
     """Prefill a ragged prompt batch in ONE packed forward.
@@ -128,15 +147,7 @@ def packed_prefill(params, cfg, prompts, *, block: int = 16,
         raise ValueError("packed_prefill requires attention-only token "
                          "mixers; recurrent state would leak across the "
                          "packed request boundary")
-    lens = [int(len(p)) for p in prompts]
-    pads = [-(-s // block) * block for s in lens]
-    starts = [int(x) for x in np.cumsum([0] + pads[:-1])]
-    s_total = sum(pads)
-    tokens = np.zeros((1, s_total), np.int64)
-    positions = np.zeros((s_total,), np.int32)
-    for st, pad, p in zip(starts, pads, prompts):
-        tokens[0, st:st + len(p)] = np.asarray(p, np.int64)
-        positions[st:st + pad] = np.arange(pad)
+    lens, pads, starts, tokens, positions = _pack_prompts(prompts, block)
     psched = attn_ops.make_packed_sched(pads, block=block,
                                         window=cfg.sliding_window)
     hidden, _, states = MD.forward(
@@ -144,3 +155,50 @@ def packed_prefill(params, cfg, prompts, *, block: int = 16,
         attn_impl=attn_impl, collect_state=True,
         positions=torch.as_tensor(positions, device=device), packed=psched)
     return psched, starts, lens, hidden, states
+
+
+def fused_step(params, cfg, cache, prompts, tokens, pos, kv_lens, slots, *,
+               block: int = 16, impl: str = "cuda"):
+    """ONE fused engine round: prefill the newly admitted ``prompts``
+    (packed block-diagonal members, padded to the decode tile) and advance
+    every live decode slot (row members over its own valid KV prefix) in
+    a single mixed launch per layer.
+
+    prompts: >= 1 token feeds to admit (decode-only rounds take
+    decode_step_packed); tokens: (B, 1) last tokens; pos: (B,) (stale
+    entries of slots being admitted or retired are fine); kv_lens/slots:
+    host lists for the live decode slots, as decode_step_packed takes
+    them. Returns (logits_admit (A, Vp) f32 from each prompt's last real
+    token, logits_dec (B, Vp) f32 (live slots only meaningful), cache
+    (decode k/v written in place, admit k/v NOT spliced yet), states (the
+    pack's per-layer k/v for kv_cache.splice_slot), psched, starts, lens,
+    info) with info["tiles"] the round's live tiles (prefill steps + live
+    decode tiles)."""
+    if not all(k == "attn" for k in cfg.layer_kinds):
+        raise ValueError("fused_step requires attention-only token mixers")
+    if not prompts:
+        raise ValueError("fused_step needs at least one admit")
+    b = tokens.shape[0]
+    dev = tokens.device
+    s_cache = _attn_cache_len(cfg, cache)
+    blk = decode_block_for(block, s_cache)
+    lens, pads, starts, pack_tokens, pack_positions = _pack_prompts(prompts,
+                                                                    blk)
+    psched = attn_ops.make_packed_sched(pads, block=blk,
+                                        window=cfg.sliding_window)
+    admit_rows = [st + ln - 1 for st, ln in zip(starts, lens)]
+    n_members = len(pads) + b + 1
+    tbl, needed = attn_ops.make_fused_table(
+        psched, kv_lens, slots, blk=blk, n_members=n_members, n_slots=b,
+        s_cache=s_cache)
+    capacity = psched.steps + (round_capacity(needed - psched.steps)
+                               if len(kv_lens) else 0)
+    spec = attn_ops.FusedStepSpec(n_members=n_members, capacity=capacity,
+                                  blk=blk, impl=impl, tiles=needed)
+    logits_admit, logits_dec, cache, states = MD.fused_step(
+        params, cfg, cache, torch.as_tensor(pack_tokens, device=dev),
+        torch.as_tensor(pack_positions, device=dev), tokens, pos, psched,
+        torch.as_tensor(tbl, device=dev), spec,
+        torch.as_tensor(admit_rows, device=dev))
+    return (logits_admit[0], logits_dec[:, 0], cache, states, psched,
+            starts, lens, {"tiles": needed})

@@ -1,7 +1,8 @@
 """Member-table ABI and package isolation of repro_torch.
 
-* PackedTriSched.table() (7, R) and make_decode_table (5, R), pad column
-  included, are byte-identical int32 arrays to the reference's.
+* PackedTriSched.table() (7, R), make_decode_table (5, R) and
+  make_fused_table (8, R), pad columns included, are byte-identical int32
+  arrays to the reference's.
 * No module of src/repro_torch, nor chip_smoke.py, imports jax or the
   JAX package (an AST scan of every import statement).
 * ``import repro_torch`` (and its serving modules) succeeds in a process
@@ -65,6 +66,32 @@ def test_decode_table_bytes_match(kv_lens, slots, n_members, window):
     assert K.MASK_VALUE == JK.MASK_VALUE
 
 
+@pytest.mark.parametrize("lens,window,prefix,kv_lens,slots,b,n_members", [
+    ([8, 4], None, 0, [], [], 3, 6),                     # no live slot
+    ([12, 8, 4], [None, 6, None], [0, 0, 5], [30], [1], 3, 8),
+    ([16], None, [9], [7, 18, 3, 26], [0, 1, 2, 3], 4, 6),  # all B live
+    ([4, 4], [3, None], 0, [9, 17], [2, 0], 5, 10),      # unused columns
+])
+def test_fused_table_bytes_match(lens, window, prefix, kv_lens, slots, b,
+                                 n_members):
+    kw = dict(blk=4, n_members=n_members, n_slots=b)
+    jps = JOPS.make_packed_sched(lens, block=4, window=window, prefix=prefix)
+    tps = OPS.make_packed_sched(lens, block=4, window=window, prefix=prefix)
+    # the reference's s_cache check fails on an empty round (queue C)
+    wt, wn = JOPS.make_fused_table(jps, kv_lens, slots, s_cache=32 if kv_lens
+                                   else 0, **kw)
+    gt, gn = OPS.make_fused_table(tps, kv_lens, slots, s_cache=32, **kw)
+    assert gn == wn == tps.steps + sum(-(-k // 4) for k in kv_lens)
+    assert gt.dtype == wt.dtype == np.int32 and gt.shape == wt.shape == \
+        (8, n_members)
+    assert gt.tobytes() == wt.tobytes()
+    assert tuple(gt[:, -1][1:]) == (1, K.DECODE_NO_EMIT, 0, 0, b, 0, 0)
+    r_p = len(lens)
+    assert list(gt[1]) == [0] * r_p + [1] * (n_members - r_p)
+    unused = gt[:, r_p + len(kv_lens):-1]
+    assert (unused[1:] == np.array([[1], [0], [0], [0], [0], [0], [0]])).all()
+
+
 def _imports(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -88,6 +115,20 @@ def test_port_imports_with_jax_blocked():
             "sys.modules['repro'] = None; "
             "import repro_torch, repro_torch.serve.engine, "
             "repro_torch.kernels.tri_attn.ops, repro_torch.models.model; "
+            "print('ok')")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_fused_slice_modules_import_with_jax_blocked():
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['repro'] = None; "
+            "import repro_torch.serve.fleet, "
+            "repro_torch.resilience.snapshot, "
+            "repro_torch.resilience.faults, repro_torch.obs.schema; "
             "print('ok')")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

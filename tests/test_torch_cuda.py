@@ -11,6 +11,8 @@ machine does not have). Inputs come from a numpy seed; tolerances are the
 repo's attention policy (tests/oracles.py): f32 2e-5, bf16 2e-2.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -163,3 +165,150 @@ def test_engine_raises_when_a_kernel_fails(dev, monkeypatch, kernel):
     st = eng.stats
     assert st["launches_degraded_total"] == st["requests_retried_total"] \
         == st["decode_lockstep_launches"] == 0
+
+
+def _fused_case(rng, dev, *, blk, d, g, hkv, q_dtype, c_dtype, b=5,
+                kv_lens=None, slots=None, window=None, n_members=None):
+    """A fused round: four prefill members (ltm, band, prefix, ltm) and
+    the given live decode slots over an S_cache = 4 * blk cache."""
+    h, s_cache = g * hkv, 4 * blk
+    psched = OPS.make_packed_sched(
+        [3 * blk, 2 * blk, blk, blk], block=blk,
+        window=[None, blk + 3, None, None], prefix=[0, 0, blk // 2 + 1, 0])
+    kv_lens = [4 * blk, 3, 2 * blk + 5] if kv_lens is None else kv_lens
+    slots = [0, 2, 3] if slots is None else slots
+    n_members = n_members or len(psched.members) + b + 1
+    tbl_np, needed = OPS.make_fused_table(
+        psched, kv_lens, slots, blk=blk, n_members=n_members, n_slots=b,
+        s_cache=s_cache, window=window)
+    s = psched.s_total
+    ins = (_rand(rng, (1, h, s, d), q_dtype, dev),
+           _rand(rng, (1, hkv, s, d), q_dtype, dev),
+           _rand(rng, (1, hkv, s, d), q_dtype, dev),
+           _rand(rng, (b, h, d), q_dtype, dev),
+           _rand(rng, (b, s_cache, hkv, d), c_dtype, dev),
+           _rand(rng, (b, s_cache, hkv, d), c_dtype, dev),
+           torch.as_tensor(tbl_np, device=dev))
+    spec = OPS.FusedStepSpec(n_members=n_members, capacity=needed + 3,
+                             blk=blk, impl="cuda", tiles=needed)
+    return psched, ins, spec
+
+
+@pytest.mark.parametrize("q_dtype,c_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("g,hkv", [(1, 2), (8, 1)])
+@pytest.mark.parametrize("blk", [16, 64, 128])
+@pytest.mark.parametrize("d", [64, 128])
+def test_fused_step_matches_plain(dev, d, blk, g, hkv, q_dtype, c_dtype):
+    rng = np.random.default_rng(blk + d + g)
+    psched, ins, spec = _fused_case(rng, dev, blk=blk, d=d, g=g, hkv=hkv,
+                                    q_dtype=q_dtype, c_dtype=c_dtype,
+                                    window=[None, None, blk + 2])
+    before = K.fused_step_fwd.launches
+    got_p, got_d = OPS.fused_step_attention(*ins, psched, spec)
+    torch.cuda.synchronize()
+    assert K.fused_step_fwd.launches == before + 1
+    want_p, want_d = OPS.fused_step_attention(
+        *ins, psched, dataclasses.replace(spec, impl="torch"))
+    tol = torch.bfloat16 if torch.bfloat16 in (q_dtype, c_dtype) \
+        else torch.float32
+    _close(got_p, want_p, q_dtype, "pack half")
+    _close(got_d, want_d, tol, "decode half")
+    for retired in (1, 4):  # no live decode member: zeros
+        assert torch.count_nonzero(got_d[retired]) == 0
+
+
+def test_fused_step_without_live_slots_writes_no_decode_row(dev,
+                                                           monkeypatch):
+    """The first admit round of every run has only empty and pad decode
+    columns: the launch runs the prefill half and leaves o_dec as it
+    found it (here: filled with 7 where the wrapper allocates it)."""
+    blk, d = 16, 64
+    rng = np.random.default_rng(11)
+    psched, ins, spec = _fused_case(rng, dev, blk=blk, d=d, g=2, hkv=2,
+                                    q_dtype=torch.float32,
+                                    c_dtype=torch.float32, kv_lens=[],
+                                    slots=[])
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty",
+                        lambda *a, **k: empty(*a, **k).fill_(7.0))
+    o_pack, o_dec = K.fused_step_fwd(*ins, psched=psched,
+                                     capacity=spec.capacity,
+                                     tiles=spec.tiles)
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    assert bool((o_dec == 7.0).all())
+    want, _ = K.packed_fwd(*ins[:3], psched)
+    assert torch.equal(o_pack, want)
+
+
+def test_fused_step_empty_columns_do_not_touch_slot_zero(dev):
+    """Unused decode columns carry slot 0 and the pad member slot B: only
+    the live member may write slot 0's row."""
+    blk, d = 16, 64
+    rng = np.random.default_rng(12)
+    psched, ins, spec = _fused_case(rng, dev, blk=blk, d=d, g=2, hkv=2,
+                                    q_dtype=torch.float32,
+                                    c_dtype=torch.float32, b=3,
+                                    kv_lens=[17], slots=[0], n_members=10)
+    _, o_dec = K.fused_step_fwd(*ins, psched=psched, capacity=spec.capacity,
+                                tiles=spec.tiles)
+    _, want = OPS.fused_step_attention(
+        *ins, psched, dataclasses.replace(spec, impl="ref"))
+    _close(o_dec[0], want[0], torch.float32)
+
+
+@pytest.mark.parametrize("q_dtype,c_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32)])
+def test_fused_halves_equal_the_split_kernels(dev, q_dtype, c_dtype):
+    """The prefill half runs packed_fwd's body at its thread count: bitwise
+    equal. The decode half runs packed_decode's body at 256 threads
+    against 512: equal within the tolerance."""
+    blk, d, g, hkv, b = 64, 128, 8, 2, 5
+    rng = np.random.default_rng(13)
+    kv_lens, slots = [4 * blk, 3, 2 * blk + 5], [0, 2, 3]
+    psched, ins, spec = _fused_case(rng, dev, blk=blk, d=d, g=g, hkv=hkv,
+                                    q_dtype=q_dtype, c_dtype=c_dtype,
+                                    kv_lens=kv_lens, slots=slots)
+    o_pack, o_dec = K.fused_step_fwd(*ins, psched=psched,
+                                     capacity=spec.capacity,
+                                     tiles=spec.tiles)
+    split_pack, _ = K.packed_fwd(*ins[:3], psched)
+    assert torch.equal(o_pack, split_pack)
+    dtbl, dneeded = OPS.make_decode_table(kv_lens, slots, blk=blk,
+                                          n_members=b + 1, n_slots=b,
+                                          s_cache=4 * blk)
+    split_dec = K.packed_decode_fwd(
+        ins[3], ins[4], ins[5], torch.as_tensor(dtbl, device=dev),
+        capacity=dneeded, blk=blk, tiles=dneeded)
+    torch.cuda.synchronize()
+    _close(o_dec[slots], split_dec[slots], q_dtype)
+
+
+def test_fused_engine_raises_when_the_fused_kernel_fails(dev, monkeypatch):
+    """A failing fused kernel stops the fused engine: no fused -> split
+    rung, no plain version, nothing degraded or retried."""
+    from repro_torch.configs import registry as REG
+    from repro_torch.models import model as MD
+    from repro_torch.serve.engine import Engine, EngineStepError
+
+    def boom(*a, **k):
+        raise RuntimeError("kernel launch failed")
+
+    cfg = REG.smoke_config("yi-9b")
+    params = MD.init_params(cfg, seed=0, device=dev)
+    eng = Engine(params, cfg, slots=2, max_len=64, step_mode="fused",
+                 device=dev)
+    rng = np.random.default_rng(1)
+    for uid, s in enumerate((20, 7, 33)):
+        eng.submit(rng.integers(1, cfg.vocab_size, size=s), max_new=3,
+                   uid=uid)
+    monkeypatch.setattr(K, "fused_step_fwd", boom)
+    with pytest.raises(EngineStepError, match="kernel launch failed") as info:
+        eng.run()
+    assert info.value.phase == "fused"
+    st = eng.stats
+    assert st["launches_degraded_total"] == st["requests_retried_total"] \
+        == st["fused_fallbacks"] == st["prefill_launches"] == 0
+    assert sorted(r.uid for r in eng.queue) == [0, 1, 2]
