@@ -1,10 +1,10 @@
 """Drive the PyTorch/CUDA port (src/repro_torch) end to end on one NVIDIA card.
 
-    python3 chip_smoke.py [--layers N]
+    python3 chip_smoke.py [--layers N] [--train-layers N]
 
 Phases (any failure exits non-zero; nothing is caught):
   1. the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernels from src/repro_torch/csrc (nvcc, sm_90a);
+  2. build the five CUDA sources of src/repro_torch/csrc (nvcc, sm_90a);
   3. kernels: each kernel of the serving path at full yi-9b width (H=32,
      Hkv=4, D=128, blk=64, bf16 q/k/v, f32 decode cache) against its
      plain PyTorch version on the card (outputs within atol 4e-3 + rtol
@@ -19,7 +19,24 @@ Phases (any failure exits non-zero; nothing is caught):
      and kernel launches == layers x engine launches; a torch.profiler
      window over a few more decode rounds (device busy share, top
      kernels); then a smoke-size float32 engine with the kernels and with
-     the plain versions, which must emit identical greedy tokens.
+     the plain versions, which must emit identical greedy tokens;
+  5. training kernels: tri_attn.fwd and its dq and dk/dv backward at the
+     train phase's attention shape (B 1, H 32, Hkv 4, S 4096, D 128, ltm,
+     blk 64, bf16) against their plain versions on the same inputs
+     (OUT_TOL, lse LSE_TOL), timed beside the plain versions, SDPA
+     (is_causal forward; its autograd backward beside dq and dk/dv) and
+     the bound; band and prefix schedules at blk 16 and 64 on small
+     shapes;
+  6. training: yi-9b at full width (24 of 48 layers unless --train-layers
+     says otherwise: the 48-layer AdamW state does not fit 80 GB) for 3
+     steps of seq 4096, batch 1, remat, random seeded bf16 weights,
+     SyntheticLM batches; asserts finite positive losses, kernel launches
+     of exactly 2 x layers (fwd, with the remat recompute) and layers (dq,
+     dk/dv) a step, and no plain-version launch; a profiler window over a
+     fourth step; then smoke-size float32 training on the card: 3 steps
+     with the kernels and with the plain versions agree, 20 steps lower
+     the loss, 6 steps straight and 3 + checkpoint + restore + 3 end in
+     bitwise-equal states.
 The last lines are the card line, the {"kernels": [...]} line and
 {"ok": true, "device": {...}}.
 """
@@ -27,7 +44,10 @@ The last lines are the card line, the {"kernels": [...]} line and
 from __future__ import annotations
 
 import argparse
+import copy
+import dataclasses
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -70,6 +90,16 @@ def _bound(nbytes: float, flops: float, dtype) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _reset_launches(K):
+    """Every kernel wrapper's launch count to 0, just before a path."""
+    for fn in K.WRAPPERS.values():
+        fn.launches = 0
+
+
+def _launches(K) -> dict:
+    return {name: fn.launches for name, fn in K.WRAPPERS.items()}
 
 
 def _close(name, got, want, tol=OUT_TOL):
@@ -362,18 +392,18 @@ def serving_phase(dev, layers: int, card: str, K):
     prompts = [rng.integers(1, cfg.vocab_size, size=n) for n in prompt_lens]
     max_new = [32] * len(prompts)
     eng = Engine(params, cfg, **kw)
-    K.packed_fwd.launches = K.packed_decode_fwd.launches = 0
-    K.fused_step_fwd.launches = 0
+    _reset_launches(K)
     results, wall = _serve(eng, prompts, max_new)
-    launches = {"tri_attn.packed_fwd": K.packed_fwd.launches,
-                "tri_attn.packed_decode_fwd": K.packed_decode_fwd.launches}
+    counts = _launches(K)
+    launches = {n: counts.pop(n) for n in ("tri_attn.packed_fwd",
+                                           "tri_attn.packed_decode_fwd")}
     st = _check_served("serving", eng, results, range(len(prompts)),
                        max_new, cfg)
     if launches["tri_attn.packed_fwd"] != n_l * st["prefill_launches"] or \
             launches["tri_attn.packed_decode_fwd"] != \
             n_l * st["decode_packed_launches"] or \
             st["decode_packed_launches"] != st["decode_rounds"] or \
-            not all(launches.values()) or K.fused_step_fwd.launches:
+            not all(launches.values()) or any(counts.values()):
         _fail(f"serving: kernel launches {launches} != {n_l} layers x "
               f"engine launches (prefill {st['prefill_launches']}, decode "
               f"{st['decode_packed_launches']} of {st['decode_rounds']})")
@@ -401,16 +431,16 @@ def serving_phase(dev, layers: int, card: str, K):
     prompts = [rng.integers(1, cfg.vocab_size, size=n) for n in prompt_lens]
     max_new = [8, 40, 16, 32, 24, 12, 36, 20, 28, 10, 18, 30]
     eng = Engine(params, cfg, step_mode="fused", **kw)
-    K.packed_fwd.launches = K.packed_decode_fwd.launches = 0
-    K.fused_step_fwd.launches = 0
+    _reset_launches(K)
     results, wall = _serve(eng, prompts, max_new)
-    fused_launches = K.fused_step_fwd.launches
+    counts = _launches(K)
+    fused_launches = counts.pop("tri_attn.fused_step_fwd")
     st = _check_served("fused serving", eng, results, range(len(prompts)),
                        max_new, cfg)
     mixed = st["decode_rounds"] - st["decode_packed_launches"]
     if fused_launches != n_l * st["fused_launches"] or \
-            K.packed_decode_fwd.launches != \
-            n_l * st["decode_packed_launches"] or K.packed_fwd.launches \
+            counts.pop("tri_attn.packed_decode_fwd") != \
+            n_l * st["decode_packed_launches"] or any(counts.values()) \
             or not fused_launches or mixed < 4 or st["fused_fallbacks"]:
         _fail(f"fused serving: launches fused {fused_launches}, decode "
               f"{K.packed_decode_fwd.launches}, prefill "
@@ -478,16 +508,21 @@ def snapshot_phase(params, cfg, kw, rng, card):
 
 
 def profile_rounds(eng, rounds: int, label: str, card):
-    """torch.profiler over ``rounds`` engine rounds: device busy time
-    against wall time, and the kernels that take it."""
+    """torch.profiler over ``rounds`` engine rounds."""
+    profile_window(lambda: [eng.round() for _ in range(rounds)], rounds,
+                   "round", label, card)
+
+
+def profile_window(fn, count: int, unit: str, label: str, card):
+    """torch.profiler over ``fn()`` (``count`` rounds or steps): device
+    busy time against wall time, and the kernels that take it."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(rounds):
-            eng.round()
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []  # device kernels only: host ops carry their kernels' time too
@@ -500,9 +535,9 @@ def profile_rounds(eng, rounds: int, label: str, card):
     busy = sum(r[0] for r in rows)
     n_kernels = sum(r[1] for r in rows)
     top = "; ".join(f"{name[:60]} {ms:.2f} ms x{n}" for ms, n, name in rows[:6])
-    print(f"profile: {rounds} {label}, wall {wall_ms:.1f} ms, device busy "
+    print(f"profile: {count} {label}, wall {wall_ms:.1f} ms, device busy "
           f"{busy:.1f} ms ({100 * busy / wall_ms:.1f}%), "
-          f"{n_kernels / rounds:.0f} kernel launches a round; top: "
+          f"{n_kernels / count:.0f} kernel launches a {unit}; top: "
           f"{top or 'no device time in the trace'}; card {card}", flush=True)
 
 
@@ -558,10 +593,252 @@ def smoke_identity(dev):
           f"step modes", flush=True)
 
 
+def train_kernel_phase(dev, K, OPS, SC):
+    """tri_attn.fwd, bwd dq and bwd dk/dv at the attention shape of the
+    train phase (one yi-9b layer at seq 4096: B 1, H 32, Hkv 4, D 128,
+    ltm, blk 64, bf16) against their plain versions on the same inputs,
+    timed beside them, SDPA and the bound; band and prefix schedules at
+    blk 16 and 64 on small shapes."""
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(3)
+    dt = torch.bfloat16
+
+    def case(b, h, hkv, s, d):
+        return [torch.as_tensor(rng.standard_normal(shape, np.float32),
+                                device=dev).to(dt)
+                for shape in ((b, h, s, d), (b, hkv, s, d), (b, hkv, s, d),
+                              (b, h, s, d))]
+
+    def check(label, q, k, v, do, sched):
+        """The three kernels against their plain versions; returns the
+        errors and the kernels' outputs."""
+        scale = q.shape[-1] ** -0.5
+        out, lse = K.fwd(q, k, v, sched)
+        delta = (do.float() * out.float()).sum(dim=-1)
+        dq = K.bwd_dq(q, k, v, do, lse, delta, sched)
+        dk, dv = K.bwd_dkv(q, k, v, do, lse, delta, sched)
+        torch.cuda.synchronize()
+        w_out, w_lse = SC.fwd_torch(q, k, v, sched, scale)
+        w_dq = SC.dq_torch(q, k, v, do, lse, delta, sched, scale)
+        w_dk, w_dv = SC.dkv_torch(q, k, v, do, lse, delta, sched, scale)
+        errs = (max(_close(f"{label} fwd out", out, w_out),
+                    _close(f"{label} fwd lse", lse, w_lse, LSE_TOL)),
+                _close(f"{label} bwd dq", dq, w_dq),
+                max(_close(f"{label} bwd dk", dk, w_dk),
+                    _close(f"{label} bwd dv", dv, w_dv)))
+        return errs, (out, lse, delta)
+
+    for kind in ("band", "prefix"):
+        for blk in (16, 64):
+            window, prefix = (blk + 5, 0) if kind == "band" else \
+                (None, blk + 3)
+            q, k, v, do = case(2, 8, 2, 6 * blk, 128)
+            check(f"{kind} blk {blk}", q, k, v, do,
+                  OPS.make_sched(6 * blk, block=blk, window=window,
+                                 prefix=prefix))
+    b, h, hkv, s, d, blk = 1, 32, 4, 4096, 128, 64
+    q, k, v, do = case(b, h, hkv, s, d)
+    sched = OPS.make_sched(s, block=blk)
+    scale = d ** -0.5
+    errs, (out, lse, delta) = check("ltm", q, k, v, do, sched)
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=True)
+    _close("fwd vs SDPA", out, sdpa())
+    bw = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    o_lib = F.scaled_dot_product_attention(*bw, is_causal=True,
+                                           enable_gqa=True)
+    sdpa_bwd = lambda: torch.autograd.grad(o_lib, bw, do, retain_graph=True)
+    ms = {"fwd": _median_ms(lambda: K.fwd(q, k, v, sched), 5),
+          "dq": _median_ms(lambda: K.bwd_dq(q, k, v, do, lse, delta, sched),
+                           5),
+          "dkv": _median_ms(lambda: K.bwd_dkv(q, k, v, do, lse, delta,
+                                              sched), 5)}
+    plain = {"fwd": _median_ms(lambda: SC.fwd_torch(q, k, v, sched, scale),
+                               3, 1),
+             "dq": _median_ms(lambda: SC.dq_torch(q, k, v, do, lse, delta,
+                                                  sched, scale), 3, 1),
+             "dkv": _median_ms(lambda: SC.dkv_torch(q, k, v, do, lse, delta,
+                                                    sched, scale), 3, 1)}
+    lib_fwd, lib_bwd = _median_ms(sdpa, 10), _median_ms(sdpa_bwd, 5)
+    pairs = h * s * (s + 1) // 2  # unmasked (query, key) pairs, ltm
+    elt, qkv = q.element_size(), q.numel() + k.numel() + v.numel()
+    rows = q.numel() // d * 4  # one f32 per (b, h, row): lse, delta
+    bounds = {"fwd": _bound(elt * (qkv + q.numel()) + rows, 4 * d * pairs,
+                            dt),
+              "dq": _bound(elt * (qkv + 2 * q.numel()) + 2 * rows,
+                           6 * d * pairs, dt),
+              "dkv": _bound(elt * (qkv + q.numel() + k.numel() + v.numel())
+                            + 2 * rows, 8 * d * pairs, dt)}
+    names = {"fwd": ("tri_attn.fwd", "src/repro_torch/csrc/tri_fwd.cu",
+                     "src/repro/kernels/tri_attn/kernel.py:293",
+                     "SDPA is_causal forward"),
+             "dq": ("tri_attn.bwd_dq", "src/repro_torch/csrc/tri_bwd.cu",
+                    "src/repro/kernels/tri_attn/kernel.py:1090",
+                    "SDPA is_causal backward through autograd (dq, dk and "
+                    "dv together: no PyTorch call computes dq alone)"),
+             "dkv": ("tri_attn.bwd_dkv", "src/repro_torch/csrc/tri_bwd.cu",
+                     "src/repro/kernels/tri_attn/kernel.py:1090",
+                     "SDPA is_causal backward through autograd (dq, dk and "
+                     "dv together)")}
+    out_rows = []
+    for key, err in zip(("fwd", "dq", "dkv"), errs):
+        name, src, rep, lib = names[key]
+        out_rows.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "max_abs_err": err, "ms": ms[key], "plain_ms": plain[key],
+            "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
+            "library_ms": lib_fwd if key == "fwd" else lib_bwd,
+            "library": lib,
+            "shape": {"B": b, "H": h, "Hkv": hkv, "S": s, "D": d,
+                      "blk": blk, "kind": "ltm", "pairs": pairs}})
+    return out_rows
+
+
+def train_phase(dev, layers: int, card, K):
+    """yi-9b at full width, ``layers`` deep, for 3 training steps of seq
+    4096 through the kernels; returns each kernel's launches."""
+    from repro_torch.configs import yi_9b
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.obs import metrics as MET
+    from repro_torch.train import data as DATA
+    from repro_torch.train import fault_tolerance as FT
+    from repro_torch.train import optimizer as OPT
+    from repro_torch.train import train_step as TS
+
+    cfg = dataclasses.replace(yi_9b.CONFIG, n_layers=layers)
+    seq, steps = 4096, 3
+    print(f"train: depth cut to {layers} of {yi_9b.CONFIG.n_layers} layers "
+          f"(12 bytes a parameter of bf16 weights and grads and f32 AdamW "
+          f"moments: all 48 layers need ~106 GB)", flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    opt = OPT.OptConfig()
+    t0 = time.perf_counter()
+    state = TS.init_state(cfg, opt, seed=0, device=dev)
+    n_params = sum(x.numel() for x in _leaves(state.params))
+    torch.cuda.synchronize()
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    print(f"train: yi-9b {layers}L d_model={cfg.d_model} H={cfg.n_heads} "
+          f"Hkv={cfg.n_kv_heads} d_ff={cfg.d_ff} vocab={cfg.vocab_size}: "
+          f"{n_params / 1e9:.3f} B params, {state_gb:.2f} GB of weights and "
+          f"AdamW moments in {time.perf_counter() - t0:.1f} s", flush=True)
+    ds = DATA.SyntheticLM(cfg, ShapeConfig("train_4k", seq, 1, "train"),
+                          seed=0, device=dev)
+    step = TS.make_train_step(cfg, opt, attn_impl="cuda", remat=True,
+                              block=64)
+    times = []
+
+    def timed_step(state, batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        return state, metrics
+
+    reg = MET.Registry("train_phase")
+    _reset_launches(K)
+    with MET.scope(reg):
+        state, log = FT.run_training(state, timed_step, ds.batch, steps)
+    launches = _launches(K)
+    want = dict.fromkeys(launches, 0)
+    want.update({"tri_attn.fwd": 2 * layers * steps,
+                 "tri_attn.bwd_dq": layers * steps,
+                 "tri_attn.bwd_dkv": layers * steps})
+    plain = {n: reg.counter_value("launches_total", {"name": n,
+                                                     "impl": "torch"})
+             for n in want}
+    losses = [m["loss"] for m in log]
+    if launches != want or any(plain.values()):
+        _fail(f"train: kernel launches {launches} != {want}, or plain "
+              f"versions ran {plain}")
+    launches = {n: c for n, c in launches.items() if want[n]}
+    if len(losses) != steps or not all(np.isfinite(losses)) or \
+            min(losses) <= 0:
+        _fail(f"train: losses {losses}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"train: {steps} steps of {seq} tokens, losses {losses}, grad "
+          f"norms {[m['grad_norm'] for m in log]}; step times {times} s, "
+          f"{seq / statistics.median(times):.1f} trained tokens/s (median "
+          f"step); peak memory {peak_gb:.2f} GB of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} "
+          f"(state {state_gb:.2f}); launches {launches}; card {card}",
+          flush=True)
+    profile_window(lambda: step(state, ds.batch(steps)), 1, "step",
+                   "training step", card)
+    del state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def smoke_training(dev):
+    """Smoke-size float32 training on the card: the kernels against the
+    plain versions over 3 steps, the loss falling over 20, and a resumed
+    run bitwise equal to an unbroken one."""
+    from repro_torch.configs import registry as REG
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.train import checkpoint as CKPT
+    from repro_torch.train import data as DATA
+    from repro_torch.train import fault_tolerance as FT
+    from repro_torch.train import optimizer as OPT
+    from repro_torch.train import train_step as TS
+
+    cfg = REG.smoke_config("yi-9b")
+    opt = OPT.OptConfig(lr=3e-3, warmup_steps=2, total_steps=20)
+    ds = DATA.SyntheticLM(cfg, ShapeConfig("t", 64, 4, "train"), seed=0,
+                          device=dev)
+    base = TS.init_state(cfg, opt, seed=0, device=dev)
+    steps = {impl: TS.make_train_step(cfg, opt, attn_impl=impl, block=16)
+             for impl in ("cuda", "torch")}
+    losses = {impl: [m["loss"] for m in FT.run_training(
+        copy.deepcopy(base), fn, ds.batch, 3)[1]]
+        for impl, fn in steps.items()}
+    # f32 on both sides, sums in other orders: 1e-5 relative at most
+    if not np.allclose(losses["cuda"], losses["torch"], rtol=1e-5, atol=0):
+        _fail(f"smoke training: kernel losses {losses['cuda']} != plain "
+              f"{losses['torch']}")
+    _, log = FT.run_training(copy.deepcopy(base), steps["cuda"], ds.batch,
+                             20)
+    if not log[-1]["loss"] < log[0]["loss"] - 0.5:
+        _fail(f"smoke training: 20 steps did not lower the loss: "
+              f"{[m['loss'] for m in log]}")
+    ckpt = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    straight, _ = FT.run_training(copy.deepcopy(base), steps["cuda"],
+                                  ds.batch, 6)
+    FT.run_training(copy.deepcopy(base), steps["cuda"], ds.batch, 3,
+                    manager=CKPT.CheckpointManager(str(ckpt), every=3))
+    resumed, _ = CKPT.restore(str(ckpt), base, device=dev)
+    resumed, _ = FT.run_training(resumed, steps["cuda"], ds.batch, 6)
+    shutil.rmtree(ckpt)
+    pairs = list(zip(_leaves({"p": straight.params, "o": straight.opt_state}),
+                     _leaves({"p": resumed.params, "o": resumed.opt_state})))
+    if resumed.step != straight.step or \
+            not all(torch.equal(a, b) for a, b in pairs):
+        _fail("smoke training: 3 + checkpoint + restore + 3 steps differ "
+              "from 6 straight steps")
+    print(f"smoke training: float32, 3 steps kernels {losses['cuda']} vs "
+          f"plain {losses['torch']}; 20 steps {log[0]['loss']:.4f} -> "
+          f"{log[-1]['loss']:.4f}; 6 steps straight == 3 + checkpoint + "
+          f"restore + 3, bitwise over {len(pairs)} tensors", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=48,
                     help="cut the served model's depth (default: all 48)")
+    ap.add_argument("--train-layers", type=int, default=24,
+                    help="depth of the trained model (default 24: the "
+                         "48-layer AdamW state does not fit 80 GB)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is False: no CUDA card")
@@ -588,6 +865,8 @@ def main():
     ctx, kernels = kernel_phase(dev, K, OPS, SC)
     kernels.append(fused_kernel_phase(dev, K, OPS, SC, D, ctx))
     del ctx
+    kernels += train_kernel_phase(dev, K, OPS, SC)
+    torch.cuda.empty_cache()
     print("kernels: " + "; ".join(
         f"{k['name']} {k['ms']:.4f} ms (plain {k['plain_ms']:.3f}, SDPA "
         f"{k['library_ms']:.4f}, bound {k['bound_ms']:.4f} by "
@@ -595,6 +874,8 @@ def main():
         flush=True)
     launches = serving_phase(dev, args.layers, card, K)
     smoke_identity(dev)
+    launches.update(train_phase(dev, args.train_layers, card, K))
+    smoke_training(dev)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,7 @@
 """Configuration schema (port of ``repro/configs/base.py``): the
-``ModelConfig`` fields and the ``reduced`` smoke sizing, unchanged, so a
-config built here equals the reference's field for field."""
+``ModelConfig`` and ``ShapeConfig`` fields and the ``reduced`` smoke
+sizing, unchanged, so a config built here equals the reference's field
+for field."""
 
 from __future__ import annotations
 
@@ -80,6 +81,16 @@ class ModelConfig:
         if self.n_experts == 0:
             return False
         return idx % self.moe_every == self.moe_offset
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell (paired with an architecture)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode | long_decode
 
 
 def reduced(cfg: ModelConfig, *, layers: Optional[int] = None) -> ModelConfig:

@@ -1,9 +1,12 @@
 """Block-mapping functions for triangular domains: the paper's g(lambda).
 
-Port of ``repro/core/mapping.py`` for the maps the serving path uses:
-``ltm_map`` (row-major lower triangle, diagonal included), ``band_map``
-(sliding-window trapezoid) and ``prefix_full_map`` (causal triangle plus a
-bidirectional prefix rectangle). Each works on host ints (exact, python
+Port of ``repro/core/mapping.py`` for the maps the serving and training
+paths use: ``ltm_map`` (row-major lower triangle, diagonal included),
+``band_map`` (sliding-window trapezoid) and ``prefix_full_map`` (causal
+triangle plus a bidirectional prefix rectangle), the row-major inverses,
+and the column-major family the attention backward's dk/dv walks
+(``cm_map``, ``band_cm_map``, ``prefix_cm_map``). Each works on host ints
+(exact, python
 ``math.isqrt``) and on int32 torch tensors (float32 sqrt plus overflow-
 clamped integer probes, the same repair as the reference). The CUDA
 kernels carry the same arithmetic as ``__device__`` functions in
@@ -123,3 +126,91 @@ def prefix_full_map(lam, n, p):
     i_t = (isqrt(rem * 8 + 1) - 1) // 2
     j_t = rem - tri(i_t)
     return torch.where(in_head, i_h, i_t), torch.where(in_head, j_h, j_t)
+
+
+def ltm_inverse(i, j):
+    """(i, j) -> lambda of the row-major lower-triangle enumeration."""
+    return tri(i) + j
+
+
+def band_inverse(i, j, w):
+    """(i, j) -> lambda of ``band_map`` (host ints)."""
+    if i < w - 1:
+        return ltm_inverse(i, j)
+    return tri(w - 1) + (i - (w - 1)) * w + (j - (i - (w - 1)))
+
+
+# ---------------------------------------------------------------------------
+# Column-major maps: the dk/dv backward visits each key column's tiles
+# contiguously, so its accumulators are reset and emitted once per column.
+# ---------------------------------------------------------------------------
+
+
+def cm_map(lam, n):
+    """Column-major lower triangle (diagonal included): column j holds rows
+    [j, n). off(j) = j(2n+1-j)/2; j = floor((2n+1 - isqrt((2n+1)^2 -
+    8 lam)) / 2) with one correction each way; i = j + lam - off(j)."""
+    off = lambda j: (j * (2 * n + 1 - j)) // 2
+    if _is_host(lam) and _is_host(n):
+        lam = int(lam)
+        j = (2 * n + 1 - math.isqrt((2 * n + 1) ** 2 - 8 * lam)) // 2
+        while off(j + 1) <= lam:
+            j += 1
+        while off(j) > lam:
+            j -= 1
+        return j + lam - off(j), j
+    lam = _as_index(lam)
+    j = (2 * n + 1 - isqrt((2 * n + 1) ** 2 - 8 * lam)) // 2
+    j = torch.where(off(j + 1) <= lam, j + 1, j)
+    j = torch.where(off(j) > lam, j - 1, j)
+    return j + lam - off(j), j
+
+
+def cm_inverse(i, j, n):
+    """(i, j) -> lambda of ``cm_map``."""
+    return (j * (2 * n + 1 - j)) // 2 + (i - j)
+
+
+def band_cm_map(lam, n, w):
+    """Column-major banded lower triangle: column j holds rows
+    [j, min(j + w, n)). The full columns j <= n - w form a flat head of w
+    rows each; the shrinking tail is a reversed triangle mapped through
+    ``ltm_map`` on the mirrored index."""
+    if _is_host(lam) and _is_host(n) and _is_host(w):
+        lam, w = int(lam), min(int(w), int(n))
+        head_cols = n - w + 1
+        if lam < head_cols * w:
+            j, r = divmod(lam, w)
+            return j + r, j
+        a, b = ltm_map(tri(w - 1) - 1 - (lam - head_cols * w))
+        j = head_cols + (w - 2) - a
+        return j + a - b, j
+    lam = _as_index(lam)
+    w = torch.minimum(torch.as_tensor(w), torch.as_tensor(n))
+    head_cols = n - w + 1
+    head = head_cols * w
+    j_h = lam // w
+    i_h = j_h + (lam - j_h * w)
+    a, b = ltm_map(torch.clamp(tri(w - 1) - 1 - (lam - head), min=0))
+    j_t = head_cols + (w - 2) - a
+    i_t = j_t + a - b
+    in_head = lam < head
+    return torch.where(in_head, i_h, i_t), torch.where(in_head, j_h, j_t)
+
+
+def prefix_cm_map(lam, n, p):
+    """Column-major prefix-causal domain: columns j < p hold all n rows,
+    columns j >= p hold rows [j, n) (``cm_map`` on the shifted
+    triangle)."""
+    head = p * n
+    if _is_host(lam) and _is_host(n) and _is_host(p):
+        lam = int(lam)
+        if lam < head:
+            return lam % n, lam // n
+        i, j = cm_map(lam - head, n - p)
+        return i + p, j + p
+    lam = _as_index(lam)
+    i_t, j_t = cm_map(torch.clamp(lam - head, min=0), n - p)
+    in_head = lam < head
+    return (torch.where(in_head, lam % n, i_t + p),
+            torch.where(in_head, lam // n, j_t + p))

@@ -63,6 +63,25 @@ def last_col_params(i, p_r):
     return _maximum(i, p_r - 1)
 
 
+def cm_first_row_params(j, p_r):
+    """First i of column j (prefix columns < p span every row; i == j
+    otherwise): the dk/dv accumulator-reset row."""
+    if isinstance(j, torch.Tensor) or isinstance(p_r, torch.Tensor):
+        j = torch.as_tensor(j)
+        return torch.where(j < p_r, torch.zeros_like(j), j)
+    return 0 if j < p_r else j
+
+
+def cm_last_row_params(j, n_r, w_r):
+    """Last i of column j (band columns end w - 1 rows below the
+    diagonal; unbanded members have w == n, so n - 1): the dk/dv emit
+    row."""
+    if isinstance(j, torch.Tensor) or isinstance(n_r, torch.Tensor):
+        return torch.minimum(torch.as_tensor(j + w_r - 1),
+                             torch.as_tensor(n_r - 1))
+    return min(j + w_r - 1, n_r - 1)
+
+
 def segment_origin_params(i, w_r, p_r):
     """Member-local lambda of the first tile of row i (both families)."""
     i, w_r, p_r = (torch.as_tensor(x) for x in (i, w_r, p_r))

@@ -1,9 +1,13 @@
 // Tile bodies shared by the attention kernels (packed_fwd.cu,
-// packed_decode.cu, fused_step.cu).
+// packed_decode.cu, fused_step.cu, tri_fwd.cu, tri_bwd.cu).
 //
 // prefill_row_tile is one prefill accumulator owner: one q-row tile of one
-// packed member for one query head, walking the member-local lambdas of its
-// row through member_map_params with an f32 online softmax. decode_member
+// packed member (or of the one request of tri_fwd) for one query head,
+// walking the member-local lambdas of its row through member_map_params
+// with an f32 online softmax. dq_row_tile and dkv_col_tile are the
+// backward's owners: a q-row tile's dq, and a key-column tile's dk/dv over
+// every query head of its kv head (tri_bwd.cu; the packed backward takes
+// the same bodies with a member's row0). decode_member
 // is one decode accumulator owner: one live slot's single query for all g
 // query heads of one kv head, streaming the slot's cache tiles with
 // cp.async. Each kernel reads its own member table and hands these bodies
@@ -14,6 +18,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "packing.cuh"
 
@@ -134,6 +140,262 @@ __device__ __forceinline__ void prefill_row_tile(
   }
   if (lh != nullptr)
     for (int rr = threadIdx.x; rr < BLK; rr += NT) lh[q0 + rr] = sm[rr] + logf(sl[rr]);
+}
+
+// ---------------------------------------------------------------------------
+// Backward tile bodies
+// ---------------------------------------------------------------------------
+
+// `rows` rows of a (S, D) plane from row r0, as f32 with padded rows.
+template <typename T, int D, int NT>
+__device__ __forceinline__ void load_rows_f32(float* dst,
+                                              const T* __restrict__ src,
+                                              int r0, int rows) {
+  for (int e = threadIdx.x; e < rows * D; e += NT) {
+    const int rr = e / D, d = e % D;
+    dst[rr * (D + 1) + d] = to_f32(src[static_cast<size_t>(r0 + rr) * D + d]);
+  }
+}
+
+// One (query, key) pair of the backward, as the reference's _dq_kernel /
+// _dkv_kernel compute it: s = q.k * scale (MASK_VALUE where masked),
+// p = exp(s - lse), ds = p * (do.v - delta) * scale.
+template <int D>
+__device__ __forceinline__ void bwd_pair(const float* q, const float* k,
+                                         const float* dout, const float* v,
+                                         bool keep, float scale, float lse,
+                                         float delta, float* p, float* ds) {
+  float s = 0.f, dp = 0.f;
+#pragma unroll 16
+  for (int d = 0; d < D; ++d) {
+    s = fmaf(q[d], k[d], s);
+    dp = fmaf(dout[d], v[d], dp);
+  }
+  const float pv = expf((keep ? s * scale : MASK_VALUE) - lse);
+  *p = pv;
+  *ds = pv * (dp - delta) * scale;
+}
+
+template <int BLK, int D>
+struct DqShape {
+  static constexpr int KC = BLK < 32 ? BLK : 32;
+  static constexpr int DP = D + 1;
+  static constexpr int SP = KC + 1;
+  static constexpr int ACC = BLK * D / PREFILL_NT;
+  static constexpr int FLOATS = 2 * BLK * DP + 2 * KC * DP + BLK * SP + 2 * BLK;
+  static constexpr size_t BYTES = sizeof(float) * FLOATS;
+};
+
+// dq of q-row tile i: the block holds Q_i, dO_i, lse_i and delta_i and
+// walks j over [first_col(i), last_col(i)] in the reference's order, keys
+// in chunks of KC: dS for the chunk into shared memory, then
+// dQ += dS K_chunk into f32 registers (ACC a thread). qh/kh/vh/doh/dqh
+// point at this head's (S, D) planes, lh/dh at its (S,) lse and delta.
+template <typename T, int BLK, int D>
+__device__ __forceinline__ void dq_row_tile(
+    const T* __restrict__ qh, const T* __restrict__ kh,
+    const T* __restrict__ vh, const T* __restrict__ doh,
+    const float* __restrict__ lh, const float* __restrict__ dh,
+    T* __restrict__ dqh, int row0, int i, int w_r, int p_r, int win, int pre,
+    float scale, float* smem) {
+  using Sh = DqShape<BLK, D>;
+  constexpr int NT = PREFILL_NT;
+  constexpr int KC = Sh::KC, DP = Sh::DP, SP = Sh::SP, ACC = Sh::ACC;
+  static_assert(BLK * D % NT == 0, "tile must split evenly over threads");
+  float* sq = smem;
+  float* sdo = sq + BLK * DP;
+  float* sk = sdo + BLK * DP;
+  float* sv = sk + KC * DP;
+  float* ss = sv + KC * DP;
+  float* sl = ss + BLK * SP;
+  float* sd = sl + BLK;
+
+  const int win_eff = win > 0 ? win : (1 << 30);
+  const int q0 = (row0 + i) * BLK;
+  load_rows_f32<T, D, NT>(sq, qh, q0, BLK);
+  load_rows_f32<T, D, NT>(sdo, doh, q0, BLK);
+  for (int rr = threadIdx.x; rr < BLK; rr += NT) {
+    sl[rr] = lh[q0 + rr];
+    sd[rr] = dh[q0 + rr];
+  }
+  float acc[ACC];
+#pragma unroll
+  for (int a = 0; a < ACC; ++a) acc[a] = 0.f;
+
+  const int last = last_col_params(i, p_r);
+  for (int j = first_col_params(i, w_r); j <= last; ++j) {
+    const int k0 = (row0 + j) * BLK;
+    for (int c0 = 0; c0 < BLK; c0 += KC) {
+      __syncthreads();  // the previous chunk's readers are done
+      load_rows_f32<T, D, NT>(sk, kh, k0 + c0, KC);
+      load_rows_f32<T, D, NT>(sv, vh, k0 + c0, KC);
+      __syncthreads();
+      for (int e = threadIdx.x; e < BLK * KC; e += NT) {
+        const int rr = e / KC, cc = e % KC;
+        const int qp = i * BLK + rr, kp = j * BLK + c0 + cc;
+        const bool keep = (kp <= qp && qp - kp < win_eff) || kp < pre;
+        float p, ds;
+        bwd_pair<D>(sq + rr * DP, sk + cc * DP, sdo + rr * DP, sv + cc * DP,
+                    keep, scale, sl[rr], sd[rr], &p, &ds);
+        ss[rr * SP + cc] = ds;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int a = 0; a < ACC; ++a) {
+        const int e = threadIdx.x + a * NT;
+        const int rr = e / D, d = e % D;
+        float o = acc[a];
+#pragma unroll 8
+        for (int cc = 0; cc < KC; ++cc) o = fmaf(ss[rr * SP + cc], sk[cc * DP + d], o);
+        acc[a] = o;
+      }
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < ACC; ++a) {
+    const int e = threadIdx.x + a * NT;
+    const int rr = e / D, d = e % D;
+    dqh[static_cast<size_t>(q0 + rr) * D + d] = from_f32<T>(acc[a]);
+  }
+}
+
+template <int BLK, int D>
+struct DkvShape {
+  static constexpr int KC = BLK < 32 ? BLK : 32;  // keys per accumulator chunk
+  static constexpr int QC = KC;                    // query rows per step
+  static constexpr int DP = D + 1;
+  static constexpr int SP = KC + 1;
+  static constexpr int ACC = KC * D / PREFILL_NT;
+  static constexpr int FLOATS = 2 * KC * DP + 2 * QC * DP + 2 * QC * SP + 2 * QC;
+  static constexpr size_t BYTES = sizeof(float) * FLOATS;
+};
+
+// dk/dv of key-column tile j for kv head hk: the block owns the tile and
+// sums over the g query heads of its group directly, so no per-q-head
+// partial is written. It takes the tile's keys in chunks of KC; for each
+// chunk it holds K and V in shared memory and dK, dV in f32 registers,
+// and walks every query head gi, then rows i over
+// [cm_first_row(j), cm_last_row(j)], then that row tile's queries in
+// chunks of QC: P and dS for the QC x KC pairs into shared memory, then
+// dV += P^T dO and dK += dS^T Q. qg/dog point at the group's first query
+// head's (S, D) plane (heads are consecutive planes), lg/dg at its (S,)
+// lse and delta rows; kh/vh/dkh/dvh at the kv head's planes.
+template <typename T, int BLK, int D>
+__device__ __forceinline__ void dkv_col_tile(
+    const T* __restrict__ qg, const T* __restrict__ kh,
+    const T* __restrict__ vh, const T* __restrict__ dog,
+    const float* __restrict__ lg, const float* __restrict__ dg,
+    T* __restrict__ dkh, T* __restrict__ dvh, int g, int S, int row0, int j,
+    int n_r, int w_r, int p_r, int win, int pre, float scale, float* smem) {
+  using Sh = DkvShape<BLK, D>;
+  constexpr int NT = PREFILL_NT;
+  constexpr int KC = Sh::KC, QC = Sh::QC, DP = Sh::DP, SP = Sh::SP;
+  constexpr int ACC = Sh::ACC;
+  static_assert(KC * D % NT == 0, "chunk must split evenly over threads");
+  float* sk = smem;
+  float* sv = sk + KC * DP;
+  float* sq = sv + KC * DP;
+  float* sdo = sq + QC * DP;
+  float* sp = sdo + QC * DP;
+  float* sds = sp + QC * SP;
+  float* sl = sds + QC * SP;
+  float* sd = sl + QC;
+
+  const int win_eff = win > 0 ? win : (1 << 30);
+  const int first = cm_first_row_params(j, p_r);
+  const int last = cm_last_row_params(j, n_r, w_r);
+  const size_t plane = static_cast<size_t>(S) * D;
+  for (int c0 = 0; c0 < BLK; c0 += KC) {
+    const int kr0 = (row0 + j) * BLK + c0;
+    __syncthreads();  // the previous chunk's readers are done
+    load_rows_f32<T, D, NT>(sk, kh, kr0, KC);
+    load_rows_f32<T, D, NT>(sv, vh, kr0, KC);
+    float dk[ACC], dv[ACC];
+#pragma unroll
+    for (int a = 0; a < ACC; ++a) dk[a] = dv[a] = 0.f;
+    for (int gi = 0; gi < g; ++gi) {
+      const T* qh = qg + gi * plane;
+      const T* doh = dog + gi * plane;
+      const float* lh = lg + static_cast<size_t>(gi) * S;
+      const float* dh = dg + static_cast<size_t>(gi) * S;
+      for (int i = first; i <= last; ++i) {
+        for (int r0 = 0; r0 < BLK; r0 += QC) {
+          const int qr0 = (row0 + i) * BLK + r0;
+          __syncthreads();
+          load_rows_f32<T, D, NT>(sq, qh, qr0, QC);
+          load_rows_f32<T, D, NT>(sdo, doh, qr0, QC);
+          for (int rr = threadIdx.x; rr < QC; rr += NT) {
+            sl[rr] = lh[qr0 + rr];
+            sd[rr] = dh[qr0 + rr];
+          }
+          __syncthreads();
+          for (int e = threadIdx.x; e < QC * KC; e += NT) {
+            const int rr = e / KC, cc = e % KC;
+            const int qp = i * BLK + r0 + rr, kp = j * BLK + c0 + cc;
+            const bool keep = (kp <= qp && qp - kp < win_eff) || kp < pre;
+            bwd_pair<D>(sq + rr * DP, sk + cc * DP, sdo + rr * DP,
+                        sv + cc * DP, keep, scale, sl[rr], sd[rr],
+                        &sp[rr * SP + cc], &sds[rr * SP + cc]);
+          }
+          __syncthreads();
+#pragma unroll
+          for (int a = 0; a < ACC; ++a) {
+            const int e = threadIdx.x + a * NT;
+            const int cc = e / D, d = e % D;
+            float av = dv[a], ak = dk[a];
+#pragma unroll 8
+            for (int rr = 0; rr < QC; ++rr) {
+              av = fmaf(sp[rr * SP + cc], sdo[rr * DP + d], av);
+              ak = fmaf(sds[rr * SP + cc], sq[rr * DP + d], ak);
+            }
+            dv[a] = av;
+            dk[a] = ak;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < ACC; ++a) {
+      const int e = threadIdx.x + a * NT;
+      const int cc = e / D, d = e % D;
+      const size_t off = static_cast<size_t>(kr0 + cc) * D + d;
+      dkh[off] = from_f32<T>(dk[a]);
+      dvh[off] = from_f32<T>(dv[a]);
+    }
+  }
+}
+
+// Host dispatch over the kernels' template parameters: calls
+// f(TypeTag<T>, BLK, D) with BLK and D as std::integral_constant for
+// dtype 0 (float32) / 1 (bfloat16), blk and D in 16, 32, 64, 128.
+template <typename T>
+struct TypeTag {
+  using type = T;
+};
+
+template <typename F>
+inline int dispatch_tile(int dtype, int blk, int D, F&& f) {
+  auto by_d = [&](auto t, auto b) -> int {
+    switch (D) {
+      case 16: return f(t, b, std::integral_constant<int, 16>{});
+      case 32: return f(t, b, std::integral_constant<int, 32>{});
+      case 64: return f(t, b, std::integral_constant<int, 64>{});
+      case 128: return f(t, b, std::integral_constant<int, 128>{});
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  };
+  auto by_blk = [&](auto t) -> int {
+    switch (blk) {
+      case 16: return by_d(t, std::integral_constant<int, 16>{});
+      case 32: return by_d(t, std::integral_constant<int, 32>{});
+      case 64: return by_d(t, std::integral_constant<int, 64>{});
+      case 128: return by_d(t, std::integral_constant<int, 128>{});
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  };
+  if (dtype == 0) return by_blk(TypeTag<float>{});
+  if (dtype == 1) return by_blk(TypeTag<__nv_bfloat16>{});
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {

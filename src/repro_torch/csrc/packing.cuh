@@ -97,6 +97,17 @@ __device__ __forceinline__ int last_col_params(int i, int p) {
   return max(i, p - 1);
 }
 
+// Column bounds of the column-major walk (dk/dv): prefix columns < p span
+// every row, others start on the diagonal; band columns end w - 1 rows
+// below it (w == n unbanded, so n - 1).
+__device__ __forceinline__ int cm_first_row_params(int j, int p) {
+  return j < p ? 0 : j;
+}
+
+__device__ __forceinline__ int cm_last_row_params(int j, int n, int w) {
+  return min(j + w - 1, n - 1);
+}
+
 // Member-local lambda of the first tile of row i (both families).
 __device__ __forceinline__ int segment_origin_params(int i, int w, int p) {
   if (p > 0) return i < p ? i * p : p * p + tri_n(i) - tri_n(p);

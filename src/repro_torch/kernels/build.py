@@ -23,7 +23,7 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
-SOURCES = ("packed_fwd", "packed_decode", "fused_step")
+SOURCES = ("packed_fwd", "packed_decode", "fused_step", "tri_fwd", "tri_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -43,6 +43,14 @@ SIGNATURES = {
     "fused_step": {
         "fused_step_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                               _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    },
+    # (B, H, Hkv, S, D, blk, n, w, p, win, pre, scale, dtype, stream)
+    "tri_fwd": {
+        "tri_fwd_launch": [_P] * 5 + [_I] * 11 + [_F, _I, _P],
+    },
+    "tri_bwd": {
+        "tri_bwd_dq_launch": [_P] * 7 + [_I] * 11 + [_F, _I, _P],
+        "tri_bwd_dkv_launch": [_P] * 8 + [_I] * 11 + [_F, _I, _P],
     },
 }
 

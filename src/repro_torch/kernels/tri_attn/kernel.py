@@ -7,13 +7,16 @@ is the decode pad member's sentinel.
 
 ``packed_fwd``, ``packed_decode_fwd`` and ``fused_step_fwd`` wrap the
 hand-written kernels in ``csrc/packed_fwd.cu``, ``csrc/packed_decode.cu``
-and ``csrc/fused_step.cu`` (see the notes at the top of each source for
-what bounds them on the H100 and why the grid is one block per
-accumulator owner). On a CUDA tensor a wrapper launches its kernel,
-through ``obs.launch.instrumented_launch``, or raises; it runs the plain
-PyTorch version (scan_impl.py) only when its inputs lie on the CPU. Each
-wrapper counts its launches in a plain integer attribute (``.launches``),
-incremented where the kernel is launched and nowhere else.
+and ``csrc/fused_step.cu``; ``fwd``, ``bwd_dq`` and ``bwd_dkv`` (the
+training path's forward and its two backward launches, which ``bwd``
+composes) wrap ``csrc/tri_fwd.cu`` and ``csrc/tri_bwd.cu``. The notes at
+the top of each source say what bounds it on the H100 and why its grid
+is one block per accumulator owner. On a CUDA tensor a wrapper launches
+its kernel, through ``obs.launch.instrumented_launch``, or raises; it
+runs the plain PyTorch version (scan_impl.py) only when its inputs lie
+on the CPU. Each wrapper counts its launches in a plain integer
+attribute (``.launches``), incremented where the kernel is launched and
+nowhere else (``WRAPPERS`` lists them).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import mapping as M
+from repro_torch.core import packing as PK
 from repro_torch.kernels import build as BUILD
 from repro_torch.obs import launch as OBS
 
@@ -70,6 +74,7 @@ class TriSched:
     def p_b(self) -> int:
         return -(-self.prefix // self.bk) if self.prefix else 0
 
+    # ---- row-major enumeration (forward, dq) -----------------------------
     @property
     def rm_steps(self) -> int:
         if self.kind == "ltm":
@@ -77,6 +82,39 @@ class TriSched:
         if self.kind == "band":
             return M.band_blocks(self.n, self.w_b)
         return M.prefix_full_blocks(self.n, self.p_b)
+
+    def rm_map(self, lam):
+        if self.kind == "ltm":
+            return M.ltm_map(lam)
+        if self.kind == "band":
+            return M.band_map(lam, self.w_b)
+        return M.prefix_full_map(lam, self.n, self.p_b)
+
+    def rm_first_col(self, i):
+        """First j of row i (w_b == n unless banded, so 0 then)."""
+        return PK.first_col_params(i, self.w_b)
+
+    def rm_last_col(self, i):
+        """Last j of row i (p_b == 0 unless prefix, so i then)."""
+        return PK.last_col_params(i, self.p_b)
+
+    # ---- column-major enumeration (dk/dv) --------------------------------
+    @property
+    def cm_steps(self) -> int:
+        return self.rm_steps  # same domain, another order
+
+    def cm_map(self, lam):
+        if self.kind == "ltm":
+            return M.cm_map(lam, self.n)
+        if self.kind == "band":
+            return M.band_cm_map(lam, self.n, self.w_b)
+        return M.prefix_cm_map(lam, self.n, self.p_b)
+
+    def cm_first_row(self, j):
+        return PK.cm_first_row_params(j, self.p_b)
+
+    def cm_last_row(self, j):
+        return PK.cm_last_row_params(j, self.n, self.w_b)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -358,6 +396,148 @@ def fused_step_fwd(q_pack, k_pack, v_pack, q_dec, k_cache, v_cache, tbl, *,
 
 
 fused_step_fwd.launches = 0
+
+
+def _check_attn(op: str, sched: TriSched, q, *rest):
+    """Raise unless q (B, H, S, D), rest = (k, v) (B, Hkv, S, D) and any
+    further q-shaped operands (out, do) lie on one CUDA device in one
+    dtype and layout the kernels take, tiled square by ``sched``."""
+    b, h, s_len, d = q.shape
+    k = rest[0]
+    hkv = k.shape[1]
+    ins = (q,) + rest
+    _check(all(x.is_cuda and x.device == q.device for x in ins),
+           f"{op}: every operand must lie on one CUDA device")
+    _check(q.dtype in _DTYPE_CODES and all(x.dtype == q.dtype for x in ins),
+           f"{op}: operands must share f32 or bf16, got "
+           f"{[str(x.dtype) for x in ins]}")
+    _check(all(x.shape == (b, hkv, s_len, d) for x in rest[:2])
+           and all(x.shape == q.shape for x in rest[2:]) and h % hkv == 0,
+           f"{op}: shapes q {tuple(q.shape)} and "
+           f"{[tuple(x.shape) for x in rest]}")
+    _check(all(x.is_contiguous() for x in ins),
+           f"{op}: operands must be contiguous")
+    _check(sched.n * sched.bq == s_len and sched.bq == sched.bk,
+           f"{op}: S={s_len} but the schedule covers {sched.n} square "
+           f"tiles of {sched.bq}")
+    _check(d in SUPPORTED_HEAD_DIMS and sched.bq in SUPPORTED_BLOCKS,
+           f"{op}: head_dim {d} / block {sched.bq} unsupported (head_dim "
+           f"in {SUPPORTED_HEAD_DIMS}, block in {SUPPORTED_BLOCKS})")
+
+
+def _sched_args(sched: TriSched):
+    """(n, w_b, p_b, window tokens or 0, prefix tokens) for the C entry
+    points: the (n, w, p) member parameters of csrc/packing.cuh."""
+    return (sched.n, sched.w_b, sched.p_b, sched.window or 0, sched.prefix)
+
+
+def fwd(q, k, v, sched: TriSched, *, sm_scale=None):
+    """Triangular-domain flash attention forward (ltm, band or prefix).
+
+    q: (B, H, S, D); k, v: (B, Hkv, S, D), one dtype (f32 or bf16),
+    contiguous. Returns (out (B, H, S, D) in q's dtype, lse (B, H, S)
+    f32)."""
+    b, h, s_len, d = q.shape
+    scale = float(sm_scale if sm_scale is not None else 1.0 / (d ** 0.5))
+    if not q.is_cuda:
+        from repro_torch.kernels.tri_attn import scan_impl as SC
+
+        return SC.fwd_torch(q, k, v, sched, scale)
+    _check_attn("fwd", sched, q, k, v)
+    lib = BUILD.load("tri_fwd")
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, s_len), dtype=torch.float32, device=q.device)
+    meta = OBS.meta_from_trisched("tri_attn.fwd", sched, impl="cuda",
+                                  cells=b * h, grid=(sched.n, h, b))
+    OBS.instrumented_launch(
+        meta, lib.tri_fwd_launch, (q, k, v),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), b, h, k.shape[1], s_len, d, sched.bq,
+        *_sched_args(sched), scale, _DTYPE_CODES[q.dtype], _stream_ptr(q))
+    fwd.launches += 1
+    return out, lse
+
+
+fwd.launches = 0
+
+
+def _bwd_launch(name, c_fn, sched, q, k, v, do, lse, delta, outs, scale):
+    """Checks and the launch shared by the two backward kernels."""
+    b, h, s_len, d = q.shape
+    _check_attn(name, sched, q, k, v, do)
+    _check(all(x.dtype == torch.float32 and x.shape == (b, h, s_len)
+               and x.is_contiguous() and x.device == q.device
+               for x in (lse, delta)),
+           f"{name}: lse and delta must be contiguous (B, H, S) f32 on q's "
+           f"device, got {tuple(lse.shape)} {lse.dtype} and "
+           f"{tuple(delta.shape)} {delta.dtype}")
+    hkv = k.shape[1]
+    meta = OBS.meta_from_trisched(
+        f"tri_attn.bwd_{name[4:]}", sched, impl="cuda", cells=b * h,
+        grid=(sched.n, h if name == "bwd_dq" else hkv, b))
+    OBS.instrumented_launch(
+        meta, c_fn, (q, k, v, do),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), *(x.data_ptr() for x in outs),
+        b, h, hkv, s_len, d, sched.bq, *_sched_args(sched), scale,
+        _DTYPE_CODES[q.dtype], _stream_ptr(q))
+
+
+def bwd_dq(q, k, v, do, lse, delta, sched: TriSched, *, sm_scale=None):
+    """dq over the row-major domain (csrc/tri_bwd.cu, tri_bwd_dq). lse and
+    delta = sum(do * out): (B, H, S) f32. Returns dq in q's dtype."""
+    scale = float(sm_scale if sm_scale is not None
+                  else 1.0 / (q.shape[-1] ** 0.5))
+    if not q.is_cuda:
+        from repro_torch.kernels.tri_attn import scan_impl as SC
+
+        return SC.dq_torch(q, k, v, do, lse, delta, sched, scale)
+    dq = torch.empty_like(q)
+    _bwd_launch("bwd_dq", BUILD.load("tri_bwd").tri_bwd_dq_launch, sched,
+                q, k, v, do, lse, delta, (dq,), scale)
+    bwd_dq.launches += 1
+    return dq
+
+
+bwd_dq.launches = 0
+
+
+def bwd_dkv(q, k, v, do, lse, delta, sched: TriSched, *, sm_scale=None):
+    """dk and dv over the column-major domain (csrc/tri_bwd.cu,
+    tri_bwd_dkv), summed over each kv head's query heads in the kernel.
+    Returns (dk, dv) in k's dtype."""
+    scale = float(sm_scale if sm_scale is not None
+                  else 1.0 / (q.shape[-1] ** 0.5))
+    if not q.is_cuda:
+        from repro_torch.kernels.tri_attn import scan_impl as SC
+
+        return SC.dkv_torch(q, k, v, do, lse, delta, sched, scale)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _bwd_launch("bwd_dkv", BUILD.load("tri_bwd").tri_bwd_dkv_launch, sched,
+                q, k, v, do, lse, delta, (dk, dv), scale)
+    bwd_dkv.launches += 1
+    return dk, dv
+
+
+bwd_dkv.launches = 0
+
+
+def bwd(q, k, v, out, lse, do, sched: TriSched, *, sm_scale=None):
+    """Backward of ``fwd``: delta = sum(do * out) here, as the reference
+    takes it, then the dq and the dk/dv launches. Returns (dq, dk, dv)
+    shaped like q, k, v."""
+    delta = (do.float() * out.float()).sum(dim=-1)
+    dq = bwd_dq(q, k, v, do, lse, delta, sched, sm_scale=sm_scale)
+    return (dq,) + tuple(bwd_dkv(q, k, v, do, lse, delta, sched,
+                                 sm_scale=sm_scale))
+
+
+# every kernel wrapper, by the launch name it records
+WRAPPERS = {"tri_attn.packed_fwd": packed_fwd,
+            "tri_attn.packed_decode_fwd": packed_decode_fwd,
+            "tri_attn.fused_step_fwd": fused_step_fwd,
+            "tri_attn.fwd": fwd, "tri_attn.bwd_dq": bwd_dq,
+            "tri_attn.bwd_dkv": bwd_dkv}
 
 
 def member_map_device(local, n, w, p):

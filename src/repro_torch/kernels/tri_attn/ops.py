@@ -1,5 +1,9 @@
-"""Public packed attention ops (port of ``repro/kernels/tri_attn/ops.py``).
+"""Public attention ops (port of ``repro/kernels/tri_attn/ops.py``).
 
+``triangular_attention`` + ``make_sched``: one request's causal, banded or
+prefix-causal attention (the models' training path), differentiable: the
+forward saves (q, k, v, out, lse) and the backward runs the dq and dk/dv
+launches.
 ``packed_prefill_attention`` + ``make_packed_sched``: R requests of mixed
 lengths concatenated along S, attended block-diagonally in ONE launch.
 ``packed_decode_attention`` + ``make_decode_table`` + ``DecodeRoundSpec``:
@@ -39,6 +43,64 @@ def _require_cuda(impl: str, t: torch.Tensor, op: str):
         raise ValueError(
             f"{op}: impl='cuda' needs CUDA tensors, got {t.device}; pass "
             "impl='torch' for the plain PyTorch version")
+
+
+def make_sched(s_len: int, *, block: int, window=None,
+               prefix: int = 0) -> TriSched:
+    """Square-tiled schedule of one sequence: ``window`` -> band,
+    ``prefix`` -> prefix-causal, else ltm. The reference takes block_q and
+    block_k but squares them for every kind, so the port takes one edge."""
+    blk = min(block, s_len)
+    if s_len % blk:
+        raise ValueError(f"seq {s_len} not divisible by block {blk}")
+    kind = "band" if window is not None else ("prefix" if prefix else "ltm")
+    return TriSched(kind=kind, n=s_len // blk, bq=blk, bk=blk,
+                    window=window, prefix=prefix)
+
+
+class _TriAttention(torch.autograd.Function):
+    """Custom VJP of the triangular attention (the reference's
+    ``_pallas_attention`` / ``make_scan_attention``): impl 'cuda' runs the
+    kernels, 'torch' their plain versions, on whatever device q is."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, sched, scale, impl):
+        if impl == "cuda":
+            out, lse = K.fwd(q, k, v, sched, sm_scale=scale)
+        else:
+            out, lse = SC.fwd_torch(q, k, v, sched, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.sched, ctx.scale, ctx.impl = sched, scale, impl
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        args = ctx.saved_tensors + (do.contiguous(), ctx.sched)
+        if ctx.impl == "cuda":
+            dq, dk, dv = K.bwd(*args, sm_scale=ctx.scale)
+        else:
+            dq, dk, dv = SC.bwd_torch(*args, ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
+def triangular_attention(q, k, v, *, window=None, prefix: int = 0,
+                         impl: str = "cuda", block: int = 64):
+    """Causal (optionally windowed / prefix-causal) attention of one
+    request, differentiable under every impl.
+
+    q: (B, H, S, D); k, v: (B, Hkv, S, D), H % Hkv == 0. Returns
+    (B, H, S, D)."""
+    s_len, d = q.shape[2], q.shape[3]
+    scale = 1.0 / (d ** 0.5)
+    if impl == "ref":
+        return R.mha_reference(q, k, v, sm_scale=scale, window=window,
+                               prefix=prefix)
+    if impl not in ("cuda", "torch"):
+        raise ValueError(f"unknown impl {impl!r}; known {IMPLS}")
+    _require_cuda(impl, q, "triangular_attention")
+    sched = make_sched(s_len, block=block, window=window, prefix=prefix)
+    return _TriAttention.apply(q.contiguous(), k.contiguous(),
+                               v.contiguous(), sched, scale, impl)
 
 
 def make_packed_sched(seq_lens, *, block: int, window=None,

@@ -1,12 +1,15 @@
-"""Plain PyTorch versions of the packed attention kernels.
+"""Plain PyTorch versions of the attention kernels.
 
 Counterparts of the reference's ``scan`` impl (scan_impl.py: the forward
-of ``make_packed_scan_attention``, ``packed_decode_scan`` and
-``fused_step_scan``): the same member tables, the same tile enumeration
-and the same online-softmax order as the kernels, written as a Python loop
-over tiles with every (batch, head) pair vectorized. One prefill-member
-body and one decode-member body serve all three, as the kernels share
-theirs (csrc/attn_tiles.cuh). They are the CPU path and the reference
+of ``make_packed_scan_attention``, ``packed_decode_scan``,
+``fused_step_scan`` and the ``_fwd_cell`` / ``_dq_cell`` / ``_dkv_cell``
+of ``make_scan_attention``): the same member tables, the same tile
+enumeration and the same online-softmax order as the kernels, written as
+a Python loop over tiles with every (batch, head) pair vectorized. One
+prefill-member body and one decode-member body serve the forwards, as the
+kernels share theirs (csrc/attn_tiles.cuh); the backward walks the
+schedule's row-major (dq) and column-major (dk/dv) lambdas through
+``TriSched.rm_map`` / ``cm_map``. They are the CPU path and the reference
 the CUDA kernels are held against on the card; they are no yardstick of
 speed.
 """
@@ -16,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.tri_attn.kernel import (DECODE_NO_EMIT, MASK_VALUE,
-                                                 PackedTriSched,
+                                                 PackedTriSched, TriSched,
                                                  fused_step_meta)
 from repro_torch.obs import launch as OBS
 
@@ -169,3 +172,101 @@ def fused_step_torch(q_pack, k_pack, v_pack, q_dec, k_cache, v_cache, tbl, *,
             _decode_member(q_dec, k_cache, v_cache, out_d, off, n, w, p, blk,
                            scale)
     return out_p.reshape(1, h, s_pack, d), out_d
+
+
+def fwd_torch(q, k, v, sched: TriSched, scale: float):
+    """One request's ltm / band / prefix forward: the prefill-member body
+    over the whole sequence. q (B, H, S, D); k, v (B, Hkv, S, D). Returns
+    (out in q.dtype, lse (B, H, S) f32)."""
+    b, h, s_len, d = q.shape
+    hkv = k.shape[1]
+    OBS.record_launch(OBS.meta_from_trisched("tri_attn.fwd", sched,
+                                             impl="torch", cells=b * h),
+                      (q, k, v))
+    qg = q.reshape(b, hkv, h // hkv, s_len, d)
+    out = torch.empty_like(qg)
+    lse = torch.empty((b, hkv, h // hkv, s_len), dtype=torch.float32,
+                      device=q.device)
+    _prefill_member(qg, k, v, out, lse, 0, sched.n, sched.w_b, sched.p_b,
+                    sched.window or 0, sched.prefix, sched.bq, scale)
+    return out.reshape(b, h, s_len, d), lse.reshape(b, h, s_len)
+
+
+def _bwd_tile(sched, i, j, k, v, qg, dog, lse, dlt, scale):
+    """P and dS of tile (i, j) for every (batch, kv head, group head):
+    (B, Hkv, g, blk, blk) f32, plus the f32 q, k and do tiles."""
+    blk = sched.bq
+    ri = slice(i * blk, (i + 1) * blk)
+    rj = slice(j * blk, (j + 1) * blk)
+    qi, doi = qg[:, :, :, ri].float(), dog[:, :, :, ri].float()
+    kj, vj = k[:, :, rj].float(), v[:, :, rj].float()
+    s = torch.einsum("bkgqd,bkcd->bkgqc", qi, kj) * scale
+    s = torch.where(_token_mask(i, j, blk, sched.window or 0, sched.prefix,
+                                qg.device), s, MASK_VALUE)
+    p = torch.exp(s - lse[:, :, :, ri, None])
+    dp = torch.einsum("bkgqd,bkcd->bkgqc", doi, vj)
+    return p, p * (dp - dlt[:, :, :, ri, None]) * scale, qi, kj, doi
+
+
+def _grouped(q, do, lse, delta, hkv):
+    """q, do, lse and delta with the query heads split (B, Hkv, g, ...)."""
+    b, h, s_len, d = q.shape
+    g = h // hkv
+    return (q.reshape(b, hkv, g, s_len, d), do.reshape(b, hkv, g, s_len, d),
+            lse.reshape(b, hkv, g, s_len), delta.reshape(b, hkv, g, s_len))
+
+
+def dq_torch(q, k, v, do, lse, delta, sched: TriSched, scale: float):
+    """dq over the row-major lambdas: reset at a row's first column, emit
+    at its last. lse, delta (B, H, S) f32. Returns dq in q's dtype."""
+    b, h, s_len, d = q.shape
+    hkv, blk = k.shape[1], sched.bq
+    OBS.record_launch(OBS.meta_from_trisched("tri_attn.bwd_dq", sched,
+                                             impl="torch", cells=b * h),
+                      (q, k, v, do))
+    tile = _grouped(q, do, lse, delta, hkv)
+    dq = torch.empty_like(tile[0])
+    for lam in range(sched.rm_steps):
+        i, j = sched.rm_map(lam)
+        if j == sched.rm_first_col(i):
+            acc = torch.zeros(dq.shape[:3] + (blk, d), dtype=torch.float32,
+                              device=q.device)
+        _, ds, _, kj, _ = _bwd_tile(sched, i, j, k, v, *tile, scale)
+        acc = acc + torch.einsum("bkgqc,bkcd->bkgqd", ds, kj)
+        if j == sched.rm_last_col(i):
+            dq[:, :, :, i * blk:(i + 1) * blk] = acc.to(dq.dtype)
+    return dq.reshape(b, h, s_len, d)
+
+
+def dkv_torch(q, k, v, do, lse, delta, sched: TriSched, scale: float):
+    """dk and dv over the column-major lambdas (reset at a column's first
+    row, emit at its last), summed over each kv head's query heads.
+    Returns (dk, dv) in k's dtype."""
+    b, h = q.shape[:2]
+    hkv, blk = k.shape[1], sched.bq
+    OBS.record_launch(OBS.meta_from_trisched("tri_attn.bwd_dkv", sched,
+                                             impl="torch", cells=b * h),
+                      (q, k, v, do))
+    tile = _grouped(q, do, lse, delta, hkv)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    for lam in range(sched.cm_steps):
+        i, j = sched.cm_map(lam)
+        if i == sched.cm_first_row(j):
+            acc_k = torch.zeros((b, hkv, blk, k.shape[-1]),
+                                dtype=torch.float32, device=q.device)
+            acc_v = torch.zeros_like(acc_k)
+        p, ds, qi, _, doi = _bwd_tile(sched, i, j, k, v, *tile, scale)
+        acc_v = acc_v + torch.einsum("bkgqc,bkgqd->bkcd", p, doi)
+        acc_k = acc_k + torch.einsum("bkgqc,bkgqd->bkcd", ds, qi)
+        if i == sched.cm_last_row(j):
+            dk[:, :, j * blk:(j + 1) * blk] = acc_k.to(dk.dtype)
+            dv[:, :, j * blk:(j + 1) * blk] = acc_v.to(dv.dtype)
+    return dk, dv
+
+
+def bwd_torch(q, k, v, out, lse, do, sched: TriSched, scale: float):
+    """Backward of ``fwd_torch``, as ``kernel.bwd`` composes it: delta =
+    sum(do * out), then dq and dk/dv. Returns (dq, dk, dv)."""
+    delta = (do.float() * out.float()).sum(dim=-1)
+    return (dq_torch(q, k, v, do, lse, delta, sched, scale),
+            *dkv_torch(q, k, v, do, lse, delta, sched, scale))

@@ -43,15 +43,17 @@ def apply_rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
-def attention(params, x, cfg, *, positions, attn_impl: str, packed):
-    """Packed ragged-prefill attention. x: (B, S, d) with S the
-    concatenation of a request batch, positions restarting per request,
-    packed the PackedTriSched. Returns (out (B, S, d), k, v) with k/v
-    (B, S, Hkv, hd) rotated, ready to seed a decode cache."""
-    if packed is None:
-        raise NotImplementedError(
-            "non-packed attention needs the tri_attn.fwd kernel "
-            "(ROADMAP queue B: fwd/fwd_bb)")
+def attention(params, x, cfg, *, positions, attn_impl: str, packed=None,
+              block: int = 64):
+    """Full-sequence attention (training and prefill). x: (B, S, d).
+
+    Without ``packed`` each row of the batch is one causal (banded under
+    cfg.sliding_window) sequence through ``triangular_attention`` at tile
+    edge ``block`` (halved until it divides S), differentiable. With
+    ``packed`` (a PackedTriSched) S is the concatenation of a request
+    batch, positions restart per request, and attention is block-diagonal
+    per request. Returns (out (B, S, d), k, v) with k/v (B, S, Hkv, hd)
+    rotated, ready to seed a decode cache."""
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ params["wq"]).reshape(b, s, h, hd)
@@ -59,9 +61,20 @@ def attention(params, x, cfg, *, positions, attn_impl: str, packed):
     v = (x @ params["wv"]).reshape(b, s, hkv, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    ot = attn_ops.packed_prefill_attention(
-        q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-        v.transpose(1, 2).contiguous(), packed, impl=attn_impl)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    if packed is not None:
+        ot = attn_ops.packed_prefill_attention(qt, kt, vt, packed,
+                                               impl=attn_impl)
+    else:
+        blk = block
+        while s % blk:
+            blk //= 2
+        # a single tile goes to the oracle, as in the reference, except on
+        # the kernel path, which runs the kernel even for one tile
+        impl = "ref" if attn_impl == "torch" and s <= blk else attn_impl
+        ot = attn_ops.triangular_attention(qt, kt, vt,
+                                           window=cfg.sliding_window,
+                                           impl=impl, block=blk)
     ctx = ot.transpose(1, 2).reshape(b, s, h * hd)
     return ctx @ params["wo"], k, v
 

@@ -5,12 +5,16 @@ Port of ``repro/models/model.py`` for the dense attention path:
   params_from_jax(np_params, cfg, device)    -> params (reference weights)
   forward(params, cfg, batch, ...)           -> (hidden, aux, states)
   logits_from_hidden(params, cfg, hidden)    -> (B, S, padded_vocab) f32
+  loss_fn(params, cfg, batch, ...)           -> (loss, {"ce", "aux"})
   init_cache(cfg, batch, max_len, dtype, device)
   decode_step(params, cfg, cache, tok, pos)  -> (logits, cache)
   fused_step(params, cfg, cache, ...)        -> (logits_admit, logits_dec,
                                                  cache, states)
 Params keep the reference pytree layout (``layers`` stacked on a leading
-superlayer axis), so reference weights carry over leaf for leaf.
+superlayer axis), so reference weights carry over leaf for leaf. Training
+hands ``forward`` each stacked leaf as a list of per-layer tensors instead
+(``train.train_step.trainable``), so autograd keeps one gradient per layer
+rather than zero-filling the whole stack for every layer it indexes.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import math
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as DEV
 from repro_torch.models import layers as L
@@ -103,25 +108,41 @@ def params_from_jax(np_params, cfg, device=DEV.DEFAULT_DEVICE):
 
 
 def forward(params, cfg, batch, *, attn_impl: str = "cuda",
-            collect_state: bool = False, positions=None, packed=None):
+            collect_state: bool = False, positions=None, packed=None,
+            remat: bool = False, block: int = 64):
     """Returns (hidden (B, S, d), aux, states_or_None); states stack each
     layer's rotated k/v on a leading superlayer axis, as the reference's
     scan does. Serving prefill passes the packed schedule and positions
-    restarting per request."""
+    restarting per request. ``remat`` recomputes each layer in the
+    backward (``torch.utils.checkpoint``, the counterpart of the
+    reference's ``jax.checkpoint`` with ``nothing_saveable``): only the
+    layer inputs are kept. ``block`` is the attention tile edge of the
+    non-packed path; the reference's training default is 512, which the
+    kernels do not take, so the port's is 64 (the serving tile)."""
     tokens = batch["tokens"]
-    x = params["embed"][tokens]
+    # F.embedding, not indexing: its backward sums each row's grads in a
+    # fixed order (indexing's accumulates them in thread order on the CPU)
+    x = torch.nn.functional.embedding(tokens, params["embed"])
     if positions is None:
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=tokens.device)
     per_layer = []
     for l in range(cfg.n_superlayers):
         lp = T.layer_params(params["layers"], l)
-        states = {}
-        for p in range(cfg.superlayer):
-            x, states[f"l{p}"] = T.layer_fwd(
-                lp[f"l{p}"], x, cfg, positions=positions,
-                attn_impl=attn_impl, packed=packed,
-                collect_state=collect_state)
+
+        def superlayer(x, lp=lp):
+            states = {}
+            for p in range(cfg.superlayer):
+                x, states[f"l{p}"] = T.layer_fwd(
+                    lp[f"l{p}"], x, cfg, positions=positions,
+                    attn_impl=attn_impl, packed=packed,
+                    collect_state=collect_state, block=block)
+            return x, states
+
+        if remat:
+            x, states = checkpoint(superlayer, x, use_reentrant=False)
+        else:
+            x, states = superlayer(x)
         per_layer.append(states)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -137,6 +158,35 @@ def forward(params, cfg, batch, *, attn_impl: str = "cuda",
 def logits_from_hidden(params, cfg, hidden):
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return (hidden @ head).float()
+
+
+def cross_entropy(logits, labels, mask, vocab_size: int):
+    """Mean cross entropy over masked positions. logits f32 (B, S, Vp);
+    labels (B, S). Padded-vocab logits are masked to the f32 minimum so
+    they absorb no probability mass."""
+    vp = logits.shape[-1]
+    if vp > vocab_size:
+        pad = torch.arange(vp, device=logits.device) >= vocab_size
+        logits = logits.masked_fill(pad, float(np.finfo(np.float32).min))
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return ((lse - ll) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def loss_fn(params, cfg, batch, *, attn_impl: str = "cuda",
+            remat: bool = True, aux_weight: float = 0.01, block: int = 64):
+    """Next-token loss of a dense batch ({"tokens", "labels"} (B, S), an
+    optional "mask"). Returns (loss, {"ce", "aux"})."""
+    hidden, aux, _ = forward(params, cfg, batch, attn_impl=attn_impl,
+                             remat=remat, block=block)
+    logits = logits_from_hidden(params, cfg, hidden)
+    labels = batch["labels"]
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+    ce = cross_entropy(logits, labels, mask, cfg.vocab_size)
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,

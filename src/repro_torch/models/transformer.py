@@ -28,19 +28,21 @@ def check_supported(cfg):
 
 
 def layer_params(tree, l: int):
-    """View of superlayer ``l`` of a stacked parameter or cache tree."""
+    """View of superlayer ``l`` of a stacked parameter or cache tree (a
+    leaf may also be a list of per-layer tensors, as training holds it)."""
     if isinstance(tree, dict):
         return {k: layer_params(v, l) for k, v in tree.items()}
     return tree[l]
 
 
 def layer_fwd(p, x, cfg, *, positions, attn_impl: str, packed,
-              collect_state: bool):
-    """One attention layer over the packed prefill batch.
-    Returns (x, state) with state {"k", "v"} when collect_state."""
+              collect_state: bool, block: int = 64):
+    """One attention layer over a full sequence (packed prefill batch or
+    training rows). Returns (x, state) with state {"k", "v"} when
+    collect_state."""
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
     out, k, v = L.attention(p["mixer"], h, cfg, positions=positions,
-                            attn_impl=attn_impl, packed=packed)
+                            attn_impl=attn_impl, packed=packed, block=block)
     x = x + out
     h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
     x = x + L.mlp(p["ffn"], h2, cfg)

@@ -76,6 +76,20 @@ class LaunchMeta:
         return ev
 
 
+def meta_from_trisched(name: str, sched, *, impl: str, cells: int = 1,
+                       grid=None) -> LaunchMeta:
+    """From a TriSched: launched == domain == sched.rm_steps per cell (the
+    column-major dk/dv walk covers the same domain); the BB bound is the
+    n x n dense grid the paper's baseline would launch."""
+    if grid is None:
+        grid = (cells, sched.rm_steps) if cells > 1 else (sched.rm_steps,)
+    return LaunchMeta(
+        name=name, family="tri_attn", impl=impl, kind=sched.kind,
+        grid=tuple(grid), block_shape=(sched.bq, sched.bk),
+        tiles_launched=sched.rm_steps, tiles_domain=sched.rm_steps,
+        tiles_bb=sched.n * sched.n, cells=cells)
+
+
 def meta_from_packed(name: str, psched, *, impl: str, cells: int = 1,
                      grid=None) -> LaunchMeta:
     """From a PackedTriSched: launched == domain == psched.steps per

@@ -123,6 +123,20 @@ def test_port_imports_with_jax_blocked():
     assert out.stdout.strip() == "ok"
 
 
+def test_training_modules_import_with_jax_blocked():
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['repro'] = None; "
+            "import repro_torch.train.train_step, repro_torch.train.data, "
+            "repro_torch.train.optimizer, repro_torch.train.checkpoint, "
+            "repro_torch.train.fault_tolerance, repro_torch.launch.train; "
+            "print('ok')")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_fused_slice_modules_import_with_jax_blocked():
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['repro'] = None; "

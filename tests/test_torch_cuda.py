@@ -312,3 +312,108 @@ def test_fused_engine_raises_when_the_fused_kernel_fails(dev, monkeypatch):
     assert st["launches_degraded_total"] == st["requests_retried_total"] \
         == st["fused_fallbacks"] == st["prefill_launches"] == 0
     assert sorted(r.uid for r in eng.queue) == [0, 1, 2]
+
+
+# ---------------------------------------------------------------------------
+# Training path: tri_attn.fwd (csrc/tri_fwd.cu) and tri_attn.bwd dq, dk/dv
+# (csrc/tri_bwd.cu). Grads are held at the attn_grad tolerance of
+# tests/oracles.py in float32 (the kernels sum in another order than the
+# plain version), at the bf16 attention tolerance in bfloat16.
+# ---------------------------------------------------------------------------
+
+GRAD_TOL = {torch.float32: dict(atol=2e-4, rtol=2e-3),
+            torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+TRI_KINDS = {"ltm": lambda blk: (None, 0), "band": lambda blk: (blk + 5, 0),
+             "prefix": lambda blk: (None, blk + 3)}
+
+
+def _tri_case(dev, kind, blk, d, g, hkv, dtype, n=5, b=2):
+    rng = np.random.default_rng(blk + d + g + hkv + n)
+    h, s = g * hkv, n * blk
+    window, prefix = TRI_KINDS[kind](blk)
+    sched = OPS.make_sched(s, block=blk, window=window, prefix=prefix)
+    q, k, v, do = (_rand(rng, shape, dtype, dev) for shape in
+                   ((b, h, s, d), (b, hkv, s, d), (b, hkv, s, d),
+                    (b, h, s, d)))
+    return sched, q, k, v, do
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,hkv", [(1, 2), (2, 2), (8, 1)])
+@pytest.mark.parametrize("blk,d", [(16, 64), (64, 128)])
+@pytest.mark.parametrize("kind", ["ltm", "band", "prefix"])
+def test_tri_fwd_and_bwd_match_plain(dev, kind, blk, d, g, hkv, dtype):
+    from repro_torch.kernels.tri_attn import scan_impl as SC
+
+    sched, q, k, v, do = _tri_case(dev, kind, blk, d, g, hkv, dtype)
+    scale = d ** -0.5
+    before = (K.fwd.launches, K.bwd_dq.launches, K.bwd_dkv.launches)
+    out, lse = K.fwd(q, k, v, sched)
+    dq, dk, dv = K.bwd(q, k, v, out, lse, do, sched)
+    torch.cuda.synchronize()
+    assert (K.fwd.launches, K.bwd_dq.launches, K.bwd_dkv.launches) == \
+        tuple(x + 1 for x in before)
+    want_out, want_lse = SC.fwd_torch(q, k, v, sched, scale)
+    _close(out, want_out, dtype, "out")
+    _close(lse, want_lse, dtype, "lse")
+    want = SC.bwd_torch(q, k, v, out, lse, do, sched, scale)
+    delta = (do.float() * out.float()).sum(dim=-1)
+    assert torch.equal(K.bwd_dq(q, k, v, do, lse, delta, sched), dq)
+    for got, ref, name in zip((dq, dk, dv), want, ("dq", "dk", "dv")):
+        assert got.dtype == ref.dtype and got.shape == ref.shape, name
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   ref.float().cpu().numpy(), err_msg=name,
+                                   **GRAD_TOL[dtype])
+
+
+def test_tri_bwd_is_deterministic(dev):
+    """No atomics: the same inputs give bitwise-equal grads."""
+    sched, q, k, v, do = _tri_case(dev, "ltm", 64, 128, 8, 1,
+                                   torch.bfloat16)
+    out, lse = K.fwd(q, k, v, sched)
+    first = K.bwd(q, k, v, out, lse, do, sched)
+    again = K.bwd(q, k, v, out, lse, do, sched)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("kind", ["ltm", "band", "prefix"])
+def test_triangular_attention_cuda_grads_match_ref(dev, kind):
+    """Autograd through impl='cuda' (the kernels' custom backward) against
+    autograd through the port's full-matrix oracle."""
+    blk, d = 16, 32
+    sched, q, k, v, do = _tri_case(dev, kind, blk, d, 2, 2, torch.float32)
+    window, prefix = TRI_KINDS[kind](blk)
+    grads = {}
+    for impl in ("cuda", "ref"):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = OPS.triangular_attention(*leaves, window=window, prefix=prefix,
+                                       impl=impl, block=blk)
+        out.backward(do)
+        grads[impl] = (out.detach(),) + tuple(x.grad for x in leaves)
+    _close(grads["cuda"][0], grads["ref"][0], torch.float32, "out")
+    for got, want, name in zip(grads["cuda"][1:], grads["ref"][1:], "qkv"):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   err_msg=f"d{name}",
+                                   **GRAD_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("fn", ["tri_fwd_launch", "tri_bwd_dq_launch",
+                                "tri_bwd_dkv_launch"])
+def test_tri_failing_launch_raises(dev, monkeypatch, fn):
+    """A launch CUDA refuses (non-zero cudaGetLastError) raises and
+    is not counted; nothing falls back to the plain version."""
+    sched, q, k, v, do = _tri_case(dev, "ltm", 16, 32, 2, 2, torch.float32)
+    out, lse = K.fwd(q, k, v, sched)
+    lib = BUILD.load("tri_fwd" if fn == "tri_fwd_launch" else "tri_bwd")
+    monkeypatch.setattr(lib, fn, lambda *a: 9)
+    before = (K.fwd.launches, K.bwd_dq.launches, K.bwd_dkv.launches)
+    with pytest.raises(RuntimeError, match="cudaError 9"):
+        if fn == "tri_fwd_launch":
+            K.fwd(q, k, v, sched)
+        else:
+            K.bwd(q, k, v, out, lse, do, sched)
+    after = (K.fwd.launches, K.bwd_dq.launches, K.bwd_dkv.launches)
+    if fn == "tri_bwd_dkv_launch":  # dq launched before dk/dv failed
+        assert after == (before[0], before[1] + 1, before[2])
+    else:
+        assert after == before

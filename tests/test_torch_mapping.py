@@ -1,8 +1,9 @@
 """repro_torch core maps and packing primitives == the JAX reference.
 
 Exhaustive over every lambda of the n = 1..64 tile domains (ltm, several
-band widths, several prefix widths), at the top of the int32 envelope
-(LTM_TRACED_MAX_LAM), and for the packed member search and row bounds.
+band widths, several prefix widths), row-major and column-major, at the
+top of the int32 envelope (LTM_TRACED_MAX_LAM), and for the packed member
+search and row and column bounds.
 Exact equality: these are integer maps. Each family's lambdas of all
 sizes are concatenated (with per-element parameters) so the reference
 runs one eager call per op.
@@ -135,3 +136,70 @@ def test_request_from_starts():
         _eq(PK.request_from_starts(_t(lam), _t(starts), r),
             JPK.request_from_starts(jnp.asarray(lam), jnp.asarray(starts),
                                     r))
+
+
+def _cm_domain(n, w, p):
+    """Column-major order of {(i, j): j <= i, i - j < w} or j < p."""
+    cells = [(i, j) for i in range(n) for j in range(n)
+             if (j <= i and i - j < w) or j < p]
+    return sorted(cells, key=lambda c: (c[1], c[0]))
+
+
+@pytest.mark.parametrize("family", ["ltm", "band", "prefix"])
+def test_cm_maps_exhaustive_n_1_to_64(family):
+    """cm_map / band_cm_map / prefix_cm_map: tensor form == the JAX map ==
+    the host form, a bijection onto the domain in column-major order
+    (each column's rows contiguous and ascending), and cm_inverse undoes
+    cm_map."""
+    lam, n, w, p = _flat(_members(family))
+    if family == "ltm":
+        got = M.cm_map(_t(lam), _t(n))
+        want = JM.cm_map(jnp.asarray(lam), jnp.asarray(n))
+        host = [M.cm_map(int(a), int(b)) for a, b in zip(lam, n)]
+        _eq(M.cm_inverse(got[0], got[1], _t(n)), lam)
+    elif family == "band":
+        got = M.band_cm_map(_t(lam), _t(n), _t(w))
+        want = JM.band_cm_map(jnp.asarray(lam), jnp.asarray(n),
+                              jnp.asarray(w))
+        host = [M.band_cm_map(int(a), int(b), int(c))
+                for a, b, c in zip(lam, n, w)]
+    else:
+        got = M.prefix_cm_map(_t(lam), _t(n), _t(p))
+        want = JM.prefix_cm_map(jnp.asarray(lam), jnp.asarray(n),
+                                jnp.asarray(p))
+        host = [M.prefix_cm_map(int(a), int(b), int(c))
+                for a, b, c in zip(lam, n, p)]
+    _eq(got[0], want[0])
+    _eq(got[1], want[1])
+    _eq(np.asarray(host).T, np.stack([np.asarray(got[0]),
+                                      np.asarray(got[1])]))
+    i, j = np.asarray(got[0]), np.asarray(got[1])
+    start = 0
+    for nn, ww, pp in _members(family):
+        k = _steps(nn, ww, pp)
+        cells = list(zip(i[start:start + k].tolist(),
+                         j[start:start + k].tolist()))
+        assert cells == _cm_domain(nn, ww if family == "band" else nn, pp)
+        start += k
+
+
+def test_row_major_inverses_and_column_bounds():
+    for n in NS:
+        for w in sorted({1, 2, max(1, n // 3), n}):
+            for lam in range(M.band_blocks(n, w)):
+                i, j = M.band_map(lam, w)
+                assert M.band_inverse(i, j, w) == lam
+                assert JM.band_inverse(i, j, w) == lam
+        for lam in range(M.tri(n)):
+            assert M.ltm_inverse(*M.ltm_map(lam)) == lam
+    j = np.arange(64, dtype=np.int32)
+    for n, w, p in ((64, 64, 0), (64, 5, 0), (64, 64, 9)):
+        _eq(PK.cm_first_row_params(_t(j), p),
+            JPK.cm_first_row_params(jnp.asarray(j), p))
+        _eq(PK.cm_last_row_params(_t(j), n, w),
+            JPK.cm_last_row_params(jnp.asarray(j), n, w))
+        assert [PK.cm_first_row_params(int(x), p) for x in j] == \
+            np.asarray(JPK.cm_first_row_params(jnp.asarray(j), p)).tolist()
+        assert [PK.cm_last_row_params(int(x), n, w) for x in j] == \
+            np.asarray(JPK.cm_last_row_params(jnp.asarray(j), n,
+                                              w)).tolist()
