@@ -83,32 +83,6 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int BLK>
-int dispatch_d(int D, const void* q, const void* k, const void* v, void* out,
-               void* lse, const void* tbl, int R, int B, int H, int Hkv,
-               int S, int tiles, float scale, cudaStream_t st) {
-  switch (D) {
-    case 16: return launch_fwd<T, BLK, 16>(q, k, v, out, lse, tbl, R, B, H, Hkv, S, tiles, scale, st);
-    case 32: return launch_fwd<T, BLK, 32>(q, k, v, out, lse, tbl, R, B, H, Hkv, S, tiles, scale, st);
-    case 64: return launch_fwd<T, BLK, 64>(q, k, v, out, lse, tbl, R, B, H, Hkv, S, tiles, scale, st);
-    case 128: return launch_fwd<T, BLK, 128>(q, k, v, out, lse, tbl, R, B, H, Hkv, S, tiles, scale, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-template <typename T>
-int dispatch_blk(int blk, int D, const void* q, const void* k, const void* v,
-                 void* out, void* lse, const void* tbl, int R, int B, int H,
-                 int Hkv, int S, int tiles, float scale, cudaStream_t st) {
-  switch (blk) {
-    case 16: return dispatch_d<T, 16>(D, q, k, v, out, lse, tbl, R, B, H, Hkv, S, tiles, scale, st);
-    case 32: return dispatch_d<T, 32>(D, q, k, v, out, lse, tbl, R, B, H, Hkv, S, tiles, scale, st);
-    case 64: return dispatch_d<T, 64>(D, q, k, v, out, lse, tbl, R, B, H, Hkv, S, tiles, scale, st);
-    case 128: return dispatch_d<T, 128>(D, q, k, v, out, lse, tbl, R, B, H, Hkv, S, tiles, scale, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
 __global__ void member_map_probe_kernel(const int* __restrict__ local,
                                         const int* __restrict__ nwp,
                                         int* __restrict__ out_i,
@@ -127,15 +101,13 @@ extern "C" int packed_fwd_launch(const void* q, const void* k, const void* v,
                                  int n_members, int B, int H, int Hkv, int S,
                                  int D, int blk, int total_tiles, float scale,
                                  int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_blk<float>(blk, D, q, k, v, out, lse, tbl, n_members, B, H,
-                               Hkv, S, total_tiles, scale, st);
-  if (dtype == 1)
-    return dispatch_blk<__nv_bfloat16>(blk, D, q, k, v, out, lse, tbl,
-                                       n_members, B, H, Hkv, S, total_tiles,
-                                       scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return tri::dispatch_tile(dtype, blk, D, [&](auto t, auto blk_c, auto d_c) {
+    using T = typename decltype(t)::type;
+    constexpr int BLK = decltype(blk_c)::value, DD = decltype(d_c)::value;
+    return launch_fwd<T, BLK, DD>(
+        q, k, v, out, lse, tbl, n_members, B, H, Hkv, S, total_tiles, scale,
+        static_cast<cudaStream_t>(stream));
+  });
 }
 
 // Evaluates member_map_params for `count` (local, n, w, p) tuples: the

@@ -4,7 +4,7 @@ one card: the reference's elastic re-sharding has no meaning here).
 Layout (one directory per step), as the reference's:
 
     <dir>/step_00000420.tmp/        # written first
-        manifest.json               # {key: {file, shape, dtype}} + meta
+        manifest.json               # step + {key: {file, shape, dtype}}
         <flat.key.path>.npy         # one file per leaf
     <dir>/step_00000420/            # atomic os.replace of the .tmp dir
     <dir>/LATEST                    # atomic pointer file, written LAST
@@ -54,8 +54,7 @@ def _state_tree(state: TrainState) -> dict:
             "step": torch.tensor(state.step, dtype=torch.int32)}
 
 
-def save(ckpt_dir: str, state: TrainState, step: int, *,
-         extra: Optional[dict] = None) -> str:
+def save(ckpt_dir: str, state: TrainState, step: int) -> str:
     """Blocking atomic save of ``state`` as step ``step``."""
     os.makedirs(ckpt_dir, exist_ok=True)
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
@@ -63,7 +62,7 @@ def save(ckpt_dir: str, state: TrainState, step: int, *,
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    manifest = {"step": step, "extra": extra or {}, "leaves": {}}
+    manifest = {"step": step, "leaves": {}}
     for key, leaf in _flatten(_state_tree(state)).items():
         t = leaf.detach().cpu()
         dtype = str(t.dtype).replace("torch.", "")
@@ -102,15 +101,13 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def restore(ckpt_dir: str, target: TrainState, step: Optional[int] = None,
-            device=DEV.DEFAULT_DEVICE):
-    """Load step ``step`` (default: the latest) into a new TrainState with
-    ``target``'s structure, shapes and dtypes, on ``device``. Returns
-    (state, manifest)."""
+def restore(ckpt_dir: str, target: TrainState, device=DEV.DEFAULT_DEVICE):
+    """Load the latest step into a new TrainState with ``target``'s
+    structure, shapes and dtypes, on ``device``. Returns (state,
+    manifest)."""
+    step = latest_step(ckpt_dir)
     if step is None:
-        step = latest_step(ckpt_dir)
-        if step is None:
-            raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
+        raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
@@ -144,8 +141,8 @@ class CheckpointManager:
     def should_save(self, step: int) -> bool:
         return step > 0 and step % self.every == 0
 
-    def save_sync(self, state: TrainState, step: int, *, extra=None) -> str:
-        path = save(self.ckpt_dir, state, step, extra=extra)
+    def save_sync(self, state: TrainState, step: int) -> str:
+        path = save(self.ckpt_dir, state, step)
         for s in _steps_on_disk(self.ckpt_dir)[:-self.keep]:
             shutil.rmtree(os.path.join(self.ckpt_dir, f"step_{s:08d}"),
                           ignore_errors=True)

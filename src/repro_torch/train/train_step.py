@@ -70,15 +70,31 @@ def trainable(params):
     return {k: conv(v, k == "layers") for k, v in params.items()}
 
 
+def _map(f, *trees):
+    """f over the leaves of trees of dicts and per-layer lists."""
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {k: _map(f, *(t[k] for t in trees)) for k in t0}
+    if isinstance(t0, list):
+        return [_map(f, *ts) for ts in zip(*trees)]
+    return f(*trees)
+
+
+def _grad(view):
+    if view.grad is None:
+        raise RuntimeError("a trainable leaf received no gradient")
+    return view.grad
+
+
 def grads_of(views):
     """The .grad tree of ``trainable`` views (lists stay per layer)."""
-    if isinstance(views, dict):
-        return {k: grads_of(v) for k, v in views.items()}
-    if isinstance(views, list):
-        return [grads_of(v) for v in views]
-    if views.grad is None:
-        raise RuntimeError("a trainable leaf received no gradient")
-    return views.grad
+    return _map(_grad, views)
+
+
+def _take_f32_grad(view):
+    g = _grad(view).float()
+    view.grad = None
+    return g
 
 
 def make_train_step(cfg, opt: OPT.OptConfig, *, microbatches: int = 1,
@@ -87,9 +103,8 @@ def make_train_step(cfg, opt: OPT.OptConfig, *, microbatches: int = 1,
     """Returns train_step(state, batch) -> (state, metrics).
 
     microbatches M > 1 splits the batch's leading dim into M sequential
-    backward passes; their grads accumulate in the parameters' dtype
-    (``backward()`` of loss / M each), where the reference sums float32
-    copies."""
+    backward passes whose grads are summed in float32 and divided by M,
+    as the reference does."""
     labels = {"impl": attn_impl, "packed": "0"}
 
     def train_step(state: TrainState, batch):
@@ -101,17 +116,25 @@ def make_train_step(cfg, opt: OPT.OptConfig, *, microbatches: int = 1,
                              f"split into {microbatches} microbatches")
         mbs = [dict(zip(batch, parts)) for parts in zip(
             *(torch.chunk(x, microbatches) for x in batch.values()))]
-        loss, mets = 0.0, []
+        loss, mets, acc = 0.0, [], None
         for mb in mbs:
             l, met = MD.loss_fn(views, cfg, mb, attn_impl=attn_impl,
                                 remat=remat, aux_weight=aux_weight,
                                 block=block)
-            (l / microbatches).backward()
-            loss = loss + l.detach() / microbatches
+            l.backward()
+            loss = loss + l.detach()
             mets.append(met)
+            if microbatches > 1:
+                g = _map(_take_f32_grad, views)
+                acc = g if acc is None else _map(torch.Tensor.add_, acc, g)
+        if microbatches == 1:
+            grads = grads_of(views)
+        else:
+            grads = _map(lambda a: a / microbatches, acc)
+            loss = loss / microbatches
         metrics = {k: sum(m[k].detach() for m in mets) / microbatches
                    for k in mets[0]}
-        opt_metrics = OPT.apply_updates(opt, views, grads_of(views),
+        opt_metrics = OPT.apply_updates(opt, views, grads,
                                         state.opt_state, state.step)
         new_state = TrainState(params=state.params,
                                opt_state=state.opt_state,

@@ -180,14 +180,25 @@ def test_loss_and_grads_match_reference(dtype):
     np.testing.assert_allclose(loss.item(), float(jloss), rtol=rtol)
     np.testing.assert_allclose(float(met["ce"]), float(jmet["ce"]),
                                rtol=rtol)
-    grads = TS.grads_of(views)
-    stacked = lambda t: {k: stacked(v) for k, v in t.items()} \
-        if isinstance(t, dict) else (torch.stack(t) if isinstance(t, list)
-                                     else t)
+    _assert_grads_close(TS.grads_of(views), jgrads, tparams, dtype)
+
+
+def _stack_layers(t):
+    if isinstance(t, dict):
+        return {k: _stack_layers(v) for k, v in t.items()}
+    return torch.stack(t) if isinstance(t, list) else t
+
+
+def _assert_grads_close(tgrads, jgrads, tparams, dtype, grad_dtype=None):
+    """Port grads (per-layer lists) against the reference's at the
+    attn_grad tolerance in float32, and in bfloat16 relative to each
+    leaf's largest grad; every grad has its param's shape and
+    ``grad_dtype`` (default: the param's dtype)."""
     jl, tl = dict(_leaves(jgrads)), dict(_leaves(tparams))
-    for key, g in _leaves(stacked(grads)):
+    for key, g in _leaves(_stack_layers(tgrads)):
         want = _np(jl[key])
-        assert g.dtype == tl[key].dtype and g.shape == tl[key].shape, key
+        assert g.dtype == (grad_dtype or tl[key].dtype), key
+        assert g.shape == tl[key].shape, key
         if dtype == "float32":
             tol = O.tol("attn_grad", jnp.float32)
         else:  # relative to the leaf's largest grad (bf16 grads)
@@ -244,6 +255,35 @@ def test_microbatch_accumulation_matches():
         np.testing.assert_allclose(_np(a[1]), _np(b[1]), rtol=2e-3,
                                    atol=2e-5)
     _assert_params_close(t4.params, j4.params, rtol=2e-3, atol=2e-5)
+
+
+def test_bf16_microbatch_grads_sum_in_float32_as_the_reference(
+        monkeypatch):
+    """bfloat16 params, microbatches=4: both packages hand AdamW the
+    float32 mean of the microbatches' grads, and the two agree at the
+    bfloat16 grad tolerance of test_loss_and_grads_match_reference."""
+    jcfg, tcfg = _cfgs("bfloat16")
+    opt = OPT.OptConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    jopt = JOPT.OptConfig(**dataclasses.asdict(opt))
+    jstate = _jstate(jcfg, jopt)
+    tstate = _to_torch(jcfg, tcfg, jstate)
+    seen = {}
+    for key, mod in (("torch", OPT), ("jax", JOPT)):
+        def spy(opt, params, grads, *rest, _key=key, _real=mod.apply_updates):
+            seen[_key] = grads
+            return _real(opt, params, grads, *rest)
+        monkeypatch.setattr(mod, "apply_updates", spy)
+    _, tm = TS.make_train_step(tcfg, opt, microbatches=4, attn_impl="torch",
+                               block=BLOCK)(tstate, _tbatch(tcfg, 32, 8))
+    _, jm = JTS.make_train_step(jcfg, jopt, microbatches=4,
+                                attn_impl="scan", block=BLOCK)(
+        jstate, _jbatch(jcfg, 32, 8))
+    np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                               rtol=2e-2)
+    _assert_grads_close(seen["torch"], seen["jax"], tstate.params,
+                        "bfloat16", grad_dtype=torch.float32)
+    for _, g in _leaves(seen["jax"]):
+        assert g.dtype == jnp.float32
 
 
 # ---------------------------------------------------------------------------
