@@ -4,7 +4,7 @@
 
 Phases (any failure exits non-zero; nothing is caught):
   1. the card's name and power limit (nvidia-smi);
-  2. build the five CUDA sources of src/repro_torch/csrc (nvcc, sm_90a);
+  2. build the six CUDA sources of src/repro_torch/csrc (nvcc, sm_90a);
   3. kernels: each kernel of the serving path at full yi-9b width (H=32,
      Hkv=4, D=128, blk=64, bf16 q/k/v, f32 decode cache) against its
      plain PyTorch version on the card (outputs within atol 4e-3 + rtol
@@ -27,16 +27,33 @@ Phases (any failure exits non-zero; nothing is caught):
      (is_causal forward; its autograd backward beside dq and dk/dv) and
      the bound; band and prefix schedules at blk 16 and 64 on small
      shapes;
-  6. training: yi-9b at full width (24 of 48 layers unless --train-layers
+  6. packed training kernels: packed_fwd and the packed dq and dk/dv
+     (tri_attn.packed_bwd) at the packed train phase's attention shape
+     (one row of the 8 documents 1500/1000/600/370/250/100/60/40 padded
+     to blk 64 multiples, 4096 rows, ltm members; H 32, Hkv 4, D 128,
+     bf16) against their plain versions, timed beside them, SDPA with the
+     block-diagonal causal mask (forward; its autograd backward beside dq
+     and dk/dv) and the bound; mixed ltm/prefix/band members at blk 16
+     and 64; two runs of the backward bitwise equal;
+  7. training: yi-9b at full width (24 of 48 layers unless --train-layers
      says otherwise: the 48-layer AdamW state does not fit 80 GB) for 3
      steps of seq 4096, batch 1, remat, random seeded bf16 weights,
      SyntheticLM batches; asserts finite positive losses, kernel launches
      of exactly 2 x layers (fwd, with the remat recompute) and layers (dq,
      dk/dv) a step, and no plain-version launch; a profiler window over a
-     fourth step; then smoke-size float32 training on the card: 3 steps
-     with the kernels and with the plain versions agree, 20 steps lower
-     the loss, 6 steps straight and 3 + checkpoint + restore + 3 end in
-     bitwise-equal states.
+     fourth step; then, on the same state, packed document training:
+     3 steps of PackedDocsLM rows of the 8 documents (3920 real tokens a
+     step) with launches of exactly 2 x layers (packed_fwd) and layers
+     (packed dq, dk/dv) a step, no other kernel and no plain version; a
+     profiler window over a fourth; one forward+backward of the packed
+     row and of the pad-to-max batch (8 x 1536, through tri_fwd/tri_bwd)
+     on the same parameters, whose losses agree within PAD_LOSS_RTOL;
+     then smoke-size float32 training on the card: 3 steps with the
+     kernels and with the plain versions agree, 20 steps lower the loss,
+     6 steps straight and 3 + checkpoint + restore + 3 end in
+     bitwise-equal states; 3 packed steps with the kernels and with the
+     plain versions agree, and packed and padded losses agree (rtol
+     1e-5).
 The last lines are the card line, the {"kernels": [...]} line and
 {"ok": true, "device": {...}}.
 """
@@ -63,6 +80,12 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, no TF32
 # tile moves out by ~1e-2 and lse by ~6e-2, so both limits catch it
 OUT_TOL = dict(atol=4e-3, rtol=1e-2)
 LSE_TOL = dict(atol=1e-2, rtol=0.0)
+# the packed train phase's documents (real tokens), padded to blk 64
+TRAIN_DOCS = (1500, 1000, 600, 370, 250, 100, 60, 40)
+# bf16 packed and pad-to-max losses round at other places (other matmul
+# shapes, other tile edges): each token's logits move by ~1e-2, their
+# mean cross entropy over 3920 tokens by far less than 0.5%
+PAD_LOSS_RTOL = 5e-3
 
 
 def _fail(msg: str):
@@ -662,14 +685,7 @@ def train_kernel_phase(dev, K, OPS, SC):
                                                     sched, scale), 3, 1)}
     lib_fwd, lib_bwd = _median_ms(sdpa, 10), _median_ms(sdpa_bwd, 5)
     pairs = h * s * (s + 1) // 2  # unmasked (query, key) pairs, ltm
-    elt, qkv = q.element_size(), q.numel() + k.numel() + v.numel()
-    rows = q.numel() // d * 4  # one f32 per (b, h, row): lse, delta
-    bounds = {"fwd": _bound(elt * (qkv + q.numel()) + rows, 4 * d * pairs,
-                            dt),
-              "dq": _bound(elt * (qkv + 2 * q.numel()) + 2 * rows,
-                           6 * d * pairs, dt),
-              "dkv": _bound(elt * (qkv + q.numel() + k.numel() + v.numel())
-                            + 2 * rows, 8 * d * pairs, dt)}
+    bounds = _attn_bounds(q, k, pairs)
     names = {"fwd": ("tri_attn.fwd", "src/repro_torch/csrc/tri_fwd.cu",
                      "src/repro/kernels/tri_attn/kernel.py:293",
                      "SDPA is_causal forward"),
@@ -695,9 +711,159 @@ def train_kernel_phase(dev, K, OPS, SC):
     return out_rows
 
 
-def train_phase(dev, layers: int, card, K):
+def _attn_bounds(q, k, pairs: int) -> dict:
+    """Bounds of the forward, dq and dk/dv over ``pairs`` unmasked
+    (query, key) pairs summed over heads: each input read once and each
+    output written once (q, k, v, out, lse; + do, delta; dq or dk and dv)
+    against 4, 6 and 8 x D flops a pair (S and PV; S, dP and dS K; S, dP,
+    P^T dO and dS^T Q) at the bf16 tensor-core rate."""
+    d, elt = q.shape[-1], q.element_size()
+    qkv = q.numel() + 2 * k.numel()
+    rows = q.numel() // d * 4  # one f32 per (b, h, row): lse, delta
+    return {"fwd": _bound(elt * (qkv + q.numel()) + rows, 4 * d * pairs,
+                          q.dtype),
+            "dq": _bound(elt * (qkv + 2 * q.numel()) + 2 * rows,
+                         6 * d * pairs, q.dtype),
+            "dkv": _bound(elt * (qkv + q.numel() + 2 * k.numel())
+                          + 2 * rows, 8 * d * pairs, q.dtype)}
+
+
+def packed_train_kernel_phase(dev, K, OPS, SC):
+    """packed_fwd and the packed dq and dk/dv at the attention shape of the
+    packed train phase (one row of TRAIN_DOCS padded to blk 64: 4096 rows,
+    8 ltm members; B 1, H 32, Hkv 4, D 128, bf16) against their plain
+    versions on the same inputs, timed beside them, SDPA with the
+    block-diagonal causal mask and the bound; mixed ltm/prefix/band
+    members at blk 16 and 64 on small shapes. Every run of the backward is
+    repeated and must be bitwise equal (no atomics). Returns the rows of
+    the two backward kernels and packed_fwd's reading at this shape."""
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(4)
+    dt = torch.bfloat16
+
+    def case(h, hkv, s, d):
+        return [torch.as_tensor(rng.standard_normal(shape, np.float32),
+                                device=dev).to(dt)
+                for shape in ((1, h, s, d), (1, hkv, s, d), (1, hkv, s, d),
+                              (1, h, s, d))]
+
+    def check(label, q, k, v, do, psched):
+        scale = q.shape[-1] ** -0.5
+        out, lse = K.packed_fwd(q, k, v, psched)
+        delta = (do.float() * out.float()).sum(dim=-1)
+        grads = (K.packed_bwd_dq(q, k, v, do, lse, delta, psched),
+                 *K.packed_bwd_dkv(q, k, v, do, lse, delta, psched))
+        again = (K.packed_bwd_dq(q, k, v, do, lse, delta, psched),
+                 *K.packed_bwd_dkv(q, k, v, do, lse, delta, psched))
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+            _fail(f"{label}: two runs of packed_bwd differ")
+        w_out, w_lse = SC.packed_fwd_torch(q, k, v, psched, scale)
+        w_dq = SC.packed_dq_torch(q, k, v, do, lse, delta, psched, scale)
+        w_dk, w_dv = SC.packed_dkv_torch(q, k, v, do, lse, delta, psched,
+                                         scale)
+        errs = (max(_close(f"{label} packed_fwd out", out, w_out),
+                    _close(f"{label} packed_fwd lse", lse, w_lse, LSE_TOL)),
+                _close(f"{label} packed_bwd dq", grads[0], w_dq),
+                max(_close(f"{label} packed_bwd dk", grads[1], w_dk),
+                    _close(f"{label} packed_bwd dv", grads[2], w_dv)))
+        return errs, (out, lse, delta)
+
+    for blk in (16, 64):
+        psched = OPS.make_packed_sched([5 * blk, 2 * blk, 3 * blk, blk],
+                                       block=blk,
+                                       window=[None, None, blk + 3, None],
+                                       prefix=[0, blk + 1, 0, 0])
+        check(f"mixed blk {blk}", *case(8, 2, psched.s_total, 128), psched)
+    h, hkv, d, blk = 32, 4, 128, 64
+    lens = [-(-n // blk) * blk for n in TRAIN_DOCS]
+    psched = OPS.make_packed_sched(lens, block=blk)
+    s = psched.s_total
+    q, k, v, do = case(h, hkv, s, d)
+    scale = d ** -0.5
+    errs, (out, lse, delta) = check("ltm docs", q, k, v, do, psched)
+    mask = torch.zeros((s, s), dtype=torch.bool, device=dev)
+    base = 0
+    for n_tok in lens:
+        mask[base:base + n_tok, base:base + n_tok] = torch.ones(
+            (n_tok, n_tok), dtype=torch.bool, device=dev).tril()
+        base += n_tok
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+    _close("packed_fwd vs SDPA (block-diagonal causal mask)", out, sdpa())
+    bw = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    o_lib = F.scaled_dot_product_attention(*bw, attn_mask=mask,
+                                           enable_gqa=True)
+    sdpa_bwd = lambda: torch.autograd.grad(o_lib, bw, do, retain_graph=True)
+    ms = {"fwd": _median_ms(lambda: K.packed_fwd(q, k, v, psched), 5),
+          "dq": _median_ms(lambda: K.packed_bwd_dq(q, k, v, do, lse, delta,
+                                                   psched), 5),
+          "dkv": _median_ms(lambda: K.packed_bwd_dkv(q, k, v, do, lse,
+                                                     delta, psched), 5)}
+    plain = {"fwd": _median_ms(lambda: SC.packed_fwd_torch(q, k, v, psched,
+                                                           scale), 3, 1),
+             "dq": _median_ms(lambda: SC.packed_dq_torch(
+                 q, k, v, do, lse, delta, psched, scale), 3, 1),
+             "dkv": _median_ms(lambda: SC.packed_dkv_torch(
+                 q, k, v, do, lse, delta, psched, scale), 3, 1)}
+    lib_fwd, lib_bwd = _median_ms(sdpa, 10), _median_ms(sdpa_bwd, 5)
+    pairs = h * int(mask.sum())  # unmasked (query, key) pairs
+    bounds = _attn_bounds(q, k, pairs)
+    shape = {"B": 1, "H": h, "Hkv": hkv, "D": d, "blk": blk, "docs":
+             list(TRAIN_DOCS), "member_lens": lens, "S": s, "kind": "ltm",
+             "steps": psched.steps, "pairs": pairs}
+    lib = ("SDPA backward through autograd with the block-diagonal causal "
+           "mask (dq, dk and dv together: no PyTorch call computes one "
+           "alone)")
+    rows = [{"name": f"tri_attn.packed_bwd_{key}", "route": "cuda",
+             "source": "src/repro_torch/csrc/packed_bwd.cu",
+             "replaces": "src/repro/kernels/tri_attn/kernel.py:549",
+             "max_abs_err": err, "ms": ms[key], "plain_ms": plain[key],
+             "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
+             "library_ms": lib_bwd, "library": lib, "shape": shape}
+            for key, err in zip(("dq", "dkv"), errs[1:])]
+    fwd_reading = {"max_abs_err": errs[0], "ms": ms["fwd"],
+                   "plain_ms": plain["fwd"], "bound_ms": bounds["fwd"][0],
+                   "bound_by": bounds["fwd"][1], "library_ms": lib_fwd,
+                   "library": "SDPA forward with the block-diagonal causal "
+                              "mask", "shape": shape}
+    return rows, fwd_reading
+
+
+def _timed(step, times: list):
+    """``step`` with its wall time (synchronized) appended to ``times``."""
+    def timed_step(state, batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        return state, metrics
+
+    return timed_step
+
+
+def _check_train_launches(label, K, reg, want_nonzero: dict) -> dict:
+    """Every wrapper's count equals ``want_nonzero`` (0 for the others)
+    and no plain version ran; returns the nonzero counts."""
+    launches = _launches(K)
+    want = dict.fromkeys(launches, 0)
+    want.update(want_nonzero)
+    plain = {n: reg.counter_value("launches_total", {"name": n,
+                                                     "impl": "torch"})
+             for n in want}
+    if launches != want or any(plain.values()):
+        _fail(f"{label}: kernel launches {launches} != {want}, or plain "
+              f"versions ran {plain}")
+    return dict(want_nonzero)
+
+
+def train_phase(dev, layers: int, card, K, OPS):
     """yi-9b at full width, ``layers`` deep, for 3 training steps of seq
-    4096 through the kernels; returns each kernel's launches."""
+    4096 through the kernels, then 3 packed document steps on the same
+    state; returns each kernel's launches on the dense and on the packed
+    path."""
     from repro_torch.configs import yi_9b
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.obs import metrics as MET
@@ -728,32 +894,16 @@ def train_phase(dev, layers: int, card, K):
     step = TS.make_train_step(cfg, opt, attn_impl="cuda", remat=True,
                               block=64)
     times = []
-
-    def timed_step(state, batch):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        state, metrics = step(state, batch)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t)
-        return state, metrics
-
     reg = MET.Registry("train_phase")
     _reset_launches(K)
     with MET.scope(reg):
-        state, log = FT.run_training(state, timed_step, ds.batch, steps)
-    launches = _launches(K)
-    want = dict.fromkeys(launches, 0)
-    want.update({"tri_attn.fwd": 2 * layers * steps,
-                 "tri_attn.bwd_dq": layers * steps,
-                 "tri_attn.bwd_dkv": layers * steps})
-    plain = {n: reg.counter_value("launches_total", {"name": n,
-                                                     "impl": "torch"})
-             for n in want}
+        state, log = FT.run_training(state, _timed(step, times), ds.batch,
+                                     steps)
+    launches = _check_train_launches(
+        "train", K, reg, {"tri_attn.fwd": 2 * layers * steps,
+                          "tri_attn.bwd_dq": layers * steps,
+                          "tri_attn.bwd_dkv": layers * steps})
     losses = [m["loss"] for m in log]
-    if launches != want or any(plain.values()):
-        _fail(f"train: kernel launches {launches} != {want}, or plain "
-              f"versions ran {plain}")
-    launches = {n: c for n, c in launches.items() if want[n]}
     if len(losses) != steps or not all(np.isfinite(losses)) or \
             min(losses) <= 0:
         _fail(f"train: losses {losses}")
@@ -767,8 +917,93 @@ def train_phase(dev, layers: int, card, K):
           flush=True)
     profile_window(lambda: step(state, ds.batch(steps)), 1, "step",
                    "training step", card)
+    packed_launches = packed_train(cfg, opt, state, card, K, OPS)
     del state
     torch.cuda.empty_cache()
+    return launches, packed_launches
+
+
+def packed_train(cfg, opt, state, card, K, OPS):
+    """Packed document training on the train phase's state (the 24-layer
+    state is reused: a second one does not fit): 3 steps of PackedDocsLM
+    rows of TRAIN_DOCS through packed_fwd and the packed dq and dk/dv, a
+    profiler window over a fourth, then one forward+backward of the packed
+    row and of the pad-to-max batch on the same parameters. Returns the
+    kernels' launches over the 3 steps."""
+    from repro_torch.models import model as MD
+    from repro_torch.obs import metrics as MET
+    from repro_torch.train import data as DATA
+    from repro_torch.train import fault_tolerance as FT
+    from repro_torch.train import train_step as TS
+
+    layers, blk, steps = cfg.n_layers, 64, 3
+    dev = state.params["embed"].device
+    docs = DATA.PackedDocsLM(cfg, TRAIN_DOCS, block=blk, seed=0, device=dev)
+    psched = OPS.make_packed_sched(docs.member_lens, block=blk)
+    step = TS.make_train_step(cfg, opt, attn_impl="cuda", remat=True,
+                              block=blk, packed=psched)
+    real = sum(TRAIN_DOCS)
+    times = []
+    first = int(state.step)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reg = MET.Registry("packed_train")
+    _reset_launches(K)
+    with MET.scope(reg):
+        state, log = FT.run_training(state, _timed(step, times), docs.batch,
+                                     first + steps)
+    launches = _check_train_launches(
+        "packed train", K, reg,
+        {"tri_attn.packed_fwd": 2 * layers * steps,
+         "tri_attn.packed_bwd_dq": layers * steps,
+         "tri_attn.packed_bwd_dkv": layers * steps})
+    losses = [m["loss"] for m in log]
+    if len(losses) != steps or not all(np.isfinite(losses)) or \
+            min(losses) <= 0:
+        _fail(f"packed train: losses {losses}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"packed train: {steps} steps of one {docs.s_total}-row packed "
+          f"row ({len(TRAIN_DOCS)} documents, {real} real tokens, "
+          f"{psched.steps} tiles a head against {len(TRAIN_DOCS)} x "
+          f"{max(docs.member_lens) // blk}^2 = "
+          f"{len(TRAIN_DOCS) * (max(docs.member_lens) // blk) ** 2} "
+          f"pad-to-max), losses {losses}; step times {times} s, "
+          f"{real / statistics.median(times):.1f} real tokens/s (median "
+          f"step); peak memory {peak_gb:.2f} GB; launches {launches}; card "
+          f"{card}", flush=True)
+    profile_window(lambda: step(state, docs.batch(first + steps)), 1,
+                   "step", "packed training step", card)
+
+    def fwd_bwd(batch, packed):
+        views = TS.trainable(state.params)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss, _ = MD.loss_fn(views, cfg, batch, attn_impl="cuda",
+                             remat=True, block=blk, packed=packed)
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.item(), time.perf_counter() - t
+
+    torch.cuda.reset_peak_memory_stats()
+    packed_loss, packed_s = fwd_bwd(docs.batch(first + steps + 1), psched)
+    padded = docs.padded_batch(first + steps + 1)
+    reg = MET.Registry("padded")
+    _reset_launches(K)
+    with MET.scope(reg):
+        padded_loss, padded_s = fwd_bwd(padded, None)
+    _check_train_launches("padded fwd+bwd", K, reg,
+                          {"tri_attn.fwd": 2 * layers,
+                           "tri_attn.bwd_dq": layers,
+                           "tri_attn.bwd_dkv": layers})
+    if not np.isclose(packed_loss, padded_loss, rtol=PAD_LOSS_RTOL, atol=0):
+        _fail(f"packed loss {packed_loss} != pad-to-max loss {padded_loss} "
+              f"(rtol {PAD_LOSS_RTOL})")
+    print(f"packed vs pad-to-max, same parameters and documents: forward+"
+          f"backward {packed_s:.4f} s packed ({docs.s_total} rows) against "
+          f"{padded_s:.4f} s pad-to-max ({tuple(padded['tokens'].shape)}); "
+          f"losses {packed_loss} and {padded_loss} (rtol {PAD_LOSS_RTOL}); "
+          f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+          f"card {card}", flush=True)
     return launches
 
 
@@ -830,6 +1065,42 @@ def smoke_training(dev):
           f"plain {losses['torch']}; 20 steps {log[0]['loss']:.4f} -> "
           f"{log[-1]['loss']:.4f}; 6 steps straight == 3 + checkpoint + "
           f"restore + 3, bitwise over {len(pairs)} tensors", flush=True)
+    smoke_packed_training(dev, cfg, opt, base)
+
+
+def smoke_packed_training(dev, cfg, opt, base):
+    """Smoke-size float32 packed document training on the card: 3 steps
+    with the kernels and with the plain versions agree, and the packed
+    row's loss equals the pad-to-max batch's on the same parameters."""
+    from repro_torch.kernels.tri_attn import ops as OPS
+    from repro_torch.models import model as MD
+    from repro_torch.train import data as DATA
+    from repro_torch.train import fault_tolerance as FT
+    from repro_torch.train import train_step as TS
+
+    blk = 16
+    docs = DATA.PackedDocsLM(cfg, (61, 9, 30, 17, 3), block=blk, seed=0,
+                             device=dev)
+    psched = OPS.make_packed_sched(docs.member_lens, block=blk)
+    losses = {impl: [m["loss"] for m in FT.run_training(
+        copy.deepcopy(base), TS.make_train_step(
+            cfg, opt, attn_impl=impl, block=blk, packed=psched),
+        docs.batch, 3)[1]] for impl in ("cuda", "torch")}
+    # f32 on both sides, sums in other orders: 1e-5 relative at most
+    if not np.allclose(losses["cuda"], losses["torch"], rtol=1e-5, atol=0):
+        _fail(f"smoke packed training: kernel losses {losses['cuda']} != "
+              f"plain {losses['torch']}")
+    with torch.no_grad():
+        packed, padded = (MD.loss_fn(base.params, cfg, batch, block=blk,
+                                     packed=ps)[0].item()
+                          for batch, ps in ((docs.batch(0), psched),
+                                            (docs.padded_batch(0), None)))
+    if not np.isclose(packed, padded, rtol=1e-5, atol=0):
+        _fail(f"smoke packed training: packed loss {packed} != pad-to-max "
+              f"{padded}")
+    print(f"smoke packed training: float32, 3 steps kernels "
+          f"{losses['cuda']} vs plain {losses['torch']}; packed loss "
+          f"{packed} == pad-to-max {padded} (rtol 1e-5)", flush=True)
 
 
 def main():
@@ -866,6 +1137,9 @@ def main():
     kernels.append(fused_kernel_phase(dev, K, OPS, SC, D, ctx))
     del ctx
     kernels += train_kernel_phase(dev, K, OPS, SC)
+    packed_rows, packed_fwd_train = packed_train_kernel_phase(dev, K, OPS,
+                                                              SC)
+    kernels += packed_rows
     torch.cuda.empty_cache()
     print("kernels: " + "; ".join(
         f"{k['name']} {k['ms']:.4f} ms (plain {k['plain_ms']:.3f}, SDPA "
@@ -874,10 +1148,18 @@ def main():
         flush=True)
     launches = serving_phase(dev, args.layers, card, K)
     smoke_identity(dev)
-    launches.update(train_phase(dev, args.train_layers, card, K))
+    dense, packed = train_phase(dev, args.train_layers, card, K, OPS)
+    launches.update(dense)
+    launches.update({n: c for n, c in packed.items()
+                     if n != "tri_attn.packed_fwd"})
+    packed_fwd_train["launches"] = packed["tri_attn.packed_fwd"]
     smoke_training(dev)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        if k["name"] == "tri_attn.packed_fwd":
+            # its serving reading and launches above, its packed-training
+            # ones here
+            k["at_train_shape"] = packed_fwd_train
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -51,6 +51,22 @@ def member_map_params(local, n_r, w_r, p_r):
     return torch.where(is_p, pi, bi), torch.where(is_p, pj, bj)
 
 
+def member_cm_map_params(local, n_r, w_r, p_r):
+    """COLUMN-major member-local lambda -> (i, j) from normalized (n, w,
+    p): the order the dk/dv walk takes (band_cm_map when p == 0,
+    prefix_cm_map otherwise). Host ints take the one closed form their
+    family needs; tensors evaluate both and select (p_r clamped to >= 1
+    for the prefix evaluation, as in ``member_map_params``)."""
+    if not any(isinstance(x, torch.Tensor) for x in (local, n_r, w_r, p_r)):
+        if p_r > 0:
+            return M.prefix_cm_map(local, n_r, p_r)
+        return M.band_cm_map(local, n_r, w_r)
+    bi, bj = M.band_cm_map(local, n_r, w_r)
+    pi, pj = M.prefix_cm_map(local, n_r, _maximum(p_r, 1))
+    is_p = torch.as_tensor(p_r) > 0
+    return torch.where(is_p, pi, bi), torch.where(is_p, pj, bj)
+
+
 def first_col_params(i, w_r):
     """First j of row i (band left edge; 0 for unbanded rows): the
     kernels' accumulator-reset column."""

@@ -1,13 +1,13 @@
 // Tile bodies shared by the attention kernels (packed_fwd.cu,
-// packed_decode.cu, fused_step.cu, tri_fwd.cu, tri_bwd.cu).
+// packed_decode.cu, fused_step.cu, tri_fwd.cu, tri_bwd.cu, packed_bwd.cu).
 //
 // prefill_row_tile is one prefill accumulator owner: one q-row tile of one
 // packed member (or of the one request of tri_fwd) for one query head,
 // walking the member-local lambdas of its row through member_map_params
 // with an f32 online softmax. dq_row_tile and dkv_col_tile are the
 // backward's owners: a q-row tile's dq, and a key-column tile's dk/dv over
-// every query head of its kv head (tri_bwd.cu; the packed backward takes
-// the same bodies with a member's row0). decode_member
+// every query head of its kv head (tri_bwd.cu with row0 = 0, packed_bwd.cu
+// with a member's first tile row). decode_member
 // is one decode accumulator owner: one live slot's single query for all g
 // query heads of one kv head, streaming the slot's cache tiles with
 // cp.async. Each kernel reads its own member table and hands these bodies

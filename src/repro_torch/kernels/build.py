@@ -23,7 +23,8 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
-SOURCES = ("packed_fwd", "packed_decode", "fused_step", "tri_fwd", "tri_bwd")
+SOURCES = ("packed_fwd", "packed_decode", "fused_step", "tri_fwd", "tri_bwd",
+           "packed_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -51,6 +52,14 @@ SIGNATURES = {
     "tri_bwd": {
         "tri_bwd_dq_launch": [_P] * 7 + [_I] * 11 + [_F, _I, _P],
         "tri_bwd_dkv_launch": [_P] * 8 + [_I] * 11 + [_F, _I, _P],
+    },
+    # (B, H, Hkv, S, D, blk, table, n_members, total_tiles, scale, dtype,
+    #  stream)
+    "packed_bwd": {
+        "packed_bwd_dq_launch": [_P] * 7 + [_I] * 6 + [_P, _I, _I]
+        + [_F, _I, _P],
+        "packed_bwd_dkv_launch": [_P] * 8 + [_I] * 6 + [_P, _I, _I]
+        + [_F, _I, _P],
     },
 }
 

@@ -9,7 +9,9 @@ is the decode pad member's sentinel.
 hand-written kernels in ``csrc/packed_fwd.cu``, ``csrc/packed_decode.cu``
 and ``csrc/fused_step.cu``; ``fwd``, ``bwd_dq`` and ``bwd_dkv`` (the
 training path's forward and its two backward launches, which ``bwd``
-composes) wrap ``csrc/tri_fwd.cu`` and ``csrc/tri_bwd.cu``. The notes at
+composes) wrap ``csrc/tri_fwd.cu`` and ``csrc/tri_bwd.cu``;
+``packed_bwd_dq`` and ``packed_bwd_dkv`` (the backward of ``packed_fwd``,
+which ``packed_bwd`` composes) wrap ``csrc/packed_bwd.cu``. The notes at
 the top of each source say what bounds it on the H100 and why its grid
 is one block per accumulator owner. On a CUDA tensor a wrapper launches
 its kernel, through ``obs.launch.instrumented_launch``, or raises; it
@@ -398,10 +400,20 @@ def fused_step_fwd(q_pack, k_pack, v_pack, q_dec, k_cache, v_cache, tbl, *,
 fused_step_fwd.launches = 0
 
 
-def _check_attn(op: str, sched: TriSched, q, *rest):
+def _cover(sched):
+    """(rows a TriSched or PackedTriSched covers, its square tile edge)."""
+    if isinstance(sched, PackedTriSched):
+        return sched.s_total, sched.blk
+    _check(sched.bq == sched.bk, f"square tiles only, got {sched.bq} x "
+           f"{sched.bk}")
+    return sched.n * sched.bq, sched.bq
+
+
+def _check_attn(op: str, sched, q, *rest):
     """Raise unless q (B, H, S, D), rest = (k, v) (B, Hkv, S, D) and any
     further q-shaped operands (out, do) lie on one CUDA device in one
-    dtype and layout the kernels take, tiled square by ``sched``."""
+    dtype and layout the kernels take, tiled square by ``sched`` (a
+    TriSched or a PackedTriSched)."""
     b, h, s_len, d = q.shape
     k = rest[0]
     hkv = k.shape[1]
@@ -417,12 +429,12 @@ def _check_attn(op: str, sched: TriSched, q, *rest):
            f"{[tuple(x.shape) for x in rest]}")
     _check(all(x.is_contiguous() for x in ins),
            f"{op}: operands must be contiguous")
-    _check(sched.n * sched.bq == s_len and sched.bq == sched.bk,
-           f"{op}: S={s_len} but the schedule covers {sched.n} square "
-           f"tiles of {sched.bq}")
-    _check(d in SUPPORTED_HEAD_DIMS and sched.bq in SUPPORTED_BLOCKS,
-           f"{op}: head_dim {d} / block {sched.bq} unsupported (head_dim "
-           f"in {SUPPORTED_HEAD_DIMS}, block in {SUPPORTED_BLOCKS})")
+    cover, blk = _cover(sched)
+    _check(cover == s_len, f"{op}: S={s_len} but the schedule covers "
+           f"{cover} rows in tiles of {blk}")
+    _check(d in SUPPORTED_HEAD_DIMS and blk in SUPPORTED_BLOCKS,
+           f"{op}: head_dim {d} / block {blk} unsupported (head_dim in "
+           f"{SUPPORTED_HEAD_DIMS}, block in {SUPPORTED_BLOCKS})")
 
 
 def _sched_args(sched: TriSched):
@@ -462,24 +474,34 @@ fwd.launches = 0
 
 
 def _bwd_launch(name, c_fn, sched, q, k, v, do, lse, delta, outs, scale):
-    """Checks and the launch shared by the two backward kernels."""
+    """Checks and the launch shared by the four backward kernels: ``name``
+    is the launch name (tri_attn.bwd_dq / bwd_dkv over a TriSched,
+    tri_attn.packed_bwd_dq / packed_bwd_dkv over a PackedTriSched)."""
     b, h, s_len, d = q.shape
-    _check_attn(name, sched, q, k, v, do)
+    op = name.split(".")[1]
+    _check_attn(op, sched, q, k, v, do)
     _check(all(x.dtype == torch.float32 and x.shape == (b, h, s_len)
                and x.is_contiguous() and x.device == q.device
                for x in (lse, delta)),
-           f"{name}: lse and delta must be contiguous (B, H, S) f32 on q's "
+           f"{op}: lse and delta must be contiguous (B, H, S) f32 on q's "
            f"device, got {tuple(lse.shape)} {lse.dtype} and "
            f"{tuple(delta.shape)} {delta.dtype}")
     hkv = k.shape[1]
-    meta = OBS.meta_from_trisched(
-        f"tri_attn.bwd_{name[4:]}", sched, impl="cuda", cells=b * h,
-        grid=(sched.n, h if name == "bwd_dq" else hkv, b))
+    heads = h if name.endswith("_dq") else hkv
+    if isinstance(sched, PackedTriSched):
+        meta = OBS.meta_from_packed(name, sched, impl="cuda", cells=b * h,
+                                    grid=(sched.total_tiles, heads, b))
+        tail = (device_table(sched, q.device).data_ptr(),
+                len(sched.members), sched.total_tiles)
+    else:
+        meta = OBS.meta_from_trisched(name, sched, impl="cuda", cells=b * h,
+                                      grid=(sched.n, heads, b))
+        tail = _sched_args(sched)
     OBS.instrumented_launch(
         meta, c_fn, (q, k, v, do),
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), *(x.data_ptr() for x in outs),
-        b, h, hkv, s_len, d, sched.bq, *_sched_args(sched), scale,
+        b, h, hkv, s_len, d, _cover(sched)[1], *tail, scale,
         _DTYPE_CODES[q.dtype], _stream_ptr(q))
 
 
@@ -493,8 +515,8 @@ def bwd_dq(q, k, v, do, lse, delta, sched: TriSched, *, sm_scale=None):
 
         return SC.dq_torch(q, k, v, do, lse, delta, sched, scale)
     dq = torch.empty_like(q)
-    _bwd_launch("bwd_dq", BUILD.load("tri_bwd").tri_bwd_dq_launch, sched,
-                q, k, v, do, lse, delta, (dq,), scale)
+    _bwd_launch("tri_attn.bwd_dq", BUILD.load("tri_bwd").tri_bwd_dq_launch,
+                sched, q, k, v, do, lse, delta, (dq,), scale)
     bwd_dq.launches += 1
     return dq
 
@@ -513,7 +535,8 @@ def bwd_dkv(q, k, v, do, lse, delta, sched: TriSched, *, sm_scale=None):
 
         return SC.dkv_torch(q, k, v, do, lse, delta, sched, scale)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _bwd_launch("bwd_dkv", BUILD.load("tri_bwd").tri_bwd_dkv_launch, sched,
+    _bwd_launch("tri_attn.bwd_dkv",
+                BUILD.load("tri_bwd").tri_bwd_dkv_launch, sched,
                 q, k, v, do, lse, delta, (dk, dv), scale)
     bwd_dkv.launches += 1
     return dk, dv
@@ -532,12 +555,69 @@ def bwd(q, k, v, out, lse, do, sched: TriSched, *, sm_scale=None):
                                  sm_scale=sm_scale))
 
 
+def packed_bwd_dq(q, k, v, do, lse, delta, psched: PackedTriSched, *,
+                  sm_scale=None):
+    """Packed dq over the row-major packed grid (csrc/packed_bwd.cu,
+    packed_bwd_dq): q, do (B, H, S_total, D); k, v (B, Hkv, S_total, D);
+    lse and delta (B, H, S_total) f32. Returns dq in q's dtype."""
+    scale = float(sm_scale if sm_scale is not None
+                  else 1.0 / (q.shape[-1] ** 0.5))
+    if not q.is_cuda:
+        from repro_torch.kernels.tri_attn import scan_impl as SC
+
+        return SC.packed_dq_torch(q, k, v, do, lse, delta, psched, scale)
+    dq = torch.empty_like(q)
+    _bwd_launch("tri_attn.packed_bwd_dq",
+                BUILD.load("packed_bwd").packed_bwd_dq_launch, psched,
+                q, k, v, do, lse, delta, (dq,), scale)
+    packed_bwd_dq.launches += 1
+    return dq
+
+
+packed_bwd_dq.launches = 0
+
+
+def packed_bwd_dkv(q, k, v, do, lse, delta, psched: PackedTriSched, *,
+                   sm_scale=None):
+    """Packed dk and dv over the column-major packed grid
+    (csrc/packed_bwd.cu, packed_bwd_dkv), summed over each kv head's query
+    heads in the kernel. Returns (dk, dv) in k's dtype."""
+    scale = float(sm_scale if sm_scale is not None
+                  else 1.0 / (q.shape[-1] ** 0.5))
+    if not q.is_cuda:
+        from repro_torch.kernels.tri_attn import scan_impl as SC
+
+        return SC.packed_dkv_torch(q, k, v, do, lse, delta, psched, scale)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _bwd_launch("tri_attn.packed_bwd_dkv",
+                BUILD.load("packed_bwd").packed_bwd_dkv_launch, psched,
+                q, k, v, do, lse, delta, (dk, dv), scale)
+    packed_bwd_dkv.launches += 1
+    return dk, dv
+
+
+packed_bwd_dkv.launches = 0
+
+
+def packed_bwd(q, k, v, out, lse, do, psched: PackedTriSched, *,
+               sm_scale=None):
+    """Backward of ``packed_fwd``: delta = sum(do * out) here, as the
+    reference takes it, then the packed dq and dk/dv launches. Returns
+    (dq, dk, dv) shaped like q, k, v."""
+    delta = (do.float() * out.float()).sum(dim=-1)
+    dq = packed_bwd_dq(q, k, v, do, lse, delta, psched, sm_scale=sm_scale)
+    return (dq,) + tuple(packed_bwd_dkv(q, k, v, do, lse, delta, psched,
+                                        sm_scale=sm_scale))
+
+
 # every kernel wrapper, by the launch name it records
 WRAPPERS = {"tri_attn.packed_fwd": packed_fwd,
             "tri_attn.packed_decode_fwd": packed_decode_fwd,
             "tri_attn.fused_step_fwd": fused_step_fwd,
             "tri_attn.fwd": fwd, "tri_attn.bwd_dq": bwd_dq,
-            "tri_attn.bwd_dkv": bwd_dkv}
+            "tri_attn.bwd_dkv": bwd_dkv,
+            "tri_attn.packed_bwd_dq": packed_bwd_dq,
+            "tri_attn.packed_bwd_dkv": packed_bwd_dkv}
 
 
 def member_map_device(local, n, w, p):

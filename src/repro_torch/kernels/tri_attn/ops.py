@@ -4,8 +4,10 @@
 prefix-causal attention (the models' training path), differentiable: the
 forward saves (q, k, v, out, lse) and the backward runs the dq and dk/dv
 launches.
-``packed_prefill_attention`` + ``make_packed_sched``: R requests of mixed
-lengths concatenated along S, attended block-diagonally in ONE launch.
+``packed_prefill_attention`` + ``make_packed_sched``: R requests (or
+documents) of mixed lengths concatenated along S, attended
+block-diagonally in ONE launch, differentiable: the backward runs one
+packed dq and one packed dk/dv launch (packed document training).
 ``packed_decode_attention`` + ``make_decode_table`` + ``DecodeRoundSpec``:
 one mixed-position decode round per launch, each live slot attending only
 its own valid KV prefix.
@@ -130,23 +132,53 @@ def make_packed_sched(seq_lens, *, block: int, window=None,
     return PackedTriSched(members=tuple(members))
 
 
+class _PackedTriAttention(torch.autograd.Function):
+    """Custom VJP of the packed attention (the reference's
+    ``_packed_pallas_attention`` / ``make_packed_scan_attention``): the
+    forward runs ``packed_fwd``, the backward the packed dq and dk/dv;
+    impl 'cuda' runs the kernels, 'torch' their plain versions. Nothing is
+    saved unless an operand needs a grad, so serving pays no more than
+    the forward launch."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, psched, scale, impl):
+        if impl == "cuda":
+            out, lse = K.packed_fwd(q, k, v, psched, sm_scale=scale)
+        else:
+            out, lse = SC.packed_fwd_torch(q, k, v, psched, scale)
+        if any(ctx.needs_input_grad[:3]):
+            ctx.save_for_backward(q, k, v, out, lse)
+            ctx.psched, ctx.scale, ctx.impl = psched, scale, impl
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        args = ctx.saved_tensors + (do.contiguous(), ctx.psched)
+        if ctx.impl == "cuda":
+            dq, dk, dv = K.packed_bwd(*args, sm_scale=ctx.scale)
+        else:
+            dq, dk, dv = SC.packed_bwd_torch(*args, ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
 def packed_prefill_attention(q, k, v, psched: PackedTriSched, *,
                              sm_scale=None, impl: str = "cuda"):
-    """Ragged batched attention over the packed layout (forward only).
+    """Ragged batched attention over the packed layout (prefill and
+    packed document training), differentiable under every impl.
 
     q: (B, H, S_total, D); k, v: (B, Hkv, S_total, D). One launch covers
-    every request: sum_r blocks_r tile steps, no cross-request tiles.
-    Returns (B, H, S_total, D)."""
+    every request: sum_r blocks_r tile steps, no cross-request tiles; the
+    backward is one packed dq and one packed dk/dv launch over the same
+    member table. Returns (B, H, S_total, D)."""
     b, h, s_len, d = q.shape
     if s_len != psched.s_total:
         raise ValueError(f"packed operand has {s_len} rows but the "
                          f"schedule covers {psched.s_total}")
     scale = float(sm_scale if sm_scale is not None else 1.0 / (d ** 0.5))
-    if impl == "cuda":
+    if impl in ("cuda", "torch"):
         _require_cuda(impl, q, "packed_prefill_attention")
-        return K.packed_fwd(q, k, v, psched, sm_scale=scale)[0]
-    if impl == "torch":
-        return SC.packed_fwd_torch(q, k, v, psched, scale)[0]
+        return _PackedTriAttention.apply(q.contiguous(), k.contiguous(),
+                                         v.contiguous(), psched, scale, impl)
     if impl == "ref":
         outs, base = [], 0
         for m in psched.members:

@@ -1,23 +1,25 @@
 """Plain PyTorch versions of the attention kernels.
 
 Counterparts of the reference's ``scan`` impl (scan_impl.py: the forward
-of ``make_packed_scan_attention``, ``packed_decode_scan``,
+and the ``_packed_dq_cell`` / ``_packed_dkv_cell`` backward of
+``make_packed_scan_attention``, ``packed_decode_scan``,
 ``fused_step_scan`` and the ``_fwd_cell`` / ``_dq_cell`` / ``_dkv_cell``
 of ``make_scan_attention``): the same member tables, the same tile
 enumeration and the same online-softmax order as the kernels, written as
 a Python loop over tiles with every (batch, head) pair vectorized. One
 prefill-member body and one decode-member body serve the forwards, as the
-kernels share theirs (csrc/attn_tiles.cuh); the backward walks the
-schedule's row-major (dq) and column-major (dk/dv) lambdas through
-``TriSched.rm_map`` / ``cm_map``. They are the CPU path and the reference
-the CUDA kernels are held against on the card; they are no yardstick of
-speed.
-"""
+kernels share theirs (csrc/attn_tiles.cuh); one dq walk and one dk/dv
+walk serve both backwards, over one request's row-major (dq) and
+column-major (dk/dv) lambdas (``TriSched.rm_map`` / ``cm_map``) or over
+the packed grid decoded from the (7, R) member table
+(``_packed_steps``). They are the CPU path and the reference the CUDA
+kernels are held against on the card; they are no yardstick of speed."""
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import packing as PK
 from repro_torch.kernels.tri_attn.kernel import (DECODE_NO_EMIT, MASK_VALUE,
                                                  PackedTriSched, TriSched,
                                                  fused_step_meta)
@@ -192,17 +194,17 @@ def fwd_torch(q, k, v, sched: TriSched, scale: float):
     return out.reshape(b, h, s_len, d), lse.reshape(b, h, s_len)
 
 
-def _bwd_tile(sched, i, j, k, v, qg, dog, lse, dlt, scale):
-    """P and dS of tile (i, j) for every (batch, kv head, group head):
-    (B, Hkv, g, blk, blk) f32, plus the f32 q, k and do tiles."""
-    blk = sched.bq
-    ri = slice(i * blk, (i + 1) * blk)
-    rj = slice(j * blk, (j + 1) * blk)
+def _bwd_tile(row0, i, j, blk, win, pre, k, v, qg, dog, lse, dlt, scale):
+    """P and dS of member tile (i, j), the member's tiles starting at tile
+    row ``row0``, for every (batch, kv head, group head): (B, Hkv, g, blk,
+    blk) f32, plus the f32 q, k and do tiles."""
+    ri = slice((row0 + i) * blk, (row0 + i + 1) * blk)
+    rj = slice((row0 + j) * blk, (row0 + j + 1) * blk)
     qi, doi = qg[:, :, :, ri].float(), dog[:, :, :, ri].float()
     kj, vj = k[:, :, rj].float(), v[:, :, rj].float()
     s = torch.einsum("bkgqd,bkcd->bkgqc", qi, kj) * scale
-    s = torch.where(_token_mask(i, j, blk, sched.window or 0, sched.prefix,
-                                qg.device), s, MASK_VALUE)
+    s = torch.where(_token_mask(i, j, blk, win, pre, qg.device), s,
+                    MASK_VALUE)
     p = torch.exp(s - lse[:, :, :, ri, None])
     dp = torch.einsum("bkgqd,bkcd->bkgqc", doi, vj)
     return p, p * (dp - dlt[:, :, :, ri, None]) * scale, qi, kj, doi
@@ -216,52 +218,107 @@ def _grouped(q, do, lse, delta, hkv):
             lse.reshape(b, hkv, g, s_len), delta.reshape(b, hkv, g, s_len))
 
 
-def dq_torch(q, k, v, do, lse, delta, sched: TriSched, scale: float):
-    """dq over the row-major lambdas: reset at a row's first column, emit
+def _sched_steps(sched: TriSched, cm: bool):
+    """One request's tile steps in the kernels' order, as (row0, i, j,
+    first, last, win, pre) with row0 = 0: row-major (first/last the row's
+    columns) or column-major (first/last the column's rows)."""
+    win, pre = sched.window or 0, sched.prefix
+    for lam in range(sched.cm_steps if cm else sched.rm_steps):
+        if cm:
+            i, j = sched.cm_map(lam)
+            yield 0, i, j, sched.cm_first_row(j), sched.cm_last_row(j), \
+                win, pre
+        else:
+            i, j = sched.rm_map(lam)
+            yield 0, i, j, sched.rm_first_col(i), sched.rm_last_col(i), \
+                win, pre
+
+
+def _packed_steps(psched: PackedTriSched, cm: bool):
+    """The packed grid's tile steps, decoded from the (7, R) member table
+    as the reference's ``_packed_decode`` / ``_packed_decode_cm`` do: the
+    member by ``request_from_starts``, (i, j) by ``member_map_params``
+    (row-major) or ``member_cm_map_params`` (column-major). Returns the
+    (row0, i, j, first, last, win, pre) tuples of every lambda, as
+    ``_sched_steps``."""
+    tbl = torch.as_tensor(psched.table())
+    lam = torch.arange(psched.steps, dtype=torch.int32)
+    r = PK.request_from_starts(lam, tbl[0], len(psched.members)).long()
+    local = lam - tbl[0][r]
+    n, w, p = tbl[2][r], tbl[3][r], tbl[4][r]
+    if cm:
+        i, j = PK.member_cm_map_params(local, n, w, p)
+        first, last = PK.cm_first_row_params(j, p), \
+            PK.cm_last_row_params(j, n, w)
+    else:
+        i, j = PK.member_map_params(local, n, w, p)
+        first, last = PK.first_col_params(i, w), PK.last_col_params(i, p)
+    cols = (tbl[1][r], i, j, first, last, tbl[5][r], tbl[6][r])
+    return list(zip(*(torch.as_tensor(c).tolist() for c in cols)))
+
+
+def _dq_walk(steps, q, k, v, do, lse, delta, blk: int, scale: float):
+    """dq over row-major tile steps: reset at a row's first column, emit
     at its last. lse, delta (B, H, S) f32. Returns dq in q's dtype."""
     b, h, s_len, d = q.shape
-    hkv, blk = k.shape[1], sched.bq
-    OBS.record_launch(OBS.meta_from_trisched("tri_attn.bwd_dq", sched,
-                                             impl="torch", cells=b * h),
-                      (q, k, v, do))
-    tile = _grouped(q, do, lse, delta, hkv)
+    tile = _grouped(q, do, lse, delta, k.shape[1])
     dq = torch.empty_like(tile[0])
-    for lam in range(sched.rm_steps):
-        i, j = sched.rm_map(lam)
-        if j == sched.rm_first_col(i):
+    for row0, i, j, first, last, win, pre in steps:
+        if j == first:
             acc = torch.zeros(dq.shape[:3] + (blk, d), dtype=torch.float32,
                               device=q.device)
-        _, ds, _, kj, _ = _bwd_tile(sched, i, j, k, v, *tile, scale)
+        _, ds, _, kj, _ = _bwd_tile(row0, i, j, blk, win, pre, k, v, *tile,
+                                    scale)
         acc = acc + torch.einsum("bkgqc,bkcd->bkgqd", ds, kj)
-        if j == sched.rm_last_col(i):
-            dq[:, :, :, i * blk:(i + 1) * blk] = acc.to(dq.dtype)
+        if j == last:
+            dq[:, :, :, (row0 + i) * blk:(row0 + i + 1) * blk] = \
+                acc.to(dq.dtype)
     return dq.reshape(b, h, s_len, d)
 
 
-def dkv_torch(q, k, v, do, lse, delta, sched: TriSched, scale: float):
-    """dk and dv over the column-major lambdas (reset at a column's first
+def _dkv_walk(steps, q, k, v, do, lse, delta, blk: int, scale: float):
+    """dk and dv over column-major tile steps (reset at a column's first
     row, emit at its last), summed over each kv head's query heads.
     Returns (dk, dv) in k's dtype."""
-    b, h = q.shape[:2]
-    hkv, blk = k.shape[1], sched.bq
-    OBS.record_launch(OBS.meta_from_trisched("tri_attn.bwd_dkv", sched,
-                                             impl="torch", cells=b * h),
-                      (q, k, v, do))
+    b, hkv = k.shape[:2]
     tile = _grouped(q, do, lse, delta, hkv)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    for lam in range(sched.cm_steps):
-        i, j = sched.cm_map(lam)
-        if i == sched.cm_first_row(j):
+    for row0, i, j, first, last, win, pre in steps:
+        if i == first:
             acc_k = torch.zeros((b, hkv, blk, k.shape[-1]),
                                 dtype=torch.float32, device=q.device)
             acc_v = torch.zeros_like(acc_k)
-        p, ds, qi, _, doi = _bwd_tile(sched, i, j, k, v, *tile, scale)
+        p, ds, qi, _, doi = _bwd_tile(row0, i, j, blk, win, pre, k, v,
+                                      *tile, scale)
         acc_v = acc_v + torch.einsum("bkgqc,bkgqd->bkcd", p, doi)
         acc_k = acc_k + torch.einsum("bkgqc,bkgqd->bkcd", ds, qi)
-        if i == sched.cm_last_row(j):
-            dk[:, :, j * blk:(j + 1) * blk] = acc_k.to(dk.dtype)
-            dv[:, :, j * blk:(j + 1) * blk] = acc_v.to(dv.dtype)
+        if i == last:
+            cols = slice((row0 + j) * blk, (row0 + j + 1) * blk)
+            dk[:, :, cols] = acc_k.to(dk.dtype)
+            dv[:, :, cols] = acc_v.to(dv.dtype)
     return dk, dv
+
+
+def dq_torch(q, k, v, do, lse, delta, sched: TriSched, scale: float):
+    """dq over the row-major lambdas of one request. lse, delta (B, H, S)
+    f32. Returns dq in q's dtype."""
+    OBS.record_launch(OBS.meta_from_trisched("tri_attn.bwd_dq", sched,
+                                             impl="torch",
+                                             cells=q.shape[0] * q.shape[1]),
+                      (q, k, v, do))
+    return _dq_walk(_sched_steps(sched, cm=False), q, k, v, do, lse, delta,
+                    sched.bq, scale)
+
+
+def dkv_torch(q, k, v, do, lse, delta, sched: TriSched, scale: float):
+    """dk and dv over the column-major lambdas of one request. Returns
+    (dk, dv) in k's dtype."""
+    OBS.record_launch(OBS.meta_from_trisched("tri_attn.bwd_dkv", sched,
+                                             impl="torch",
+                                             cells=q.shape[0] * q.shape[1]),
+                      (q, k, v, do))
+    return _dkv_walk(_sched_steps(sched, cm=True), q, k, v, do, lse, delta,
+                     sched.bq, scale)
 
 
 def bwd_torch(q, k, v, out, lse, do, sched: TriSched, scale: float):
@@ -270,3 +327,39 @@ def bwd_torch(q, k, v, out, lse, do, sched: TriSched, scale: float):
     delta = (do.float() * out.float()).sum(dim=-1)
     return (dq_torch(q, k, v, do, lse, delta, sched, scale),
             *dkv_torch(q, k, v, do, lse, delta, sched, scale))
+
+
+def packed_dq_torch(q, k, v, do, lse, delta, psched: PackedTriSched,
+                    scale: float):
+    """Packed dq over the row-major packed grid (the reference's
+    ``_packed_dq_cell``). q, do (B, H, S_total, D); k, v (B, Hkv,
+    S_total, D); lse, delta (B, H, S_total) f32. Returns dq in q's
+    dtype."""
+    OBS.record_launch(OBS.meta_from_packed("tri_attn.packed_bwd_dq", psched,
+                                           impl="torch",
+                                           cells=q.shape[0] * q.shape[1]),
+                      (q, k, v, do))
+    return _dq_walk(_packed_steps(psched, cm=False), q, k, v, do, lse,
+                    delta, psched.blk, scale)
+
+
+def packed_dkv_torch(q, k, v, do, lse, delta, psched: PackedTriSched,
+                     scale: float):
+    """Packed dk/dv over the column-major packed grid (the reference's
+    ``_packed_dkv_cell``), summed over each kv head's query heads.
+    Returns (dk, dv) in k's dtype."""
+    OBS.record_launch(OBS.meta_from_packed("tri_attn.packed_bwd_dkv",
+                                           psched, impl="torch",
+                                           cells=q.shape[0] * q.shape[1]),
+                      (q, k, v, do))
+    return _dkv_walk(_packed_steps(psched, cm=True), q, k, v, do, lse,
+                     delta, psched.blk, scale)
+
+
+def packed_bwd_torch(q, k, v, out, lse, do, psched: PackedTriSched,
+                     scale: float):
+    """Backward of ``packed_fwd_torch``, as ``kernel.packed_bwd`` composes
+    it: delta = sum(do * out), then dq and dk/dv. Returns (dq, dk, dv)."""
+    delta = (do.float() * out.float()).sum(dim=-1)
+    return (packed_dq_torch(q, k, v, do, lse, delta, psched, scale),
+            *packed_dkv_torch(q, k, v, do, lse, delta, psched, scale))

@@ -174,11 +174,21 @@ def cross_entropy(logits, labels, mask, vocab_size: int):
 
 
 def loss_fn(params, cfg, batch, *, attn_impl: str = "cuda",
-            remat: bool = True, aux_weight: float = 0.01, block: int = 64):
-    """Next-token loss of a dense batch ({"tokens", "labels"} (B, S), an
-    optional "mask"). Returns (loss, {"ce", "aux"})."""
+            remat: bool = True, aux_weight: float = 0.01, block: int = 64,
+            packed=None):
+    """Next-token loss of a batch ({"tokens", "labels"} (B, S), an
+    optional "mask"). Returns (loss, {"ce", "aux"}).
+
+    ``packed`` (a PackedTriSched) trains on bin-packed documents
+    (train/data.PackedDocsLM): tokens are then (B, S_total), the
+    documents concatenated, attention is block-diagonal per document
+    (packed dq and dk/dv in the backward), ``batch["positions"]`` (B,
+    S_total) restarts per document and ``batch["mask"]`` is 0 on the pad
+    rows."""
     hidden, aux, _ = forward(params, cfg, batch, attn_impl=attn_impl,
-                             remat=remat, block=block)
+                             remat=remat, block=block,
+                             positions=batch.get("positions"),
+                             packed=packed)
     logits = logits_from_hidden(params, cfg, hidden)
     labels = batch["labels"]
     mask = batch.get("mask")

@@ -5,7 +5,8 @@ queue A).
 
 Autograd runs through the model's ops: on the card the attention of every
 layer is the tri_attn forward kernel (twice under remat) and its dq and
-dk/dv kernels. The parameters are updated IN PLACE (the reference returns
+dk/dv kernels, or, for a packed document batch, the packed forward and
+the packed dq and dk/dv kernels. The parameters are updated IN PLACE (the reference returns
 a new state): the returned state shares its tensors with the one passed
 in, which the caller must not reuse.
 """
@@ -99,13 +100,19 @@ def _take_f32_grad(view):
 
 def make_train_step(cfg, opt: OPT.OptConfig, *, microbatches: int = 1,
                     attn_impl: str = "cuda", remat: bool = True,
-                    aux_weight: float = 0.01, block: int = 64):
+                    aux_weight: float = 0.01, block: int = 64, packed=None):
     """Returns train_step(state, batch) -> (state, metrics).
 
     microbatches M > 1 splits the batch's leading dim into M sequential
     backward passes whose grads are summed in float32 and divided by M,
-    as the reference does."""
-    labels = {"impl": attn_impl, "packed": "0"}
+    as the reference does. ``packed`` (a PackedTriSched) trains on
+    bin-packed documents (train/data.PackedDocsLM batches, which carry
+    "positions" and "mask"): one static schedule serves every step."""
+    if packed is not None and microbatches != 1:
+        raise ValueError(f"a packed batch is one row (B = 1) of bin-packed "
+                         f"documents, so it does not split into "
+                         f"{microbatches} microbatches: pass microbatches=1")
+    labels = {"impl": attn_impl, "packed": "0" if packed is None else "1"}
 
     def train_step(state: TrainState, batch):
         MET.counter_inc("train_step_calls", 1, labels)
@@ -120,7 +127,7 @@ def make_train_step(cfg, opt: OPT.OptConfig, *, microbatches: int = 1,
         for mb in mbs:
             l, met = MD.loss_fn(views, cfg, mb, attn_impl=attn_impl,
                                 remat=remat, aux_weight=aux_weight,
-                                block=block)
+                                block=block, packed=packed)
             l.backward()
             loss = loss + l.detach()
             mets.append(met)

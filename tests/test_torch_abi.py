@@ -7,10 +7,15 @@
   JAX package (an AST scan of every import statement).
 * ``import repro_torch`` (and its serving modules) succeeds in a process
   where importing jax is impossible.
+* Every ``extern "C"`` entry point of ``src/repro_torch/csrc/*.cu`` is
+  bound in ``kernels/build.py`` with one ctypes type per parameter, of
+  the right kind (pointer, int or float): the check nvcc and the card
+  cannot make here.
 """
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -20,6 +25,7 @@ import pytest
 
 from repro.kernels.tri_attn import kernel as JK
 from repro.kernels.tri_attn import ops as JOPS
+from repro_torch.kernels import build as BUILD
 from repro_torch.kernels.tri_attn import kernel as K
 from repro_torch.kernels.tri_attn import ops as OPS
 
@@ -149,3 +155,32 @@ def test_fused_slice_modules_import_with_jax_blocked():
                          text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def _c_entry_points(src: str):
+    """{name: [parameter kinds]} of the extern "C" functions in ``src``:
+    'p' for a pointer, 'i' for an int, 'f' for a float."""
+    out = {}
+    for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', src):
+        kinds = []
+        for param in m.group(2).split(","):
+            param = " ".join(param.split())
+            kinds.append("p" if "*" in param else
+                         "f" if param.startswith("float ") else
+                         "i" if param.startswith("int ") else param)
+        out[m.group(1)] = kinds
+    return out
+
+
+def test_c_entry_points_match_the_ctypes_bindings():
+    import ctypes
+
+    kind = {ctypes.c_void_p: "p", ctypes.c_int: "i", ctypes.c_float: "f"}
+    sources = sorted(p.stem for p in (PKG / "csrc").glob("*.cu"))
+    assert sorted(BUILD.SOURCES) == sorted(BUILD.SIGNATURES) == sources
+    assert "packed_bwd" in sources
+    for name in sources:
+        declared = _c_entry_points((PKG / "csrc" / f"{name}.cu").read_text())
+        bound = {fn: [kind[t] for t in types]
+                 for fn, types in BUILD.SIGNATURES[name].items()}
+        assert declared == bound, name

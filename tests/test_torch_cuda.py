@@ -417,3 +417,137 @@ def test_tri_failing_launch_raises(dev, monkeypatch, fn):
         assert after == (before[0], before[1] + 1, before[2])
     else:
         assert after == before
+
+
+# ---------------------------------------------------------------------------
+# Packed document training: tri_attn.packed_bwd dq and dk/dv
+# (csrc/packed_bwd.cu) on a mixed member zoo (ltm, prefix, band, short
+# ltm in one launch), at the tolerances of the training kernels above.
+# ---------------------------------------------------------------------------
+
+PACKED_D = {16: 64, 32: 64, 64: 128, 128: 128}
+
+
+def _packed_case(dev, blk, g, hkv, dtype, b=2):
+    rng = np.random.default_rng(blk + g + hkv)
+    d, h = PACKED_D[blk], g * hkv
+    psched = OPS.make_packed_sched([5 * blk, 2 * blk, 3 * blk, blk],
+                                   block=blk,
+                                   window=[None, None, blk + 3, None],
+                                   prefix=[0, blk + 1, 0, 0])
+    s = psched.s_total
+    q, k, v, do = (_rand(rng, shape, dtype, dev) for shape in
+                   ((b, h, s, d), (b, hkv, s, d), (b, hkv, s, d),
+                    (b, h, s, d)))
+    return psched, q, k, v, do
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,hkv", [(1, 2), (2, 2), (8, 1)])
+@pytest.mark.parametrize("blk", [16, 32, 64, 128])
+def test_packed_bwd_matches_plain(dev, blk, g, hkv, dtype):
+    from repro_torch.kernels.tri_attn import scan_impl as SC
+
+    psched, q, k, v, do = _packed_case(dev, blk, g, hkv, dtype)
+    scale = q.shape[-1] ** -0.5
+    out, lse = K.packed_fwd(q, k, v, psched)
+    before = (K.packed_bwd_dq.launches, K.packed_bwd_dkv.launches)
+    dq, dk, dv = K.packed_bwd(q, k, v, out, lse, do, psched)
+    torch.cuda.synchronize()
+    assert (K.packed_bwd_dq.launches, K.packed_bwd_dkv.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = SC.packed_bwd_torch(q, k, v, out, lse, do, psched, scale)
+    for got, ref, name in zip((dq, dk, dv), want, ("dq", "dk", "dv")):
+        assert got.dtype == ref.dtype and got.shape == ref.shape, name
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   ref.float().cpu().numpy(), err_msg=name,
+                                   **GRAD_TOL[dtype])
+
+
+def test_packed_bwd_is_deterministic(dev):
+    """No atomics: the same inputs give bitwise-equal grads."""
+    psched, q, k, v, do = _packed_case(dev, 64, 8, 1, torch.bfloat16)
+    out, lse = K.packed_fwd(q, k, v, psched)
+    first = K.packed_bwd(q, k, v, out, lse, do, psched)
+    again = K.packed_bwd(q, k, v, out, lse, do, psched)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_packed_attention_cuda_grads_match_ref(dev):
+    """Autograd through packed_prefill_attention(impl='cuda') (forward,
+    dq and dk/dv kernels, three launches) against autograd through the
+    port's full-matrix oracle."""
+    psched, q, k, v, do = _packed_case(dev, 16, 2, 2, torch.float32)
+    grads = {}
+    for impl in ("cuda", "ref"):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        before = {n: f.launches for n, f in K.WRAPPERS.items()}
+        out = OPS.packed_prefill_attention(*leaves, psched, impl=impl)
+        out.backward(do)
+        moved = {n: f.launches - before[n] for n, f in K.WRAPPERS.items()
+                 if f.launches != before[n]}
+        assert moved == ({"tri_attn.packed_fwd": 1,
+                          "tri_attn.packed_bwd_dq": 1,
+                          "tri_attn.packed_bwd_dkv": 1}
+                         if impl == "cuda" else {}), moved
+        grads[impl] = (out.detach(),) + tuple(x.grad for x in leaves)
+    _close(grads["cuda"][0], grads["ref"][0], torch.float32, "out")
+    for got, want, name in zip(grads["cuda"][1:], grads["ref"][1:], "qkv"):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   err_msg=f"d{name}",
+                                   **GRAD_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("fn", ["packed_bwd_dq_launch",
+                                "packed_bwd_dkv_launch"])
+def test_packed_bwd_failing_launch_raises(dev, monkeypatch, fn):
+    """A launch CUDA refuses raises and is not counted; nothing falls back
+    to the plain version."""
+    psched, q, k, v, do = _packed_case(dev, 16, 2, 2, torch.float32)
+    out, lse = K.packed_fwd(q, k, v, psched)
+    monkeypatch.setattr(BUILD.load("packed_bwd"), fn, lambda *a: 9)
+    before = (K.packed_bwd_dq.launches, K.packed_bwd_dkv.launches)
+    with pytest.raises(RuntimeError, match="cudaError 9"):
+        K.packed_bwd(q, k, v, out, lse, do, psched)
+    after = (K.packed_bwd_dq.launches, K.packed_bwd_dkv.launches)
+    if fn == "packed_bwd_dkv_launch":  # dq launched before dk/dv failed
+        assert after == (before[0] + 1, before[1])
+    else:
+        assert after == before
+
+
+def test_packed_training_step_on_the_card(dev):
+    """Smoke-size float32 packed training: kernels and plain versions give
+    the same losses over 2 steps, and the step launches the packed
+    kernels only."""
+    import copy
+
+    from repro_torch.configs import registry as REG
+    from repro_torch.train import data as DATA
+    from repro_torch.train import optimizer as OPT
+    from repro_torch.train import train_step as TS
+
+    cfg = REG.smoke_config("yi-9b")
+    docs = DATA.PackedDocsLM(cfg, (41, 7, 23, 3), block=16, seed=0,
+                             device=dev)
+    psched = OPS.make_packed_sched(docs.member_lens, block=16)
+    opt = OPT.OptConfig()
+    base = TS.init_state(cfg, opt, seed=0, device=dev)
+    losses = {}
+    for impl in ("cuda", "torch"):
+        step = TS.make_train_step(cfg, opt, attn_impl=impl, block=16,
+                                  packed=psched)
+        state = copy.deepcopy(base)
+        before = {n: f.launches for n, f in K.WRAPPERS.items()}
+        losses[impl] = []
+        for i in range(2):
+            state, m = step(state, docs.batch(i))
+            losses[impl].append(float(m["loss"]))
+        moved = {n: f.launches - before[n] for n, f in K.WRAPPERS.items()
+                 if f.launches != before[n]}
+        layers = cfg.n_layers
+        assert moved == ({"tri_attn.packed_fwd": 4 * layers,
+                          "tri_attn.packed_bwd_dq": 2 * layers,
+                          "tri_attn.packed_bwd_dkv": 2 * layers}
+                         if impl == "cuda" else {}), moved
+    np.testing.assert_allclose(losses["cuda"], losses["torch"], rtol=1e-5)

@@ -3,7 +3,7 @@
 Exhaustive over every lambda of the n = 1..64 tile domains (ltm, several
 band widths, several prefix widths), row-major and column-major, at the
 top of the int32 envelope (LTM_TRACED_MAX_LAM), and for the packed member
-search and row and column bounds.
+search, the column-major member map and row and column bounds.
 Exact equality: these are integer maps. Each family's lambdas of all
 sizes are concatenated (with per-element parameters) so the reference
 runs one eager call per op.
@@ -203,3 +203,36 @@ def test_row_major_inverses_and_column_bounds():
         assert [PK.cm_last_row_params(int(x), n, w) for x in j] == \
             np.asarray(JPK.cm_last_row_params(jnp.asarray(j), n,
                                               w)).tolist()
+
+
+def test_member_cm_map_params_host_and_tensor():
+    """member_cm_map_params (the packed dk/dv walk's column-major member
+    map) == the reference's for every lambda of every ltm, band and
+    prefix member with n = 1..16, as tensors and as host ints; each
+    member's lambdas visit its domain column by column, every column's
+    rows running cm_first_row..cm_last_row."""
+    members = [m for fam in ("ltm", "band", "prefix") for m in _members(fam)
+               if m[0] <= 16]
+    local, n, w, p = _flat(members)
+    got = PK.member_cm_map_params(_t(local), _t(n), _t(w), _t(p))
+    want = JPK.member_cm_map_params(*(jnp.asarray(x)
+                                      for x in (local, n, w, p)))
+    _eq(got[0], want[0])
+    _eq(got[1], want[1])
+    host = [PK.member_cm_map_params(int(a), int(b), int(c), int(d))
+            for a, b, c, d in zip(local, n, w, p)]
+    _eq(np.asarray(host).T, np.stack([np.asarray(got[0]),
+                                      np.asarray(got[1])]))
+    i, j = np.asarray(got[0]), np.asarray(got[1])
+    start = 0
+    for nn, ww, pp in members:
+        k = _steps(nn, ww, pp)
+        cells = list(zip(i[start:start + k].tolist(),
+                         j[start:start + k].tolist()))
+        assert cells == _cm_domain(nn, ww, pp), (nn, ww, pp)
+        for col in range(nn):
+            rows = [a for a, b in cells if b == col]
+            assert rows == list(range(PK.cm_first_row_params(col, pp),
+                                      PK.cm_last_row_params(col, nn, ww)
+                                      + 1)), (nn, ww, pp, col)
+        start += k
