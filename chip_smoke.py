@@ -4,7 +4,7 @@
 
 Phases (any failure exits non-zero; nothing is caught):
   1. the card's name and power limit (nvidia-smi);
-  2. build the six CUDA sources of src/repro_torch/csrc (nvcc, sm_90a);
+  2. build the eight CUDA sources of src/repro_torch/csrc (nvcc, sm_90a);
   3. kernels: each kernel of the serving path at full yi-9b width (H=32,
      Hkv=4, D=128, blk=64, bf16 q/k/v, f32 decode cache) against its
      plain PyTorch version on the card (outputs within atol 4e-3 + rtol
@@ -35,7 +35,24 @@ Phases (any failure exits non-zero; nothing is caught):
      block-diagonal causal mask (forward; its autograd backward beside dq
      and dk/dv) and the bound; mixed ltm/prefix/band members at blk 16
      and 64; two runs of the backward bitwise equal;
-  7. training: yi-9b at full width (24 of 48 layers unless --train-layers
+  7. the paper's experiment: dummy_ltm over the whole certified ltm_map
+     envelope (n = 23169, 268,412,865 blocks) equal to i + j on the card;
+     edm_ltm and edm_bb against their plain versions (EDM tolerances of
+     tests/oracles.py) in full at N = 16384 (d 1-4, squared, bf16) and at
+     N = 65536 on 4096 sampled tiles plus every tile past the 2^31-element
+     offset, BB's lower tiles equal to LTM's bit for bit, its upper tiles
+     and every self-distance exactly 0; fwd_bb at the train phase's
+     attention shape against fwd_bb_torch and tri_fwd (OUT_TOL, LSE_TOL),
+     two runs bitwise equal, its counters n^2 and tri(n) per (batch,
+     head), band windows at blk 16 and 64; the plain versions,
+     torch.cdist and SDPA timed; then the experiment through the entry
+     points with every count at 0 before and asserted after (no plain
+     version): ops.edm cuda and bb over N 16384/32768/65536 x d 1-4 at
+     blk 64 and N 65536, d 3 at blk 128 (I_edm = t_bb / t_ltm beside the
+     structural n^2 / tri(n) of kernel_summary and the paper's Kepler
+     1.12-1.15), dummy_ltm at n = 1024, 4096 and 23169, and
+     triangular_attention bb against cuda (I_attn);
+  8. training: yi-9b at full width (24 of 48 layers unless --train-layers
      says otherwise: the 48-layer AdamW state does not fit 80 GB) for 3
      steps of seq 4096, batch 1, remat, random seeded bf16 weights,
      SyntheticLM batches; asserts finite positive losses, kernel launches
@@ -831,6 +848,346 @@ def packed_train_kernel_phase(dev, K, OPS, SC):
     return rows, fwd_reading
 
 
+# EDM tolerances of tests/oracles.py (edm, edm_sq; bf16 edm): sqrt
+# amplifies the f32 roundoff of d^2 ~ 0 (a + b - 2ab)
+EDM_TOL = {(torch.float32, False): dict(atol=2e-3, rtol=1e-4),
+           (torch.float32, True): dict(atol=1e-5, rtol=1e-5),
+           (torch.bfloat16, False): dict(atol=5e-2, rtol=5e-2)}
+# the paper's measured BB / LTM time ratio of its EDM on Kepler
+PAPER_I_KEPLER = (1.12, 1.15)
+# the paper's experiment: pairwise distances of N points in d = 1..4
+# features at blk 64, and the op's default blk 128 at N = 65536, d = 3
+EDM_SWEEP = tuple((n_rows, d, 64) for n_rows in (16384, 32768, 65536)
+                  for d in (1, 2, 3, 4)) + ((65536, 3, 128),)
+EDM_HEADLINE = (65536, 3, 64)
+EDM_FULL_ROWS = 16384  # checked in full against the plain version
+EDM_SAMPLE = 4096  # tiles sampled at the largest N
+DUMMY_NS = (1024, 4096)  # besides the envelope's last row
+# the train phase's attention (B, H, Hkv, S, D, blk)
+ATTN_SHAPE = (1, 32, 4, 4096, 128, 64)
+PAPER_REPS, PAPER_WARMUP = 5, 1
+
+
+def _isqrt64(x):
+    """Exact floor(sqrt(x)) of an int64 tensor below 2^52: the float64
+    candidate, corrected one step each way."""
+    r = torch.sqrt(x.double()).floor().long()
+    r = torch.where(r * r > x, r - 1, r)
+    return torch.where((r + 1) * (r + 1) <= x, r + 1, r)
+
+
+def _check_dummy(out, n: int):
+    """dummy_ltm's output against the closed form i + j of every lambda,
+    computed on the card in int64 in chunks; returns the lambdas
+    checked."""
+    t = n * (n + 1) // 2
+    if tuple(out.shape) != (t, 1):
+        _fail(f"dummy_ltm({n}): shape {tuple(out.shape)} != ({t}, 1)")
+    step = 1 << 26
+    for t0 in range(0, t, step):
+        lam = torch.arange(t0, min(t, t0 + step), dtype=torch.int64,
+                           device=out.device)
+        i = (_isqrt64(8 * lam + 1) - 1) // 2
+        j = lam - i * (i + 1) // 2
+        bad = int((out[t0:t0 + step, 0] != (i + j).float()).sum())
+        if bad:
+            _fail(f"dummy_ltm({n}): {bad} of lambdas [{t0}, "
+                  f"{t0 + len(lam)}) differ from i + j")
+    return t
+
+
+def _edm_close(name, got, want, tol):
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, **tol):
+        _fail(f"{name}: kernel disagrees with its plain version (max abs "
+              f"err {err}, tolerance {tol})")
+    return err
+
+
+def _check_edm(EK, ER, x, blk, squared, sample: int, rng):
+    """edm_ltm and edm_bb on x against the plain version: every tile when
+    ``sample`` is 0, else a seeded sample of ``sample`` tiles plus every
+    tile with an output element at or past offset 2^31 in either output.
+    Also: BB's lower tiles equal LTM's bit for bit, BB's upper tiles and
+    the diagonal self-distances are exact zeros. Returns the max abs
+    error and the tiles checked against the plain version."""
+    n_rows = x.shape[0]
+    n = n_rows // blk
+    t = n * (n + 1) // 2
+    tol = EDM_TOL[(x.dtype, squared)]
+    ltm = EK.edm_ltm(x, blk, squared=squared)
+    bb = EK.edm_bb(x, blk, squared=squared)
+    torch.cuda.synchronize()
+    ii, jj = ER.tile_coords(n, x.device)
+    bb_tiles = bb.view(n, blk, n, blk)
+    step = max(1, (1 << 26) // (blk * blk))
+    for t0 in range(0, t, step):
+        sl = slice(t0, t0 + step)
+        if not torch.equal(ltm[sl], bb_tiles[ii[sl], :, jj[sl], :]):
+            _fail(f"edm N={n_rows} blk={blk}: BB's lower tiles differ from "
+                  f"LTM's in lambdas [{t0}, {t0 + step})")
+    rows = torch.arange(blk, device=x.device)
+    for r0 in range(0, n_rows, blk * 64):  # 64 tile rows at a time
+        band = bb[r0:r0 + blk * 64]
+        tile_i = (r0 + torch.arange(band.shape[0], device=x.device)) // blk
+        upper = (torch.arange(n_rows, device=x.device) // blk)[None, :] > \
+            tile_i[:, None]
+        if bool(((band != 0) & upper).any()):
+            _fail(f"edm_bb N={n_rows} blk={blk}: nonzero upper tiles")
+    diag = torch.tensor([i * (i + 1) // 2 + i for i in range(n)],
+                        device=x.device)
+    if int(torch.count_nonzero(ltm[diag][:, rows, rows])):
+        _fail(f"edm N={n_rows} blk={blk}: nonzero self-distance")
+    if sample:
+        two31 = 2 ** 31
+        # LTM tile lambda ends at (lambda + 1) b^2 - 1; BB tile (i, j) at
+        # ((i + 1) b - 1) N + (j + 1) b - 1
+        far = ((torch.arange(t, device=x.device) + 1) * blk * blk - 1
+               >= two31) | (((ii + 1) * blk - 1) * n_rows + (jj + 1) * blk
+                            - 1 >= two31)
+        pick = torch.as_tensor(rng.choice(t, min(sample, t), replace=False),
+                               device=x.device)
+        far[pick] = True
+        lams = torch.nonzero(far)[:, 0]
+    else:
+        lams = torch.arange(t, device=x.device)
+        _edm_close(f"edm_bb N={n_rows} d={x.shape[1]}", bb,
+                   EK.edm_bb_torch(x, blk, squared=squared), tol)
+    err = 0.0
+    for t0 in range(0, len(lams), step):
+        lam = lams[t0:t0 + step]
+        want = EK.edm_tiles(x, blk, ii[lam], jj[lam], squared=squared)
+        err = max(err, _edm_close(f"edm_ltm N={n_rows} d={x.shape[1]}",
+                                  ltm[lam], want, tol))
+    return err, len(lams)
+
+
+def paper_phase(dev, K, OPS, SC):
+    """The paper's experiment on the card: dummy_ltm (the mapping alone),
+    the EDM by g(lambda) (edm_ltm) against the bounding box (edm_bb), and
+    the BB attention forward (fwd_bb) against tri_fwd. Checks each kernel
+    against its plain version, times the plain versions and the library
+    calls, then drives the experiment through the entry points (ops.edm,
+    dummy_ltm, triangular_attention) with every count at 0 before and
+    read after. Returns the four kernels' rows."""
+    import torch.nn.functional as F
+
+    from repro_torch.core import mapping as M
+    from repro_torch.kernels.tri_edm import kernel as EK
+    from repro_torch.kernels.tri_edm import ops as EOPS
+    from repro_torch.kernels.tri_edm import ref as ER
+    from repro_torch.obs import launch as OBS
+    from repro_torch.obs import metrics as MET
+
+    rng = np.random.default_rng(15)
+
+    def points(n_rows, d, dtype=torch.float32):
+        return torch.as_tensor(rng.standard_normal((n_rows, d), np.float32),
+                               device=dev).to(dtype)
+
+    # -- dummy_ltm over the whole certified envelope -----------------------
+    n_env = M.LTM_TRACED_MAX_I
+    checked = _check_dummy(EK.dummy_ltm(n_env, device=dev), n_env)
+    for n in DUMMY_NS:
+        _check_dummy(EK.dummy_ltm(n, device=dev), n)
+    if not torch.equal(EK.dummy_ltm(DUMMY_NS[0], device=dev),
+                       EK.dummy_ltm_torch(DUMMY_NS[0], dev)):
+        _fail("dummy_ltm disagrees with its plain version")
+    print(f"paper: dummy_ltm at n = {n_env} equals i + j for all {checked} "
+          f"lambdas (int64 closed form on the card)", flush=True)
+
+    # -- EDM correctness ----------------------------------------------------
+    edm_err = {"tri_edm.ltm": 0.0}
+    for d in (1, 2, 3, 4):
+        err, _ = _check_edm(EK, ER, points(EDM_FULL_ROWS, d), 64, False, 0,
+                            rng)
+        edm_err["tri_edm.ltm"] = max(edm_err["tri_edm.ltm"], err)
+    x = points(EDM_FULL_ROWS, 3)
+    _check_edm(EK, ER, x, 64, True, 0, rng)
+    _check_edm(EK, ER, x.to(torch.bfloat16), 64, False, 0, rng)
+    big = [c for c in EDM_SWEEP if c[0] == EDM_HEADLINE[0]]
+    for n_rows, d, blk in big:
+        err, count = _check_edm(EK, ER, points(n_rows, d), blk, False,
+                                EDM_SAMPLE, rng)
+        edm_err["tri_edm.ltm"] = max(edm_err["tri_edm.ltm"], err)
+        print(f"paper: edm N={n_rows} d={d} blk={blk}: {count} tiles "
+              f"against the plain version ({EDM_SAMPLE} sampled + every "
+              f"tile past offset 2^31), BB lower == LTM bitwise, zeros "
+              f"exact; max "
+              f"abs err {err:.3g}", flush=True)
+    torch.cuda.empty_cache()
+
+    # -- fwd_bb correctness at the train phase's attention shape ------------
+    def qkv(b, h, hkv, s, d):
+        return [torch.as_tensor(rng.standard_normal(shape, np.float32),
+                                device=dev).to(torch.bfloat16)
+                for shape in ((b, h, s, d), (b, hkv, s, d), (b, hkv, s, d))]
+
+    attn_err = 0.0
+    for blk in (16, 64):
+        sched = OPS.make_sched(6 * blk, block=blk, window=blk + 5)
+        q, k, v = qkv(2, 8, 2, 6 * blk, 128)
+        out, lse = K.fwd_bb(q, k, v, sched)
+        for label, (w_out, w_lse) in (
+                ("plain", SC.fwd_bb_torch(q, k, v, sched, 128 ** -0.5)),
+                ("tri_fwd", K.fwd(q, k, v, sched))):
+            _close(f"fwd_bb band blk {blk} vs {label} out", out, w_out)
+            _close(f"fwd_bb band blk {blk} vs {label} lse", lse, w_lse,
+                   LSE_TOL)
+    b, h, hkv, s, d, blk = ATTN_SHAPE
+    q, k, v = qkv(b, h, hkv, s, d)
+    sched = OPS.make_sched(s, block=blk)
+    scale = d ** -0.5
+    n_attn = sched.n
+    reg = MET.Registry("fwd_bb")
+    with MET.scope(reg):
+        out, lse = K.fwd_bb(q, k, v, sched)
+    again = K.fwd_bb(q, k, v, sched)
+    torch.cuda.synchronize()
+    if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+        _fail("fwd_bb: two runs differ")
+    summ = OBS.kernel_summary(reg)["tri_attn.fwd_bb"]
+    if (summ["launches"], summ["tiles_launched"], summ["tiles_domain"]) != \
+            (1, n_attn * n_attn * b * h, M.tri(n_attn) * b * h):
+        _fail(f"fwd_bb counters {summ}")
+    w_out, w_lse = SC.fwd_bb_torch(q, k, v, sched, scale)
+    f_out, f_lse = K.fwd(q, k, v, sched)
+    attn_err = max(_close("fwd_bb out", out, w_out),
+                   _close("fwd_bb lse", lse, w_lse, LSE_TOL),
+                   _close("fwd_bb vs tri_fwd out", out, f_out),
+                   _close("fwd_bb vs tri_fwd lse", lse, f_lse, LSE_TOL))
+    del again, w_out, w_lse, f_out, f_lse
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=True)
+    _close("fwd_bb vs SDPA", out, sdpa())
+    print(f"paper: fwd_bb at B {b} H {h} Hkv {hkv} S {s} D {d} blk {blk} "
+          f"matches fwd_bb_torch and tri_fwd (max abs err {attn_err:.3g}), "
+          f"two runs bitwise equal, counters {summ['tiles_launched']} "
+          f"launched / {summ['tiles_domain']} in the domain", flush=True)
+
+    # -- plain versions and library calls (outside the counted path) --------
+    n_rows, d_h, blk_h = EDM_HEADLINE
+    x = points(n_rows, d_h)
+    plain = {
+        "tri_edm.ltm": _median_ms(lambda: EK.edm_ltm_torch(x, blk_h), 1, 1),
+        "tri_edm.bb": _median_ms(lambda: EK.edm_bb_torch(x, blk_h), 1, 1),
+        "tri_edm.dummy_ltm": _median_ms(
+            lambda: EK.dummy_ltm_torch(n_env, dev), 3, 1),
+        "tri_attn.fwd_bb": _median_ms(
+            lambda: SC.fwd_bb_torch(q, k, v, sched, scale), 3, 1)}
+    cdist = _median_ms(lambda: torch.cdist(x, x), 5, 1)
+    library = {"tri_edm.ltm": cdist, "tri_edm.bb": cdist,
+               "tri_edm.dummy_ltm": None,
+               "tri_attn.fwd_bb": _median_ms(sdpa, 10)}
+    del x
+    torch.cuda.empty_cache()
+
+    # -- the experiment, through the entry points, counted ------------------
+    for mod in (K, EK):
+        _reset_launches(mod)
+    reg = MET.Registry("paper")
+    sweep, per = [], PAPER_REPS + PAPER_WARMUP
+    with MET.scope(reg), torch.no_grad():
+        for e_rows, e_d, e_blk in EDM_SWEEP:
+            x = points(e_rows, e_d)
+            cfg_reg = MET.Registry("edm config")
+            with MET.scope(cfg_reg):
+                t_ltm = _median_ms(lambda: EOPS.edm(x, e_blk, impl="cuda"),
+                                   PAPER_REPS, PAPER_WARMUP)
+                t_bb = _median_ms(lambda: EOPS.edm(x, e_blk, impl="bb"),
+                                  PAPER_REPS, PAPER_WARMUP)
+            e_n = e_rows // e_blk
+            flops = (2 * e_d + 4) * M.tri(e_n) * e_blk * e_blk
+            sweep.append({
+                "N": e_rows, "d": e_d, "blk": e_blk, "ltm_ms": t_ltm,
+                "bb_ms": t_bb, "I_edm": t_bb / t_ltm,
+                "I_struct": OBS.kernel_summary(cfg_reg)["tri_edm.ltm"][
+                    "improvement_vs_bb"],
+                "ltm_bound_ms": _bound(
+                    4 * M.tri(e_n) * e_blk * e_blk + 4 * x.numel(), flops,
+                    torch.float32)[0],
+                "bb_bound_ms": _bound(4 * e_rows * e_rows + 4 * x.numel(),
+                                      flops, torch.float32)[0]})
+            del x
+        dummy_ms = {n: _median_ms(lambda: EK.dummy_ltm(n, device=dev),
+                                  PAPER_REPS, PAPER_WARMUP)
+                    for n in DUMMY_NS + (n_env,)}
+        attn_ms = {impl: _median_ms(
+            lambda: OPS.triangular_attention(q, k, v, impl=impl, block=blk),
+            PAPER_REPS, PAPER_WARMUP) for impl in ("bb", "cuda")}
+    launches = {**_launches(EK), **_launches(K)}
+    want = {"tri_edm.ltm": per * len(EDM_SWEEP),
+            "tri_edm.bb": per * len(EDM_SWEEP),
+            "tri_edm.dummy_ltm": per * (len(DUMMY_NS) + 1),
+            "tri_attn.fwd_bb": per, "tri_attn.fwd": per}
+    for mod in (EK, K):
+        _check_launches("paper", mod, reg, {
+            name: c for name, c in want.items() if name in mod.WRAPPERS})
+    torch.cuda.empty_cache()
+
+    i_attn = attn_ms["bb"] / attn_ms["cuda"]
+    for row in sweep:
+        print(f"paper: edm N={row['N']} d={row['d']} blk={row['blk']}: LTM "
+              f"{row['ltm_ms']:.4f} ms (bound {row['ltm_bound_ms']:.4f}), "
+              f"BB {row['bb_ms']:.4f} ms (bound {row['bb_bound_ms']:.4f}); "
+              f"I_edm {row['I_edm']:.4f} (structural n^2/tri(n) "
+              f"{row['I_struct']:.4f}; the paper on Kepler "
+              f"{PAPER_I_KEPLER[0]}-{PAPER_I_KEPLER[1]})", flush=True)
+    for n, ms in dummy_ms.items():
+        print(f"paper: dummy_ltm n={n}: {ms:.4f} ms, "
+              f"{ms * 1e6 / M.tri(n):.4f} ns a block", flush=True)
+    print(f"paper: attention at B {b} H {h} S {s} blk {blk}: fwd_bb "
+          f"{attn_ms['bb']:.4f} ms, tri_fwd {attn_ms['cuda']:.4f} ms, I_attn "
+          f"{i_attn:.4f} (structural "
+          f"{n_attn * n_attn / M.tri(n_attn):.4f})", flush=True)
+
+    head = next(r for r in sweep if (r["N"], r["d"], r["blk"]) == EDM_HEADLINE)
+    n_h = EDM_HEADLINE[0] // EDM_HEADLINE[2]
+    x_bytes = 4 * EDM_HEADLINE[0] * EDM_HEADLINE[1]
+    flops_h = (2 * EDM_HEADLINE[1] + 4) * M.tri(n_h) * EDM_HEADLINE[2] ** 2
+    shape = {"N": EDM_HEADLINE[0], "d": EDM_HEADLINE[1],
+             "blk": EDM_HEADLINE[2], "dtype": "float32"}
+    lib_edm = ("torch.cdist(x, x): the full N x N f32 matrix (no PyTorch "
+               "call gives the packed output)")
+    bounds = {
+        "tri_edm.ltm": _bound(4 * M.tri(n_h) * EDM_HEADLINE[2] ** 2 + x_bytes,
+                              flops_h, torch.float32),
+        "tri_edm.bb": _bound(4 * EDM_HEADLINE[0] ** 2 + x_bytes, flops_h,
+                             torch.float32),
+        "tri_edm.dummy_ltm": _bound(4 * M.tri(n_env), 0, torch.float32),
+        "tri_attn.fwd_bb": _attn_bounds(q, k, h * s * (s + 1) // 2)["fwd"]}
+    rows = [
+        {"name": "tri_edm.ltm", "source": "src/repro_torch/csrc/tri_edm.cu",
+         "replaces": "src/repro/kernels/tri_edm/kernel.py:50",
+         "max_abs_err": edm_err["tri_edm.ltm"], "ms": head["ltm_ms"],
+         "library": lib_edm, "shape": shape, "sweep": sweep},
+        {"name": "tri_edm.bb", "source": "src/repro_torch/csrc/tri_edm.cu",
+         "replaces": "src/repro/kernels/tri_edm/kernel.py:90",
+         "max_abs_err": edm_err["tri_edm.ltm"], "ms": head["bb_ms"],
+         "library": lib_edm, "shape": shape, "I_edm": head["I_edm"],
+         "I_struct": head["I_struct"]},
+        {"name": "tri_edm.dummy_ltm",
+         "source": "src/repro_torch/csrc/tri_edm.cu",
+         "replaces": "src/repro/kernels/tri_edm/kernel.py:117",
+         "max_abs_err": 0.0, "ms": dummy_ms[n_env],
+         "library": None, "shape": {"n": n_env, "blocks": M.tri(n_env)},
+         "ms_by_n": {str(n): ms for n, ms in dummy_ms.items()},
+         "ns_per_block": dummy_ms[n_env] * 1e6 / M.tri(n_env)},
+        {"name": "tri_attn.fwd_bb", "source": "src/repro_torch/csrc/fwd_bb.cu",
+         "replaces": "src/repro/kernels/tri_attn/kernel.py:1205",
+         "max_abs_err": attn_err, "ms": attn_ms["bb"],
+         "library": "SDPA is_causal forward",
+         "shape": {"B": b, "H": h, "Hkv": hkv, "S": s, "D": d, "blk": blk,
+                   "kind": "ltm"},
+         "tri_fwd_ms": attn_ms["cuda"], "I_attn": i_attn}]
+    for row in rows:
+        name = row["name"]
+        row.update(route="cuda", plain_ms=plain[name],
+                   bound_ms=bounds[name][0], bound_by=bounds[name][1],
+                   library_ms=library[name], launches=launches[name])
+    return rows
+
+
 def _timed(step, times: list):
     """``step`` with its wall time (synchronized) appended to ``times``."""
     def timed_step(state, batch):
@@ -844,7 +1201,7 @@ def _timed(step, times: list):
     return timed_step
 
 
-def _check_train_launches(label, K, reg, want_nonzero: dict) -> dict:
+def _check_launches(label, K, reg, want_nonzero: dict) -> dict:
     """Every wrapper's count equals ``want_nonzero`` (0 for the others)
     and no plain version ran; returns the nonzero counts."""
     launches = _launches(K)
@@ -899,7 +1256,7 @@ def train_phase(dev, layers: int, card, K, OPS):
     with MET.scope(reg):
         state, log = FT.run_training(state, _timed(step, times), ds.batch,
                                      steps)
-    launches = _check_train_launches(
+    launches = _check_launches(
         "train", K, reg, {"tri_attn.fwd": 2 * layers * steps,
                           "tri_attn.bwd_dq": layers * steps,
                           "tri_attn.bwd_dkv": layers * steps})
@@ -952,7 +1309,7 @@ def packed_train(cfg, opt, state, card, K, OPS):
     with MET.scope(reg):
         state, log = FT.run_training(state, _timed(step, times), docs.batch,
                                      first + steps)
-    launches = _check_train_launches(
+    launches = _check_launches(
         "packed train", K, reg,
         {"tri_attn.packed_fwd": 2 * layers * steps,
          "tri_attn.packed_bwd_dq": layers * steps,
@@ -991,7 +1348,7 @@ def packed_train(cfg, opt, state, card, K, OPS):
     _reset_launches(K)
     with MET.scope(reg):
         padded_loss, padded_s = fwd_bwd(padded, None)
-    _check_train_launches("padded fwd+bwd", K, reg,
+    _check_launches("padded fwd+bwd", K, reg,
                           {"tri_attn.fwd": 2 * layers,
                            "tri_attn.bwd_dq": layers,
                            "tri_attn.bwd_dkv": layers})
@@ -1141,11 +1498,12 @@ def main():
                                                               SC)
     kernels += packed_rows
     torch.cuda.empty_cache()
+    kernels += paper_phase(dev, K, OPS, SC)
     print("kernels: " + "; ".join(
-        f"{k['name']} {k['ms']:.4f} ms (plain {k['plain_ms']:.3f}, SDPA "
-        f"{k['library_ms']:.4f}, bound {k['bound_ms']:.4f} by "
-        f"{k['bound_by']}) err {k['max_abs_err']:.3g}" for k in kernels),
-        flush=True)
+        f"{k['name']} {k['ms']:.4f} ms (plain {k['plain_ms']:.3f}, library "
+        + ("none" if k["library_ms"] is None else f"{k['library_ms']:.4f}")
+        + f", bound {k['bound_ms']:.4f} by {k['bound_by']}) err "
+        f"{k['max_abs_err']:.3g}" for k in kernels), flush=True)
     launches = serving_phase(dev, args.layers, card, K)
     smoke_identity(dev)
     dense, packed = train_phase(dev, args.train_layers, card, K, OPS)
@@ -1155,6 +1513,8 @@ def main():
     packed_fwd_train["launches"] = packed["tri_attn.packed_fwd"]
     smoke_training(dev)
     for k in kernels:
+        if "launches" in k:  # the paper phase counted its own path
+            continue
         k["launches"] = launches[k["name"]]
         if k["name"] == "tri_attn.packed_fwd":
             # its serving reading and launches above, its packed-training

@@ -10,7 +10,9 @@ and the column-major family the attention backward's dk/dv walks
 ``math.isqrt``) and on int32 torch tensors (float32 sqrt plus overflow-
 clamped integer probes, the same repair as the reference). The CUDA
 kernels carry the same arithmetic as ``__device__`` functions in
-``csrc/packing.cuh``.
+``csrc/packing.cuh``. The paper's competitor strategies (UTM, RB, REC
+and the bounding box) and the block counts of ``core/analysis.py`` are
+host integer forms only: no kernel walks them.
 
 The envelope constants are copies of the reference's declared values:
 the torch and device forms are exact for ``lam <= LTM_TRACED_MAX_LAM``.
@@ -214,3 +216,118 @@ def prefix_cm_map(lam, n, p):
     in_head = lam < head
     return (torch.where(in_head, lam % n, i_t + p),
             torch.where(in_head, lam // n, j_t + p))
+
+
+# ---------------------------------------------------------------------------
+# Block counts and the paper's competitor strategies (host ints): what
+# ``core/analysis.strategy_stats`` counts. No kernel of the port walks them.
+# ---------------------------------------------------------------------------
+
+
+def tri_blocks(n: int) -> int:
+    """Blocks LTM launches for an n-block-per-side domain."""
+    return tri(n)
+
+
+def bb_blocks(n: int) -> int:
+    """Blocks the bounding-box strategy launches."""
+    return n * n
+
+
+def wasted_blocks_bb(n: int) -> int:
+    """BB wastes the n(n-1)/2 strictly-upper blocks."""
+    return (n * (n - 1)) // 2
+
+
+def wasted_blocks_ltm(n: int) -> int:
+    """LTM wastes only the upper halves inside the n diagonal blocks:
+    O(n), reported as n to stay integer (the paper's O(n) claim)."""
+    return n
+
+
+def utm_map(k: int, n: int):
+    """UTM (Avril et al.): thread index k -> 0-based (a, b), b > a, in the
+    strictly-upper triangle of n x n, by an exact integer sqrt and the
+    two repairs of the original's float form."""
+    k = int(k)
+    s = math.isqrt(4 * n * n - 4 * n - 8 * k + 1)
+    a = int(math.floor((-(2 * n + 1) + s) / -2.0))
+    while (a - 1) * (2 * n - a) // 2 > k:
+        a -= 1
+    while a * (2 * n - a - 1) // 2 <= k:
+        a += 1
+    b = (a + 1) + k - (a - 1) * (2 * n - a) // 2
+    return a - 1, b - 1
+
+
+def utm_inverse(a: int, b: int, n: int) -> int:
+    """0-based (a, b), b > a -> k of ``utm_map``."""
+    a1, b1 = a + 1, b + 1
+    return (a1 - 1) * (2 * n - a1) // 2 + (b1 - a1 - 1)
+
+
+def rb_grid_shape(n: int):
+    """RB (Jung et al.) folds the triangle into ceil(n/2) rows by n + 1
+    columns, which covers both parities."""
+    return ((n + 1) // 2, n + 1)
+
+
+def rb_map(x: int, y: int, n: int):
+    """Folded-rectangle cell (column x in [0, n], row y in [0, H)) ->
+    lower-triangle (i, j), H = ceil(n/2): cells with x > y are the
+    complete columns j < H, the others the residual triangle folded in."""
+    h = (n + 1) // 2
+    return (x - 1, y) if x > y else (h + y, h + x)
+
+
+def rb_valid(x: int, y: int, n: int) -> bool:
+    """Whether a rectangle cell maps inside the triangle (the odd-n edge
+    is filtered at run time)."""
+    i, j = rb_map(x, y, n)
+    return 0 <= j <= i < n
+
+
+def rec_levels(n: int, m: int) -> int:
+    """k of n = m * 2**k (REC, Ries et al.); raises otherwise."""
+    if not (m >= 1 and n >= m and n % m == 0):
+        raise ValueError(f"REC needs n = m*2^k with m >= 1, got n={n} m={m}")
+    q = n // m
+    if q & (q - 1):
+        raise ValueError(f"REC needs n = m*2^k, got n={n} m={m} (n/m={q} "
+                         "is not a power of 2)")
+    return q.bit_length() - 1
+
+
+def rec_schedule(n: int, m: int):
+    """REC passes [(edge_blocks, origins, is_diag)]: pass 0 covers the n/m
+    diagonal sub-triangles with m x m squares (upper halves masked), level
+    l in [1, k] launches 2**(k-l) squares of edge m*2**(l-1) fully inside
+    the domain."""
+    k = rec_levels(n, m)
+    passes = [(m, [(d * m, d * m) for d in range(n // m)], True)]
+    for lvl in range(1, k + 1):
+        edge = m * (1 << (lvl - 1))
+        step = 2 * edge
+        passes.append((edge, [(s * step + edge, s * step)
+                              for s in range(n // step)], False))
+    return passes
+
+
+def rec_total_blocks(n: int, m: int) -> int:
+    """Tiles REC launches (diagonal squares count fully)."""
+    return sum(len(origins) * edge * edge
+               for edge, origins, _ in rec_schedule(n, m))
+
+
+def rec_useful_blocks(n: int, m: int) -> int:
+    return tri(n)
+
+
+def bb_map(x: int, y: int):
+    """BB: identity, (i, j) = (row y, column x)."""
+    return y, x
+
+
+def bb_active(x: int, y: int) -> bool:
+    """The paper's optimized BB guard: block (x, y) works iff y >= x."""
+    return y >= x

@@ -1,19 +1,21 @@
 // Tile bodies shared by the attention kernels (packed_fwd.cu,
-// packed_decode.cu, fused_step.cu, tri_fwd.cu, tri_bwd.cu, packed_bwd.cu).
+// packed_decode.cu, fused_step.cu, tri_fwd.cu, tri_bwd.cu, packed_bwd.cu,
+// fwd_bb.cu).
 //
 // prefill_row_tile is one prefill accumulator owner: one q-row tile of one
 // packed member (or of the one request of tri_fwd) for one query head,
 // walking the member-local lambdas of its row through member_map_params
-// with an f32 online softmax. dq_row_tile and dkv_col_tile are the
-// backward's owners: a q-row tile's dq, and a key-column tile's dk/dv over
-// every query head of its kv head (tri_bwd.cu with row0 = 0, packed_bwd.cu
-// with a member's first tile row). decode_member
-// is one decode accumulator owner: one live slot's single query for all g
-// query heads of one kv head, streaming the slot's cache tiles with
-// cp.async. Each kernel reads its own member table and hands these bodies
-// plain integers, so the (7, R), (5, R) and (8, R) row layouts stay with
-// their kernels, and a fused launch runs exactly the code of the two split
-// kernels.
+// with an f32 online softmax, one prefill_key_tile a lambda (fwd_bb.cu runs
+// that key-tile step alone, one block per tile of the n x n grid).
+// dq_row_tile and dkv_col_tile are the backward's owners: a q-row tile's
+// dq, and a key-column tile's dk/dv over every query head of its kv head
+// (tri_bwd.cu with row0 = 0, packed_bwd.cu with a member's first tile
+// row). decode_member is one decode accumulator owner: one live slot's
+// single query for all g query heads of one kv head, streaming the slot's
+// cache tiles with cp.async. Each kernel reads its own member table and
+// hands these bodies plain integers, so the (7, R), (5, R) and (8, R) row
+// layouts stay with their kernels, and a fused launch runs exactly the code
+// of the two split kernels.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -39,35 +41,88 @@ struct FwdShape {
   static constexpr size_t BYTES = sizeof(float) * FLOATS;
 };
 
+// One key tile of a prefill q-row tile: keys [k0, k0 + BLK) of the (S, D)
+// planes kh / vh against the Q tile already in shared memory, in chunks of
+// KC = min(BLK, 32) keys, with the f32 online-softmax update of the rows'
+// state (sm, sl) and of the thread's acc. (ii, j) are the tile's row and
+// column in the member's own token positions, which the mask reads.
 // Shared memory: the Q tile (BLK x D, f32, padded rows), one key chunk of
-// KC = min(BLK, 32) keys of K and V, the chunk's scores and the per-row
-// softmax state. qh/kh/vh/oh point at this head's (S, D) planes, lh at its
-// (S,) log-sum-exp row or is null. The row's tiles are the member's tile
-// rows from row0; i is the row within the member.
+// K and V, the chunk's scores and the per-row softmax state.
 template <typename T, int BLK, int D>
-__device__ __forceinline__ void prefill_row_tile(
-    const T* __restrict__ qh, const T* __restrict__ kh,
-    const T* __restrict__ vh, T* __restrict__ oh, float* __restrict__ lh,
-    int row0, int i, int n_r, int w_r, int p_r, int win, int pre, float scale,
-    float* smem) {
+__device__ __forceinline__ void prefill_key_tile(
+    const T* __restrict__ kh, const T* __restrict__ vh, int k0, int ii,
+    int j, int win_eff, int pre, float scale, float* smem,
+    float (&acc)[FwdShape<BLK, D>::ACC]) {
   using Sh = FwdShape<BLK, D>;
   constexpr int NT = PREFILL_NT;
   constexpr int KC = Sh::KC, DP = Sh::DP, SP = Sh::SP, ACC = Sh::ACC;
-  static_assert(BLK * D % NT == 0, "tile must split evenly over threads");
-  float* sq = smem;
-  float* sk = sq + BLK * DP;
+  const float* sq = smem;
+  float* sk = smem + BLK * DP;
   float* sv = sk + KC * DP;
   float* ss = sv + KC * D;
   float* sm = ss + BLK * SP;
   float* sl = sm + BLK;
   float* sa = sl + BLK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int c0 = 0; c0 < BLK; c0 += KC) {
+    for (int e = threadIdx.x; e < KC * D; e += NT) {
+      const int cc = e / D, d = e % D;
+      const size_t off = static_cast<size_t>(k0 + c0 + cc) * D + d;
+      sk[cc * DP + d] = to_f32(kh[off]);
+      sv[cc * D + d] = to_f32(vh[off]);
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < BLK * KC; e += NT) {
+      const int rr = e / KC, cc = e % KC;
+      float dot = 0.f;
+#pragma unroll 16
+      for (int d = 0; d < D; ++d) dot = fmaf(sq[rr * DP + d], sk[cc * DP + d], dot);
+      const int qp = ii * BLK + rr, kp = j * BLK + c0 + cc;
+      const bool keep = (kp <= qp && qp - kp < win_eff) || kp < pre;
+      ss[rr * SP + cc] = keep ? dot * scale : MASK_VALUE;
+    }
+    __syncthreads();
+    for (int rr = warp; rr < BLK; rr += NT / 32) {
+      const float sval = lane < KC ? ss[rr * SP + lane] : -INFINITY;
+      const float m_prev = sm[rr];
+      const float m_new = fmaxf(m_prev, warp_max(sval));
+      const float p = lane < KC ? expf(sval - m_new) : 0.f;
+      const float psum = warp_sum(p);
+      if (lane < KC) ss[rr * SP + lane] = p;
+      if (lane == 0) {
+        const float alpha = expf(m_prev - m_new);
+        sa[rr] = alpha;
+        sl[rr] = sl[rr] * alpha + psum;
+        sm[rr] = m_new;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int a = 0; a < ACC; ++a) {
+      const int e = threadIdx.x + a * NT;
+      const int rr = e / D, d = e % D;
+      float o = acc[a] * sa[rr];
+#pragma unroll 8
+      for (int cc = 0; cc < KC; ++cc) o = fmaf(ss[rr * SP + cc], sv[cc * D + d], o);
+      acc[a] = o;
+    }
+    __syncthreads();
+  }
+}
 
-  const int win_eff = win > 0 ? win : (1 << 30);
-  const int first = first_col_params(i, w_r);
-  const int last = last_col_params(i, p_r);
-  const int lam0 = segment_origin_params(i, w_r, p_r);
-  const int q0 = (row0 + i) * BLK;
-
+// Loads the Q tile of rows [q0, q0 + BLK) of the (S, D) plane qh into
+// shared memory (f32, padded rows) and resets the rows' softmax state and
+// the thread's acc, ready for prefill_key_tile.
+template <typename T, int BLK, int D>
+__device__ __forceinline__ void prefill_begin(
+    const T* __restrict__ qh, int q0, float* smem,
+    float (&acc)[FwdShape<BLK, D>::ACC]) {
+  using Sh = FwdShape<BLK, D>;
+  constexpr int NT = PREFILL_NT;
+  constexpr int DP = Sh::DP;
+  float* sq = smem;
+  float* sm = sq + BLK * DP + Sh::KC * DP + Sh::KC * D + BLK * Sh::SP;
+  float* sl = sm + BLK;
   for (int e = threadIdx.x; e < BLK * D; e += NT) {
     const int rr = e / D, d = e % D;
     sq[rr * DP + d] = to_f32(qh[static_cast<size_t>(q0 + rr) * D + d]);
@@ -76,60 +131,43 @@ __device__ __forceinline__ void prefill_row_tile(
     sm[rr] = MASK_VALUE;
     sl[rr] = 0.f;
   }
-  float acc[ACC];
 #pragma unroll
-  for (int a = 0; a < ACC; ++a) acc[a] = 0.f;
+  for (int a = 0; a < Sh::ACC; ++a) acc[a] = 0.f;
   __syncthreads();
+}
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+// One prefill accumulator owner: q-row tile i of a member whose tiles
+// start at tile row row0, walking the member-local lambdas of its row
+// through member_map_params (prefill_key_tile for each), then writing
+// out = acc / l in T and, when lh is not null, lse = m + log(l). qh/kh/
+// vh/oh point at this head's (S, D) planes, lh at its (S,) log-sum-exp
+// row.
+template <typename T, int BLK, int D>
+__device__ __forceinline__ void prefill_row_tile(
+    const T* __restrict__ qh, const T* __restrict__ kh,
+    const T* __restrict__ vh, T* __restrict__ oh, float* __restrict__ lh,
+    int row0, int i, int n_r, int w_r, int p_r, int win, int pre, float scale,
+    float* smem) {
+  using Sh = FwdShape<BLK, D>;
+  constexpr int NT = PREFILL_NT;
+  constexpr int ACC = Sh::ACC;
+  static_assert(BLK * D % NT == 0, "tile must split evenly over threads");
+  const float* sm = smem + BLK * Sh::DP + Sh::KC * Sh::DP + Sh::KC * D + BLK * Sh::SP;
+  const float* sl = sm + BLK;
+
+  const int win_eff = win > 0 ? win : (1 << 30);
+  const int first = first_col_params(i, w_r);
+  const int last = last_col_params(i, p_r);
+  const int lam0 = segment_origin_params(i, w_r, p_r);
+  const int q0 = (row0 + i) * BLK;
+
+  float acc[ACC];
+  prefill_begin<T, BLK, D>(qh, q0, smem, acc);
   for (int s = 0; s <= last - first; ++s) {
     int ii, j;
     member_map_params(lam0 + s, n_r, w_r, p_r, &ii, &j);
-    const int k0 = (row0 + j) * BLK;
-    for (int c0 = 0; c0 < BLK; c0 += KC) {
-      for (int e = threadIdx.x; e < KC * D; e += NT) {
-        const int cc = e / D, d = e % D;
-        const size_t off = static_cast<size_t>(k0 + c0 + cc) * D + d;
-        sk[cc * DP + d] = to_f32(kh[off]);
-        sv[cc * D + d] = to_f32(vh[off]);
-      }
-      __syncthreads();
-      for (int e = threadIdx.x; e < BLK * KC; e += NT) {
-        const int rr = e / KC, cc = e % KC;
-        float dot = 0.f;
-#pragma unroll 16
-        for (int d = 0; d < D; ++d) dot = fmaf(sq[rr * DP + d], sk[cc * DP + d], dot);
-        const int qp = ii * BLK + rr, kp = j * BLK + c0 + cc;
-        const bool keep = (kp <= qp && qp - kp < win_eff) || kp < pre;
-        ss[rr * SP + cc] = keep ? dot * scale : MASK_VALUE;
-      }
-      __syncthreads();
-      for (int rr = warp; rr < BLK; rr += NT / 32) {
-        const float sval = lane < KC ? ss[rr * SP + lane] : -INFINITY;
-        const float m_prev = sm[rr];
-        const float m_new = fmaxf(m_prev, warp_max(sval));
-        const float p = lane < KC ? expf(sval - m_new) : 0.f;
-        const float psum = warp_sum(p);
-        if (lane < KC) ss[rr * SP + lane] = p;
-        if (lane == 0) {
-          const float alpha = expf(m_prev - m_new);
-          sa[rr] = alpha;
-          sl[rr] = sl[rr] * alpha + psum;
-          sm[rr] = m_new;
-        }
-      }
-      __syncthreads();
-#pragma unroll
-      for (int a = 0; a < ACC; ++a) {
-        const int e = threadIdx.x + a * NT;
-        const int rr = e / D, d = e % D;
-        float o = acc[a] * sa[rr];
-#pragma unroll 8
-        for (int cc = 0; cc < KC; ++cc) o = fmaf(ss[rr * SP + cc], sv[cc * D + d], o);
-        acc[a] = o;
-      }
-      __syncthreads();
-    }
+    prefill_key_tile<T, BLK, D>(kh, vh, (row0 + j) * BLK, ii, j, win_eff,
+                                pre, scale, smem, acc);
   }
 
 #pragma unroll

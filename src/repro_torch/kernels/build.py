@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
 SOURCES = ("packed_fwd", "packed_decode", "fused_step", "tri_fwd", "tri_bwd",
-           "packed_bwd")
+           "packed_bwd", "fwd_bb", "tri_edm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -60,6 +60,17 @@ SIGNATURES = {
         + [_F, _I, _P],
         "packed_bwd_dkv_launch": [_P] * 8 + [_I] * 6 + [_P, _I, _I]
         + [_F, _I, _P],
+    },
+    # (q, k, v, out, lse, part, arrivals, B, H, Hkv, S, D, blk, n, win,
+    #  scale, dtype, stream)
+    "fwd_bb": {
+        "fwd_bb_launch": [_P] * 7 + [_I] * 8 + [_F, _I, _P],
+    },
+    # (x, out, N, d, blk, squared, dtype, stream); (out, n, stream)
+    "tri_edm": {
+        "edm_ltm_launch": [_P, _P] + [_I] * 5 + [_P],
+        "edm_bb_launch": [_P, _P] + [_I] * 5 + [_P],
+        "dummy_ltm_launch": [_P, _I, _P],
     },
 }
 

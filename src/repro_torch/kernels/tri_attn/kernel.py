@@ -9,11 +9,13 @@ is the decode pad member's sentinel.
 hand-written kernels in ``csrc/packed_fwd.cu``, ``csrc/packed_decode.cu``
 and ``csrc/fused_step.cu``; ``fwd``, ``bwd_dq`` and ``bwd_dkv`` (the
 training path's forward and its two backward launches, which ``bwd``
-composes) wrap ``csrc/tri_fwd.cu`` and ``csrc/tri_bwd.cu``;
+composes) wrap ``csrc/tri_fwd.cu`` and ``csrc/tri_bwd.cu``; ``fwd_bb``
+(the paper's bounding-box baseline of ``fwd``) wraps ``csrc/fwd_bb.cu``;
 ``packed_bwd_dq`` and ``packed_bwd_dkv`` (the backward of ``packed_fwd``,
 which ``packed_bwd`` composes) wrap ``csrc/packed_bwd.cu``. The notes at
 the top of each source say what bounds it on the H100 and why its grid
-is one block per accumulator owner. On a CUDA tensor a wrapper launches
+is one block per accumulator owner (fwd_bb's, one block per tile of the
+n x n grid, says why it is not). On a CUDA tensor a wrapper launches
 its kernel, through ``obs.launch.instrumented_launch``, or raises; it
 runs the plain PyTorch version (scan_impl.py) only when its inputs lie
 on the CPU. Each wrapper counts its launches in a plain integer
@@ -473,6 +475,61 @@ def fwd(q, k, v, sched: TriSched, *, sm_scale=None):
 fwd.launches = 0
 
 
+def check_bb_sched(sched: TriSched):
+    """fwd_bb takes ltm and band schedules only: the BB guard j <= i drops
+    the above-diagonal tiles a prefix-causal row attends (the reference's
+    ``fwd_bb`` returns wrong rows there), so a prefix schedule raises."""
+    _check(sched.kind != "prefix",
+           "fwd_bb: prefix-causal schedules are refused: the BB guard "
+           "j <= i drops the above-diagonal prefix tiles")
+
+
+def fwd_bb_meta(impl: str, sched: TriSched, cells: int):
+    """The reference's launch geometry of fwd_bb: the n x n grid of each
+    (batch, head) cell, tri(n) of it in the domain."""
+    return OBS.meta_dense("tri_attn.fwd_bb", "tri_attn", impl=impl,
+                          grid=(sched.n, sched.n),
+                          block_shape=(sched.bq, sched.bk),
+                          tiles_domain=M.tri(sched.n), cells=cells)
+
+
+def fwd_bb(q, k, v, sched: TriSched, *, sm_scale=None):
+    """The paper's bounding-box baseline of ``fwd`` (forward only, ltm or
+    band): one block per tile of the n x n grid of each (batch, head),
+    blocks above the diagonal discarded, each row's tile partials merged
+    in the launch by its last block (csrc/fwd_bb.cu).
+
+    q: (B, H, S, D); k, v: (B, Hkv, S, D), one dtype (f32 or bf16),
+    contiguous. Returns (out (B, H, S, D) in q's dtype, lse (B, H, S)
+    f32)."""
+    b, h, s_len, d = q.shape
+    scale = float(sm_scale if sm_scale is not None else 1.0 / (d ** 0.5))
+    check_bb_sched(sched)
+    if not q.is_cuda:
+        from repro_torch.kernels.tri_attn import scan_impl as SC
+
+        return SC.fwd_bb_torch(q, k, v, sched, scale)
+    _check_attn("fwd_bb", sched, q, k, v)
+    lib = BUILD.load("fwd_bb")
+    n, blk = sched.n, sched.bq
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, s_len), dtype=torch.float32, device=q.device)
+    part = torch.empty(b * h * M.tri(n) * (blk * d + 2 * blk),
+                       dtype=torch.float32, device=q.device)
+    arrivals = torch.zeros(b * h * n, dtype=torch.int32, device=q.device)
+    OBS.instrumented_launch(
+        fwd_bb_meta("cuda", sched, b * h), lib.fwd_bb_launch, (q, k, v),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), part.data_ptr(), arrivals.data_ptr(), b, h,
+        k.shape[1], s_len, d, blk, n, sched.window or 0, scale,
+        _DTYPE_CODES[q.dtype], _stream_ptr(q))
+    fwd_bb.launches += 1
+    return out, lse
+
+
+fwd_bb.launches = 0
+
+
 def _bwd_launch(name, c_fn, sched, q, k, v, do, lse, delta, outs, scale):
     """Checks and the launch shared by the four backward kernels: ``name``
     is the launch name (tri_attn.bwd_dq / bwd_dkv over a TriSched,
@@ -614,7 +671,8 @@ def packed_bwd(q, k, v, out, lse, do, psched: PackedTriSched, *,
 WRAPPERS = {"tri_attn.packed_fwd": packed_fwd,
             "tri_attn.packed_decode_fwd": packed_decode_fwd,
             "tri_attn.fused_step_fwd": fused_step_fwd,
-            "tri_attn.fwd": fwd, "tri_attn.bwd_dq": bwd_dq,
+            "tri_attn.fwd": fwd, "tri_attn.fwd_bb": fwd_bb,
+            "tri_attn.bwd_dq": bwd_dq,
             "tri_attn.bwd_dkv": bwd_dkv,
             "tri_attn.packed_bwd_dq": packed_bwd_dq,
             "tri_attn.packed_bwd_dkv": packed_bwd_dkv}

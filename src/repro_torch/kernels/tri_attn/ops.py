@@ -21,6 +21,9 @@ impl names:
             else;
   'torch' — the plain PyTorch version (scan_impl.py), the counterpart of
             the reference's 'scan', on any device;
+  'bb', 'bb_torch' — ``triangular_attention`` only: the paper's
+            bounding-box baseline (``kernel.fwd_bb``, CUDA tensors only) and
+            its plain version, forward only;
   'ref'   — the masked full-matrix oracle (ref.py), tests only.
 """
 
@@ -37,14 +40,15 @@ from repro_torch.kernels.tri_attn import scan_impl as SC
 from repro_torch.kernels.tri_attn.kernel import (DECODE_NO_EMIT,
                                                  PackedTriSched, TriSched)
 
-IMPLS = ("cuda", "torch", "ref")
+IMPLS = ("cuda", "torch", "ref", "bb", "bb_torch")
 
 
 def _require_cuda(impl: str, t: torch.Tensor, op: str):
-    if impl == "cuda" and not t.is_cuda:
+    if impl in ("cuda", "bb") and not t.is_cuda:
         raise ValueError(
-            f"{op}: impl='cuda' needs CUDA tensors, got {t.device}; pass "
-            "impl='torch' for the plain PyTorch version")
+            f"{op}: impl={impl!r} needs CUDA tensors, got {t.device}; pass "
+            f"impl={'torch' if impl == 'cuda' else 'bb_torch'!r} for the "
+            "plain PyTorch version")
 
 
 def make_sched(s_len: int, *, block: int, window=None,
@@ -91,15 +95,34 @@ def triangular_attention(q, k, v, *, window=None, prefix: int = 0,
     request, differentiable under every impl.
 
     q: (B, H, S, D); k, v: (B, Hkv, S, D), H % Hkv == 0. Returns
-    (B, H, S, D)."""
+    (B, H, S, D). impl 'bb' / 'bb_torch' run the paper's bounding-box
+    baseline (the kernel / its plain version), forward only as in the
+    reference: they raise on an operand that requires a grad, and on
+    prefix > 0, where the reference's BB guard drops tiles the rows
+    need."""
     s_len, d = q.shape[2], q.shape[3]
     scale = 1.0 / (d ** 0.5)
     if impl == "ref":
         return R.mha_reference(q, k, v, sm_scale=scale, window=window,
                                prefix=prefix)
-    if impl not in ("cuda", "torch"):
+    if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; known {IMPLS}")
+    if impl in ("bb", "bb_torch"):
+        if any(x.requires_grad for x in (q, k, v)):
+            raise ValueError(f"triangular_attention: impl={impl!r} is "
+                             "forward only; pass operands that need no "
+                             "grad")
+        if prefix:
+            raise ValueError(f"triangular_attention: impl={impl!r} refuses "
+                             "prefix > 0 (the BB guard j <= i drops the "
+                             "above-diagonal prefix tiles)")
     _require_cuda(impl, q, "triangular_attention")
+    if impl in ("bb", "bb_torch"):
+        args = (q.contiguous(), k.contiguous(), v.contiguous(),
+                make_sched(s_len, block=block, window=window))
+        if impl == "bb":
+            return K.fwd_bb(*args, sm_scale=scale)[0]
+        return SC.fwd_bb_torch(*args, scale)[0]
     sched = make_sched(s_len, block=block, window=window, prefix=prefix)
     return _TriAttention.apply(q.contiguous(), k.contiguous(),
                                v.contiguous(), sched, scale, impl)

@@ -4,11 +4,12 @@ Counterparts of the reference's ``scan`` impl (scan_impl.py: the forward
 and the ``_packed_dq_cell`` / ``_packed_dkv_cell`` backward of
 ``make_packed_scan_attention``, ``packed_decode_scan``,
 ``fused_step_scan`` and the ``_fwd_cell`` / ``_dq_cell`` / ``_dkv_cell``
-of ``make_scan_attention``): the same member tables, the same tile
-enumeration and the same online-softmax order as the kernels, written as
-a Python loop over tiles with every (batch, head) pair vectorized. One
-prefill-member body and one decode-member body serve the forwards, as the
-kernels share theirs (csrc/attn_tiles.cuh); one dq walk and one dk/dv
+of ``make_scan_attention``, and the BB baseline ``fwd_bb``): the same
+member tables, the same tile enumeration and the same online-softmax
+order as the kernels, written as a Python loop over tiles with every
+(batch, head) pair vectorized. One prefill-member body and one
+decode-member body serve the forwards, as the kernels share theirs
+(csrc/attn_tiles.cuh); one dq walk and one dk/dv
 walk serve both backwards, over one request's row-major (dq) and
 column-major (dk/dv) lambdas (``TriSched.rm_map`` / ``cm_map``) or over
 the packed grid decoded from the (7, R) member table
@@ -22,7 +23,8 @@ import torch
 from repro_torch.core import packing as PK
 from repro_torch.kernels.tri_attn.kernel import (DECODE_NO_EMIT, MASK_VALUE,
                                                  PackedTriSched, TriSched,
-                                                 fused_step_meta)
+                                                 check_bb_sched,
+                                                 fused_step_meta, fwd_bb_meta)
 from repro_torch.obs import launch as OBS
 
 
@@ -191,6 +193,25 @@ def fwd_torch(q, k, v, sched: TriSched, scale: float):
                       device=q.device)
     _prefill_member(qg, k, v, out, lse, 0, sched.n, sched.w_b, sched.p_b,
                     sched.window or 0, sched.prefix, sched.bq, scale)
+    return out.reshape(b, h, s_len, d), lse.reshape(b, h, s_len)
+
+
+def fwd_bb_torch(q, k, v, sched: TriSched, scale: float):
+    """The BB baseline's forward (ltm or band; prefix raises): the n x n
+    grid in the reference's order, row i taking tiles j = 0..n-1 with the
+    j <= i guard and the token mask, which is the prefill-member body with
+    every column of the row (w_b = n, no prefix). Returns (out in q.dtype,
+    lse (B, H, S) f32)."""
+    check_bb_sched(sched)
+    b, h, s_len, d = q.shape
+    hkv = k.shape[1]
+    OBS.record_launch(fwd_bb_meta("torch", sched, b * h), (q, k, v))
+    qg = q.reshape(b, hkv, h // hkv, s_len, d)
+    out = torch.empty_like(qg)
+    lse = torch.empty((b, hkv, h // hkv, s_len), dtype=torch.float32,
+                      device=q.device)
+    _prefill_member(qg, k, v, out, lse, 0, sched.n, sched.n, 0,
+                    sched.window or 0, 0, sched.bq, scale)
     return out.reshape(b, h, s_len, d), lse.reshape(b, h, s_len)
 
 

@@ -8,10 +8,11 @@ it, and the plain PyTorch versions record the same geometry with
 ``tiles_launched_total``, ``tiles_domain_total``, ``tiles_wasted_total``,
 ``tiles_bb_total`` and ``launch_bytes_total``, labelled ``{name, impl}``
 exactly as the reference names them, so the two packages' counts can be
-diffed kernel by kernel. A pre-launch hook (``set_launch_hook``) runs at
-the top of ``record_launch``: before every kernel launch and every plain
-version's run, and may raise to abort it (the fault-injection surface of
-``resilience.faults.install_launch_hook``).
+diffed kernel by kernel; ``kernel_summary`` sums them per kernel with
+the paper's utilization and structural I. A pre-launch hook
+(``set_launch_hook``) runs at the top of ``record_launch``: before every
+kernel launch and every plain version's run, and may raise to abort it
+(the fault-injection surface of ``resilience.faults.install_launch_hook``).
 """
 
 from __future__ import annotations
@@ -106,6 +107,20 @@ def meta_from_packed(name: str, psched, *, impl: str, cells: int = 1,
         extra=(("members", r),))
 
 
+def meta_dense(name: str, family: str, *, impl: str, grid, block_shape,
+               tiles_domain: Optional[int] = None,
+               cells: int = 1) -> LaunchMeta:
+    """Bounding-box grids (kind "bb"): launched is the grid product over
+    the lambda dims (``grid``); the BB bound equals launched."""
+    launched = 1
+    for g in grid:
+        launched *= int(g)
+    return LaunchMeta(
+        name=name, family=family, impl=impl, kind="bb", grid=tuple(grid),
+        block_shape=tuple(block_shape), tiles_launched=launched,
+        tiles_domain=tiles_domain, tiles_bb=launched, cells=cells)
+
+
 def meta_exact(name: str, family: str, *, impl: str, kind: str, steps: int,
                block_shape, bb_bound: Optional[int], cells: int = 1,
                grid=None, extra: tuple = ()) -> LaunchMeta:
@@ -149,6 +164,44 @@ def record_launch(meta: LaunchMeta, operands=()):
     MET.counter_inc("launch_bytes_total", bytes_moved, labels)
     if SK.trace_enabled():
         SK.emit_event(meta.as_event(bytes_moved=bytes_moved))
+
+
+_SUMMARY_FIELDS = {
+    "launches_total": "launches",
+    "tiles_launched_total": "tiles_launched",
+    "tiles_domain_total": "tiles_domain",
+    "tiles_wasted_total": "tiles_wasted",
+    "tiles_bb_total": "tiles_bb",
+    "launch_bytes_total": "bytes_moved",
+}
+
+
+def kernel_summary(registry=None) -> dict:
+    """Per-kernel sums of the launch counters, keyed by launch name, over
+    every impl label: {name: {launches, tiles_launched, tiles_domain,
+    tiles_wasted, tiles_bb, bytes_moved, utilization, improvement_vs_bb,
+    impls}}. utilization = domain / launched and improvement_vs_bb =
+    bb / launched (the paper's structural I) are taken from the sums."""
+    reg = registry or MET.global_registry()
+    out: dict = {}
+    for key, value in reg.counter_items():
+        field = _SUMMARY_FIELDS.get(key[0])
+        labels = dict(key[1:])
+        if field is None or "name" not in labels:
+            continue
+        d = out.setdefault(labels["name"],
+                           {f: 0 for f in _SUMMARY_FIELDS.values()})
+        d[field] += int(value)
+        impls = d.setdefault("impls", [])
+        if "impl" in labels and labels["impl"] not in impls:
+            impls.append(labels["impl"])
+    for d in out.values():
+        launched = d["tiles_launched"]
+        d["utilization"] = d["tiles_domain"] / launched if launched else 0.0
+        d["improvement_vs_bb"] = d["tiles_bb"] / launched if launched \
+            else 0.0
+        d["impls"].sort()
+    return out
 
 
 def instrumented_launch(meta: LaunchMeta, c_fn, operands, *args) -> None:

@@ -78,6 +78,11 @@ class Registry:
     def counter_value(self, name: str, labels: Optional[dict] = None):
         return self._counters.get(_key(name, labels), 0)
 
+    def counter_items(self) -> List[Tuple[Tuple, float]]:
+        """Every counter as ((name, (label, value), ...), value)."""
+        with self._lock:
+            return list(self._counters.items())
+
     def counter_total(self, name: str):
         """Sum of a counter over all its label sets."""
         return sum(v for k, v in self._counters.items() if k[0] == name)

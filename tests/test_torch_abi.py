@@ -5,8 +5,8 @@
   arrays to the reference's.
 * No module of src/repro_torch, nor chip_smoke.py, imports jax or the
   JAX package (an AST scan of every import statement).
-* ``import repro_torch`` (and its serving modules) succeeds in a process
-  where importing jax is impossible.
+* ``import repro_torch`` (and its serving, training and paper-experiment
+  modules) succeeds in a process where importing jax is impossible.
 * Every ``extern "C"`` entry point of ``src/repro_torch/csrc/*.cu`` is
   bound in ``kernels/build.py`` with one ctypes type per parameter, of
   the right kind (pointer, int or float): the check nvcc and the card
@@ -111,6 +111,9 @@ def _imports(path: Path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    assert {"kernels/tri_edm/kernel.py", "kernels/tri_edm/ops.py",
+            "kernels/tri_edm/ref.py", "core/analysis.py"} <= \
+        {str(f.relative_to(PKG)) for f in files if PKG in f.parents}
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "repro")]
     assert not bad, bad
@@ -157,6 +160,21 @@ def test_fused_slice_modules_import_with_jax_blocked():
     assert out.stdout.strip() == "ok"
 
 
+def test_paper_modules_import_with_jax_blocked():
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['repro'] = None; "
+            "import repro_torch.kernels.tri_edm.ops, "
+            "repro_torch.kernels.tri_edm.kernel, "
+            "repro_torch.kernels.tri_edm.ref, repro_torch.core.analysis; "
+            "from repro_torch.kernels.tri_attn.scan_impl import fwd_bb_torch; "
+            "print('ok')")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def _c_entry_points(src: str):
     """{name: [parameter kinds]} of the extern "C" functions in ``src``:
     'p' for a pointer, 'i' for an int, 'f' for a float."""
@@ -178,7 +196,7 @@ def test_c_entry_points_match_the_ctypes_bindings():
     kind = {ctypes.c_void_p: "p", ctypes.c_int: "i", ctypes.c_float: "f"}
     sources = sorted(p.stem for p in (PKG / "csrc").glob("*.cu"))
     assert sorted(BUILD.SOURCES) == sorted(BUILD.SIGNATURES) == sources
-    assert "packed_bwd" in sources
+    assert {"packed_bwd", "fwd_bb", "tri_edm"} <= set(sources)
     for name in sources:
         declared = _c_entry_points((PKG / "csrc" / f"{name}.cu").read_text())
         bound = {fn: [kind[t] for t in types]

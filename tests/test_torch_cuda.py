@@ -551,3 +551,195 @@ def test_packed_training_step_on_the_card(dev):
                           "tri_attn.packed_bwd_dkv": 2 * layers}
                          if impl == "cuda" else {}), moved
     np.testing.assert_allclose(losses["cuda"], losses["torch"], rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The paper's experiment: tri_edm.edm_ltm, edm_bb and dummy_ltm
+# (csrc/tri_edm.cu) and tri_attn.fwd_bb (csrc/fwd_bb.cu), against their
+# plain versions. EDM tolerances are tests/oracles.py's edm policy (f32
+# atol 2e-3 rtol 1e-4, bf16 5e-2, squared 1e-5); the diagonal
+# self-distances and BB's upper tiles must be exact zeros.
+# ---------------------------------------------------------------------------
+
+EDM_TOL = {(torch.float32, False): dict(atol=2e-3, rtol=1e-4),
+           (torch.float32, True): dict(atol=1e-5, rtol=1e-5),
+           (torch.bfloat16, False): dict(atol=5e-2, rtol=5e-2)}
+
+
+def _points(dev, n_rows, d, dtype, seed=0):
+    rng = np.random.default_rng(seed + n_rows + d)
+    return _rand(rng, (n_rows, d), dtype, dev)
+
+
+def _diag_zero(packed, n):
+    """The self-distances of the diagonal tiles of a packed EDM."""
+    lam = torch.tensor([M.tri(i) + i for i in range(n)], device=packed.device)
+    return torch.diagonal(packed[lam], dim1=-2, dim2=-1)
+
+
+@pytest.mark.parametrize("dtype,squared", [(torch.float32, False),
+                                           (torch.float32, True),
+                                           (torch.bfloat16, False)])
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 16])
+@pytest.mark.parametrize("block", [8, 16, 32, 64, 128])
+def test_edm_ltm_matches_plain(dev, block, d, dtype, squared):
+    from repro_torch.kernels.tri_edm import kernel as EK
+
+    n = 6
+    x = _points(dev, n * block, d, dtype)
+    before = EK.edm_ltm.launches
+    got = EK.edm_ltm(x, block, squared=squared)
+    torch.cuda.synchronize()
+    assert EK.edm_ltm.launches == before + 1
+    want = EK.edm_ltm_torch(x, block, squared=squared)
+    assert got.shape == want.shape == (M.tri(n), block, block)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               **EDM_TOL[(dtype, squared)])
+    assert torch.count_nonzero(_diag_zero(got, n)) == 0
+
+
+@pytest.mark.parametrize("dtype,squared", [(torch.float32, False),
+                                           (torch.float32, True),
+                                           (torch.bfloat16, False)])
+@pytest.mark.parametrize("d", [1, 3, 16])
+@pytest.mark.parametrize("block", [8, 16, 32, 64, 128])
+def test_edm_bb_matches_plain(dev, block, d, dtype, squared):
+    from repro_torch.kernels.tri_edm import kernel as EK
+    from repro_torch.kernels.tri_edm import ref as ER
+
+    n = 5
+    x = _points(dev, n * block, d, dtype, seed=1)
+    before = EK.edm_bb.launches
+    got = EK.edm_bb(x, block, squared=squared)
+    torch.cuda.synchronize()
+    assert EK.edm_bb.launches == before + 1
+    want = EK.edm_bb_torch(x, block, squared=squared)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               **EDM_TOL[(dtype, squared)])
+    tiles = got.reshape(n, block, n, block).permute(0, 2, 1, 3)
+    for i in range(n):
+        assert torch.count_nonzero(tiles[i, i + 1:]) == 0
+        assert torch.count_nonzero(torch.diagonal(tiles[i, i])) == 0
+    # the BB lower tiles are the LTM kernel's tiles, bit for bit
+    assert torch.equal(EK.edm_ltm(x, block, squared=squared),
+                       tiles[ER.tile_coords(n, dev)])
+
+
+@pytest.mark.parametrize("n", [1, 2, 8, 300, 2000])
+def test_dummy_ltm_matches_plain(dev, n):
+    from repro_torch.kernels.tri_edm import kernel as EK
+
+    before = EK.dummy_ltm.launches
+    got = EK.dummy_ltm(n, device=dev)
+    torch.cuda.synchronize()
+    assert EK.dummy_ltm.launches == before + 1
+    assert got.shape == (M.tri(n), 1) and got.dtype == torch.float32
+    assert torch.equal(got, EK.dummy_ltm_torch(n, dev))
+
+
+def test_edm_op_on_the_card(dev):
+    """ops.edm through every impl on one input: cuda == torch and bb ==
+    bb_torch within tolerance, packed LTM == pack_tri of BB's lower
+    tiles, and the oracle agrees."""
+    from repro_torch.kernels.tri_edm import ops as EOPS
+
+    x = _points(dev, 256, 3, torch.float32, seed=2)
+    packed = EOPS.edm(x, 32, impl="cuda")
+    full = EOPS.edm(x, 32, impl="bb")
+    np.testing.assert_allclose(packed.cpu().numpy(),
+                               EOPS.edm(x, 32, impl="torch").cpu().numpy(),
+                               **EDM_TOL[(torch.float32, False)])
+    assert torch.equal(packed, EOPS.pack_tri(full, 32))
+    np.testing.assert_allclose(
+        EOPS.unpack_tri(packed, 256).cpu().numpy(),
+        EOPS.edm(x, 32, impl="ref").cpu().numpy(),
+        **EDM_TOL[(torch.float32, False)])
+
+
+BB_KINDS = {"ltm": lambda blk: None, "band": lambda blk: blk + 5,
+            "band_short": lambda blk: 3}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,hkv", [(1, 2), (2, 2), (8, 1)])
+@pytest.mark.parametrize("blk,d", [(16, 64), (32, 64), (64, 128),
+                                   (128, 128)])
+@pytest.mark.parametrize("kind", ["ltm", "band", "band_short"])
+def test_fwd_bb_matches_plain_and_tri_fwd(dev, kind, blk, d, g, hkv, dtype):
+    from repro_torch.kernels.tri_attn import scan_impl as SC
+
+    n, b = 5, 2
+    rng = np.random.default_rng(blk + d + g + hkv)
+    h, s = g * hkv, n * blk
+    sched = OPS.make_sched(s, block=blk, window=BB_KINDS[kind](blk))
+    q, k, v = (_rand(rng, shape, dtype, dev) for shape in
+               ((b, h, s, d), (b, hkv, s, d), (b, hkv, s, d)))
+    before = K.fwd_bb.launches
+    out, lse = K.fwd_bb(q, k, v, sched)
+    torch.cuda.synchronize()
+    assert K.fwd_bb.launches == before + 1
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    for want_out, want_lse in (SC.fwd_bb_torch(q, k, v, sched, d ** -0.5),
+                               K.fwd(q, k, v, sched)):
+        _close(out, want_out, dtype, "out")
+        _close(lse, want_lse, dtype, "lse")
+
+
+def test_fwd_bb_is_deterministic_and_counted(dev):
+    """Which block merges a row varies between runs, what it computes does
+    not: two runs are bitwise equal. One launch, counted as the
+    reference's n x n grid of each (batch, head)."""
+    from repro_torch.obs import launch as OBS
+    from repro_torch.obs import metrics as MET
+
+    b, h, hkv, n, blk, d = 1, 8, 2, 16, 64, 128
+    rng = np.random.default_rng(5)
+    sched = OPS.make_sched(n * blk, block=blk)
+    q, k, v = (_rand(rng, shape, torch.bfloat16, dev) for shape in
+               ((b, h, n * blk, d), (b, hkv, n * blk, d),
+                (b, hkv, n * blk, d)))
+    reg = MET.Registry("fwd_bb")
+    with MET.scope(reg):
+        first = K.fwd_bb(q, k, v, sched)
+        again = K.fwd_bb(q, k, v, sched)
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+    summ = OBS.kernel_summary(reg)["tri_attn.fwd_bb"]
+    assert (summ["launches"], summ["tiles_launched"], summ["tiles_domain"],
+            summ["tiles_bb"], summ["impls"]) == \
+        (2, 2 * n * n * b * h, 2 * M.tri(n) * b * h, 2 * n * n * b * h,
+         ["cuda"])
+    out = OPS.triangular_attention(q, k, v, impl="bb", block=blk)
+    assert torch.equal(out, first[0])
+
+
+@pytest.mark.parametrize("fn", ["edm_ltm_launch", "edm_bb_launch",
+                                "dummy_ltm_launch", "fwd_bb_launch"])
+def test_paper_failing_launch_raises(dev, monkeypatch, fn):
+    """A launch CUDA refuses raises and is not counted."""
+    from repro_torch.kernels.tri_edm import kernel as EK
+
+    lib = BUILD.load("fwd_bb" if fn == "fwd_bb_launch" else "tri_edm")
+    monkeypatch.setattr(lib, fn, lambda *a: 9)
+    x = _points(dev, 64, 3, torch.float32)
+    sched = OPS.make_sched(64, block=16)
+    q = _rand(np.random.default_rng(0), (1, 2, 64, 64), torch.float32, dev)
+    call, wrapper = {
+        "edm_ltm_launch": (lambda: EK.edm_ltm(x, 16), EK.edm_ltm),
+        "edm_bb_launch": (lambda: EK.edm_bb(x, 16), EK.edm_bb),
+        "dummy_ltm_launch": (lambda: EK.dummy_ltm(4, device=dev),
+                             EK.dummy_ltm),
+        "fwd_bb_launch": (lambda: K.fwd_bb(q, q, q, sched), K.fwd_bb)}[fn]
+    before = wrapper.launches
+    with pytest.raises(RuntimeError, match="cudaError 9"):
+        call()
+    assert wrapper.launches == before
+
+
+@pytest.mark.parametrize("impl", ["cuda", "bb"])
+def test_edm_kernel_impls_refuse_cpu_tensors(impl):
+    """The kernel impls never run the plain version for a CPU tensor."""
+    from repro_torch.kernels.tri_edm import ops as EOPS
+
+    x = torch.zeros((32, 3))
+    with pytest.raises(ValueError, match=f"impl='{impl}' needs CUDA"):
+        EOPS.edm(x, 8, impl=impl)
