@@ -4,7 +4,7 @@
 
 Phases (any failure exits non-zero; nothing is caught):
   1. the card's name and power limit (nvidia-smi);
-  2. build the eight CUDA sources of src/repro_torch/csrc (nvcc, sm_90a);
+  2. build the nine CUDA sources of src/repro_torch/csrc (nvcc, sm_90a);
   3. kernels: each kernel of the serving path at full yi-9b width (H=32,
      Hkv=4, D=128, blk=64, bf16 q/k/v, f32 decode cache) against its
      plain PyTorch version on the card (outputs within atol 4e-3 + rtol
@@ -19,7 +19,8 @@ Phases (any failure exits non-zero; nothing is caught):
      and kernel launches == layers x engine launches; a torch.profiler
      window over a few more decode rounds (device busy share, top
      kernels); then a smoke-size float32 engine with the kernels and with
-     the plain versions, which must emit identical greedy tokens;
+     the plain versions, which must emit identical greedy tokens; the
+     serving CLI (launch/serve.py) at smoke size in both step modes;
   5. training kernels: tri_attn.fwd and its dq and dk/dv backward at the
      train phase's attention shape (B 1, H 32, Hkv 4, S 4096, D 128, ltm,
      blk 64, bf16) against their plain versions on the same inputs
@@ -52,6 +53,20 @@ Phases (any failure exits non-zero; nothing is caught):
      structural n^2 / tri(n) of kernel_summary and the paper's Kepler
      1.12-1.15), dummy_ltm at n = 1024, 4096 and 23169, and
      triangular_attention bb against cuda (I_attn);
+  7b. the 3-body workload on the tetrahedron: dummy_tet over the whole
+     certified tet_map envelope (n = 1624, 715,169,000 blocks) equal to
+     i + j + k (int64 closed form on the card); three_body_tet and
+     three_body_bb3 against their plain versions for every tile at
+     N 8192/16384 x d 3/64 at blk 128 and N 8192, d 3 at blk 64, and
+     strict at N 16384, d 3 (each tile within 2 (b + d) float32 units of
+     its sum|(A B) * C|), bb3's simplex cells equal to tet's bit for bit
+     and every other cell exactly 0, two runs bitwise equal; the plain
+     versions and the library einsum timed; then the workload through
+     ops.three_body / three_body_total and dummy_tet with every count at
+     0 before and asserted after (I_3body = t_bb3 / t_tet beside
+     n^3 / tet(n), ns a dummy_tet block); then a prefix past its sequence
+     (dense and packed) through tri_fwd/tri_bwd and packed_fwd/packed_bwd,
+     forward and grads, against the plain versions and the oracle;
   8. training: yi-9b at full width (24 of 48 layers unless --train-layers
      says otherwise: the 48-layer AdamW state does not fit 80 GB) for 3
      steps of seq 4096, batch 1, remat, random seeded bf16 weights,
@@ -1188,6 +1203,318 @@ def paper_phase(dev, K, OPS, SC):
     return rows
 
 
+# the 3-body cells (N, d, blk): the five shapes of the prediction
+TB_SHAPES = ((8192, 3, 128), (8192, 64, 128), (16384, 3, 128),
+             (16384, 64, 128), (8192, 3, 64))
+TB_HEADLINE = (16384, 3, 128)
+TB_DUMMY_N = 128  # the tet grid of the headline, besides the envelope's
+# a tile's sum may differ from the plain version's by rounding only: at
+# most 2 (b + d) float32 units (2^-24) of its sum(|(A B) * C|)
+U32 = 2.0 ** -24
+
+
+def _tb_ulps(blk: int, d: int) -> int:
+    return 2 * (blk + d)
+
+
+def _tet64(i):
+    return i * (i + 1) * (i + 2) // 6
+
+
+def _check_dummy_tet(out, n: int):
+    """dummy_tet's output against the closed form i + j + k of every
+    lambda, in int64 on the card in chunks (the plane by the float64 cube
+    root of 6 lambda, corrected one step each way); returns the lambdas
+    checked."""
+    t = _tet64(n)
+    if tuple(out.shape) != (t, 1):
+        _fail(f"dummy_tet({n}): shape {tuple(out.shape)} != ({t}, 1)")
+    step = 1 << 26
+    for t0 in range(0, t, step):
+        lam = torch.arange(t0, min(t, t0 + step), dtype=torch.int64,
+                           device=out.device)
+        i = torch.pow((6 * lam).double(), 1.0 / 3.0).floor().long()
+        i = torch.where(_tet64(i + 1) <= lam, i + 1, i)
+        i = torch.where(_tet64(i) > lam, i - 1, i)
+        mu = lam - _tet64(i)
+        j = (_isqrt64(8 * mu + 1) - 1) // 2
+        k = mu - j * (j + 1) // 2
+        bad = int((out[t0:t0 + step, 0] != (i + j + k).float()).sum())
+        if bad:
+            _fail(f"dummy_tet({n}): {bad} of lambdas [{t0}, "
+                  f"{t0 + len(lam)}) differ from i + j + k")
+    return t
+
+
+def _check_three_body(TK, TR, x, blk, strict):
+    """three_body_tet and three_body_bb3 on x against the plain version:
+    every tile within _tb_ulps of its scale; bb3's simplex cells equal
+    tet's bit for bit and every other cell exactly 0; a second run of
+    each bitwise equal. Returns (max abs err, max err in units of
+    u * sum|(A B) * C|)."""
+    n = x.shape[0] // blk
+    label = f"3body N={x.shape[0]} d={x.shape[1]} blk={blk} strict={strict}"
+    tet = TK.three_body_tet(x, blk, strict=strict)
+    cube = TK.three_body_bb3(x, blk, strict=strict)
+    torch.cuda.synchronize()
+    if not (torch.equal(TK.three_body_tet(x, blk, strict=strict), tet)
+            and torch.equal(TK.three_body_bb3(x, blk, strict=strict),
+                            cube)):
+        _fail(f"{label}: two runs differ")
+    i, j, k = TR.tet_coords(n, x.device).unbind(1)
+    if not torch.equal(cube[i, j, k], tet[:, 0]):
+        _fail(f"{label}: bb3's simplex cells differ from tet's")
+    cube[i, j, k] = 0.0
+    if int(torch.count_nonzero(cube)):
+        _fail(f"{label}: bb3 has nonzero cells outside the simplex")
+    del cube
+    err = ulps = 0.0
+    step = max(1, TR.CHUNK_ELEMS // (blk * blk))
+    for t0 in range(0, len(i), step):
+        sl = slice(t0, t0 + step)
+        want, scale = TK.triplet_tiles(x, blk, i[sl], j[sl], k[sl],
+                                       strict=strict, with_abs=True)
+        diff = (tet[sl, 0] - want).abs()
+        err = max(err, float(diff.max()))
+        ulps = max(ulps, float((diff / (U32 * scale.clamp_min(1e-30)))
+                               .max()))
+    if ulps > _tb_ulps(blk, x.shape[1]):
+        _fail(f"{label}: a tile differs from the plain version by "
+              f"{ulps:.3g} units of u * sum|(AB)*C| (limit "
+              f"{_tb_ulps(blk, x.shape[1])})")
+    return err, ulps
+
+
+def _tb_flops(n_rows: int, d: int, blk: int) -> int:
+    """Operations of the live tiles: 2 b^3 + 6 b^2 d each, tet(n)."""
+    return _tet64(n_rows // blk) * (2 * blk ** 3 + 6 * blk * blk * d)
+
+
+def three_body_phase(dev):
+    """The 3-body workload on the card: dummy_tet over the whole certified
+    tet_map envelope; three_body_tet and three_body_bb3 against their
+    plain versions at the five cells and strict at the headline; the plain
+    versions and the library einsum timed; then the workload through the
+    entry points (ops.three_body, ops.three_body_total, dummy_tet) with
+    every count at 0 before and read after. Returns the three kernels'
+    rows."""
+    from repro_torch.core import mapping as M
+    from repro_torch.kernels.tri_3body import kernel as TK
+    from repro_torch.kernels.tri_3body import ops as TOPS
+    from repro_torch.kernels.tri_3body import ref as TR
+    from repro_torch.obs import metrics as MET
+
+    rng = np.random.default_rng(16)
+
+    def points(n_rows, d):
+        return torch.as_tensor(rng.standard_normal((n_rows, d), np.float32),
+                               device=dev)
+
+    # -- dummy_tet over the whole certified envelope -----------------------
+    n_env = M.TET_TRACED_MAX_I
+    checked = _check_dummy_tet(TK.dummy_tet(n_env, device=dev), n_env)
+    if not torch.equal(TK.dummy_tet(TB_DUMMY_N, device=dev),
+                       TK.dummy_tet_torch(TB_DUMMY_N, dev)):
+        _fail("dummy_tet disagrees with its plain version")
+    print(f"3body: dummy_tet at n = {n_env} equals i + j + k for all "
+          f"{checked} lambdas (int64 closed form on the card)", flush=True)
+    torch.cuda.empty_cache()
+
+    # -- correctness at every cell, strict at the headline ------------------
+    err = ulps = 0.0
+    for n_rows, d, blk, strict in tuple(s + (False,) for s in TB_SHAPES) \
+            + (TB_HEADLINE + (True,),):
+        e, u = _check_three_body(TK, TR, points(n_rows, d), blk, strict)
+        err, ulps = max(err, e), max(ulps, u)
+        print(f"3body: N={n_rows} d={d} blk={blk} strict={strict}: every "
+              f"tile against the plain version (max abs err {e:.4g}, "
+              f"{u:.3f} units of u * sum|(AB)*C|, limit "
+              f"{_tb_ulps(blk, d)}), bb3 simplex == tet bitwise, zeros "
+              f"exact, two runs bitwise equal", flush=True)
+    torch.cuda.empty_cache()
+
+    # -- plain versions and the library call (outside the counted path) -----
+    n_rows, d_h, blk_h = TB_HEADLINE
+    x = points(n_rows, d_h)
+    plain = {
+        "tri_3body.tet": _median_ms(
+            lambda: TK.three_body_tet_torch(x, blk_h), 1, 1),
+        "tri_3body.bb3": _median_ms(
+            lambda: TK.three_body_bb3_torch(x, blk_h), 1, 1),
+        "tri_3body.dummy_tet": _median_ms(
+            lambda: TK.dummy_tet_torch(n_env, dev), 1, 1)}
+    torch.cuda.empty_cache()
+    g = TR.gram(x)
+    with TR.full_f32():
+        einsum = _median_ms(lambda: torch.einsum("ab,bc,ac->", g, g, g), 3, 1)
+    del g, x
+    torch.cuda.empty_cache()
+
+    # -- the workload, through the entry points, counted --------------------
+    _reset_launches(TK)
+    reg = MET.Registry("3body")
+    per = PAPER_REPS + PAPER_WARMUP
+    cells = []
+    with MET.scope(reg), torch.no_grad():
+        for c_rows, c_d, c_blk in TB_SHAPES:
+            x = points(c_rows, c_d)
+            t_tet = _median_ms(lambda: TOPS.three_body(x, c_blk, impl="cuda"),
+                               PAPER_REPS, PAPER_WARMUP)
+            t_bb3 = _median_ms(lambda: TOPS.three_body(x, c_blk, impl="bb3"),
+                               PAPER_REPS, PAPER_WARMUP)
+            n = c_rows // c_blk
+            flops = _tb_flops(c_rows, c_d, c_blk)
+            cells.append({
+                "N": c_rows, "d": c_d, "blk": c_blk, "tet_ms": t_tet,
+                "bb3_ms": t_bb3, "I_3body": t_bb3 / t_tet,
+                "I_struct": n ** 3 / M.tet(n),
+                "tet_bound_ms": _bound(4 * x.numel() + 4 * M.tet(n), flops,
+                                       torch.float32)[0],
+                "bb3_bound_ms": _bound(4 * x.numel() + 4 * n ** 3, flops,
+                                       torch.float32)[0],
+                "tet_tflops": flops / t_tet / 1e9})
+            del x
+        x = points(n_rows, d_h)
+        totals = {impl: _median_ms(lambda: TOPS.three_body_total(
+            x, blk_h, impl=impl), PAPER_REPS, PAPER_WARMUP)
+            for impl in ("cuda", "bb3")}
+        dummy_ms = {n: _median_ms(lambda: TK.dummy_tet(n, device=dev),
+                                  PAPER_REPS, PAPER_WARMUP)
+                    for n in (TB_DUMMY_N, n_env)}
+    _check_launches("3body", TK, reg, {
+        "tri_3body.tet": per * (len(TB_SHAPES) + 1),
+        "tri_3body.bb3": per * (len(TB_SHAPES) + 1),
+        "tri_3body.dummy_tet": per * 2})
+    launches = dict(_launches(TK))
+    torch.cuda.empty_cache()
+
+    for c in cells:
+        print(f"3body: N={c['N']} d={c['d']} blk={c['blk']}: tet "
+              f"{c['tet_ms']:.4f} ms (bound {c['tet_bound_ms']:.4f}, "
+              f"{c['tet_tflops']:.2f} TFLOP/s), bb3 {c['bb3_ms']:.4f} ms "
+              f"(bound {c['bb3_bound_ms']:.4f}); I_3body "
+              f"{c['I_3body']:.4f} (structural n^3/tet(n) "
+              f"{c['I_struct']:.4f})", flush=True)
+    for n, ms in dummy_ms.items():
+        print(f"3body: dummy_tet n={n}: {ms:.4f} ms, "
+              f"{ms * 1e6 / M.tet(n):.4f} ns a block", flush=True)
+    print(f"3body: three_body_total at N={n_rows} d={d_h} blk={blk_h}: "
+          f"cuda {totals['cuda']:.4f} ms, bb3 {totals['bb3']:.4f} ms; "
+          f"library einsum over the N^3 ordered triples {einsum:.4f} ms",
+          flush=True)
+
+    head = next(c for c in cells if (c["N"], c["d"], c["blk"]) == TB_HEADLINE)
+    n_h = n_rows // blk_h
+    shape = {"N": n_rows, "d": d_h, "blk": blk_h, "dtype": "float32"}
+    lib = ("torch.einsum('ab,bc,ac->', G, G, G) on the f32 Gram matrix, TF32 "
+           "off: the total over all N^3 ordered triples (no PyTorch call "
+           "gives the packed per-tile output)")
+    flops_h = _tb_flops(*TB_HEADLINE)
+    bounds = {
+        "tri_3body.tet": _bound(4 * n_rows * d_h + 4 * M.tet(n_h), flops_h,
+                                torch.float32),
+        "tri_3body.bb3": _bound(4 * n_rows * d_h + 4 * n_h ** 3, flops_h,
+                                torch.float32),
+        "tri_3body.dummy_tet": _bound(4 * M.tet(n_env), 0, torch.float32)}
+    rows = [
+        {"name": "tri_3body.tet", "source": "src/repro_torch/csrc/tri_3body.cu",
+         "replaces": "src/repro/kernels/tri_3body/kernel.py:82",
+         "max_abs_err": err, "max_err_ulps_of_scale": ulps,
+         "ms": head["tet_ms"], "library_ms": einsum, "library": lib,
+         "shape": shape, "cells": cells,
+         "total_ms": totals["cuda"]},
+        {"name": "tri_3body.bb3", "source": "src/repro_torch/csrc/tri_3body.cu",
+         "replaces": "src/repro/kernels/tri_3body/kernel.py:131",
+         "max_abs_err": err, "ms": head["bb3_ms"], "library_ms": einsum,
+         "library": lib, "shape": shape, "I_3body": head["I_3body"],
+         "I_struct": head["I_struct"], "total_ms": totals["bb3"]},
+        {"name": "tri_3body.dummy_tet",
+         "source": "src/repro_torch/csrc/tri_3body.cu",
+         "replaces": "src/repro/kernels/tri_3body/kernel.py:163",
+         "max_abs_err": 0.0, "ms": dummy_ms[n_env], "library_ms": None,
+         "library": None, "shape": {"n": n_env, "blocks": M.tet(n_env)},
+         "ms_by_n": {str(n): ms for n, ms in dummy_ms.items()},
+         "ns_per_block": dummy_ms[n_env] * 1e6 / M.tet(n_env)}]
+    for row in rows:
+        name = row["name"]
+        row.update(route="cuda", plain_ms=plain[name],
+                   bound_ms=bounds[name][0], bound_by=bounds[name][1],
+                   launches=launches[name])
+    return rows
+
+
+def prefix_phase(dev):
+    """A prefix at least as long as its sequence on the card: tri_fwd and
+    tri_bwd (dense, prefix 64 and 100 over 64 tokens) and packed_fwd and
+    packed_bwd (members of 32 and 64 tokens, member prefix (48, 0)),
+    forward and grads, against the plain versions and the oracle (f32,
+    B 1, H 4, Hkv 2, D 16, blk 16; OUT tolerance 2e-5, grads atol 2e-4
+    rtol 2e-3, the attn / attn_grad policy of tests/oracles.py)."""
+    from repro_torch.kernels.tri_attn import kernel as K
+    from repro_torch.kernels.tri_attn import ops as OPS
+
+    rng = np.random.default_rng(100)
+    tol_out, tol_grad = dict(atol=2e-5, rtol=2e-5), dict(atol=2e-4, rtol=2e-3)
+
+    def run(s, call):
+        q, k, v, do = (torch.as_tensor(rng.standard_normal(shape, np.float32),
+                                       device=dev)
+                       for shape in ((1, 4, s, 16), (1, 2, s, 16),
+                                     (1, 2, s, 16), (1, 4, s, 16)))
+        res = {}
+        for impl in ("cuda", "torch", "ref"):
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            before = {n: f.launches for n, f in K.WRAPPERS.items()}
+            out = call(leaves, impl)
+            out.backward(do)
+            moved = sum(f.launches - before[n] for n, f in K.WRAPPERS.items())
+            if moved != (3 if impl == "cuda" else 0):
+                _fail(f"prefix {impl}: {moved} kernel launches")
+            res[impl] = (out.detach(),) + tuple(x.grad for x in leaves)
+        err = 0.0
+        for want in (res["torch"], res["ref"]):
+            for idx, (got, w) in enumerate(zip(res["cuda"], want)):
+                err = max(err, _close(f"prefix {'out dq dk dv'.split()[idx]}",
+                                      got, w, tol_out if idx == 0
+                                      else tol_grad))
+        return err
+
+    errs = [run(64, lambda t, impl, p=p: OPS.triangular_attention(
+        *t, prefix=p, impl=impl, block=16)) for p in (64, 100)]
+    psched = OPS.make_packed_sched([32, 64], block=16, prefix=[48, 0])
+    errs.append(run(96, lambda t, impl: OPS.packed_prefill_attention(
+        *t, psched, impl=impl)))
+    print(f"prefix: a prefix past its sequence (dense 64 and 100 over 64 "
+          f"tokens, packed member prefix 48 over 32): tri_fwd/tri_bwd and "
+          f"packed_fwd/packed_bwd forward and grads match the plain "
+          f"versions and the oracle (max abs err {max(errs):.3g})",
+          flush=True)
+
+
+def serve_cli_phase():
+    """The serving CLI (launch/serve.py) on the card at smoke size, in both
+    step modes: every request done through the kernels, no plain
+    version."""
+    from repro_torch.kernels.tri_attn import kernel as K
+    from repro_torch.launch import serve as SERVE
+
+    for mode, kernel in (("split", "tri_attn.packed_fwd"),
+                         ("fused", "tri_attn.fused_step_fwd")):
+        _reset_launches(K)
+        results, eng = SERVE.main(["--requests", "6", "--max-new", "8",
+                                   "--step-mode", mode])
+        report = eng.report()
+        if sorted(results) != list(range(6)) or any(
+                r["status"] != "done" or r["tokens"] != 8
+                for r in report.values()):
+            _fail(f"serve CLI ({mode}): {report}")
+        if not (K.WRAPPERS[kernel].launches and
+                K.packed_decode_fwd.launches):
+            _fail(f"serve CLI ({mode}): launches {_launches(K)}")
+    print("serve CLI: python -m repro_torch.launch.serve served 6 requests "
+          "through the kernels in split and fused step modes", flush=True)
+
+
 def _timed(step, times: list):
     """``step`` with its wall time (synchronized) appended to ``times``."""
     def timed_step(state, batch):
@@ -1499,6 +1826,9 @@ def main():
     kernels += packed_rows
     torch.cuda.empty_cache()
     kernels += paper_phase(dev, K, OPS, SC)
+    torch.cuda.empty_cache()
+    kernels += three_body_phase(dev)
+    prefix_phase(dev)
     print("kernels: " + "; ".join(
         f"{k['name']} {k['ms']:.4f} ms (plain {k['plain_ms']:.3f}, library "
         + ("none" if k["library_ms"] is None else f"{k['library_ms']:.4f}")
@@ -1506,6 +1836,7 @@ def main():
         f"{k['max_abs_err']:.3g}" for k in kernels), flush=True)
     launches = serving_phase(dev, args.layers, card, K)
     smoke_identity(dev)
+    serve_cli_phase()
     dense, packed = train_phase(dev, args.train_layers, card, K, OPS)
     launches.update(dense)
     launches.update({n: c for n, c in packed.items()
@@ -1513,7 +1844,7 @@ def main():
     packed_fwd_train["launches"] = packed["tri_attn.packed_fwd"]
     smoke_training(dev)
     for k in kernels:
-        if "launches" in k:  # the paper phase counted its own path
+        if "launches" in k:  # the paper and 3-body phases counted theirs
             continue
         k["launches"] = launches[k["name"]]
         if k["name"] == "tri_attn.packed_fwd":

@@ -5,17 +5,19 @@ paths use: ``ltm_map`` (row-major lower triangle, diagonal included),
 ``band_map`` (sliding-window trapezoid) and ``prefix_full_map`` (causal
 triangle plus a bidirectional prefix rectangle), the row-major inverses,
 and the column-major family the attention backward's dk/dv walks
-(``cm_map``, ``band_cm_map``, ``prefix_cm_map``). Each works on host ints
-(exact, python
-``math.isqrt``) and on int32 torch tensors (float32 sqrt plus overflow-
-clamped integer probes, the same repair as the reference). The CUDA
-kernels carry the same arithmetic as ``__device__`` functions in
-``csrc/packing.cuh``. The paper's competitor strategies (UTM, RB, REC
+(``cm_map``, ``band_cm_map``, ``prefix_cm_map``), and the tetrahedral
+map of the 3-body workload (``tet_map``: lambda -> (i, j, k) over
+k <= j <= i < n, with its inverse and the BB-3D decode and guard). Each
+works on host ints (exact, python ``math.isqrt``) and on int32 torch
+tensors (float32 sqrt or cube root plus overflow-clamped integer probes,
+the same repair as the reference). The CUDA kernels carry the same
+arithmetic as ``__device__`` functions in ``csrc/packing.cuh``. The paper's competitor strategies (UTM, RB, REC
 and the bounding box) and the block counts of ``core/analysis.py`` are
 host integer forms only: no kernel walks them.
 
 The envelope constants are copies of the reference's declared values:
-the torch and device forms are exact for ``lam <= LTM_TRACED_MAX_LAM``.
+the torch and device forms are exact for ``lam <= LTM_TRACED_MAX_LAM``
+(2-D) and ``lam <= TET_TRACED_MAX_LAM`` (3-D).
 """
 
 from __future__ import annotations
@@ -33,6 +35,15 @@ ISQRT_PROBES = 1
 # ltm_map computes 8*lam + 1 in int32, which caps lam here.
 LTM_TRACED_MAX_LAM = (INT32_MAX - 1) // 8  # 268,435,455
 LTM_TRACED_MAX_I = 23169  # row of LTM_TRACED_MAX_LAM
+# 3-D row finder: the float32 cube-root candidate lies within [-1, +2] of
+# the true plane, so two probes each way repair it.
+TET_PROBES_UP = 2
+TET_PROBES_DOWN = 2
+# Largest argument whose int32 tet() intermediate tri(i) * (i + 2) fits
+# (2,145,507,000 < 2^31); probes clamp here, so the tensor and device maps
+# are exact for planes i <= TET_TRACED_EXACT_PLANES.
+TET_TRACED_MAX_I = 1624
+TET_TRACED_EXACT_PLANES = TET_TRACED_MAX_I - 1  # 1623
 
 
 def _is_host(x) -> bool:
@@ -140,6 +151,87 @@ def band_inverse(i, j, w):
     if i < w - 1:
         return ltm_inverse(i, j)
     return tri(w - 1) + (i - (w - 1)) * w + (j - (i - (w - 1)))
+
+
+# ---------------------------------------------------------------------------
+# The tetrahedron {(i, j, k): 0 <= k <= j <= i < n}, plane-major: plane i
+# holds lambdas [tet(i), tet(i + 1)), its (j, k) triangle in g(mu) order,
+# so lam = tet(i) + tri(j) + k.
+# ---------------------------------------------------------------------------
+
+
+def tet(i):
+    """T3(i) = i(i+1)(i+2)/6 as (tri(i) * (i + 2)) // 3: both divisions
+    exact, the int32 intermediate below 2^31 for i <= TET_TRACED_MAX_I."""
+    return (tri(i) * (i + 2)) // 3
+
+
+TET_TRACED_MAX_LAM = tet(TET_TRACED_MAX_I) - 1  # 715,168,999
+
+
+def tet_blocks(n: int) -> int:
+    """Blocks the tetrahedral map launches: the domain."""
+    return tet(n)
+
+
+def bb3_blocks(n: int) -> int:
+    """Blocks the 3-D bounding box launches: the n^3 cube."""
+    return n * n * n
+
+
+def wasted_blocks_bb3(n: int) -> int:
+    """BB-3D waste n^3 - tet(n), about 5/6 of its launch."""
+    return n * n * n - tet(n)
+
+
+def _tet_row_tensor(lam: torch.Tensor) -> torch.Tensor:
+    """Largest i with tet(i) <= lam for int32 tensors: floor of the
+    float32 cube root of 6 lam (torch.pow: torch has no cbrt), then
+    TET_PROBES_UP / TET_PROBES_DOWN probes clamped at TET_TRACED_MAX_I."""
+    probe = lambda x: tet(torch.clamp(x, max=TET_TRACED_MAX_I))
+    c = torch.floor(torch.pow(6.0 * lam.to(torch.float32), 1.0 / 3.0)) \
+        .to(lam.dtype)
+    for _ in range(TET_PROBES_UP):
+        c = torch.where(probe(c + 1) <= lam, c + 1, c)
+    for _ in range(TET_PROBES_DOWN):
+        c = torch.where(probe(c) > lam, c - 1, c)
+    return torch.clamp(c, max=TET_TRACED_EXACT_PLANES)
+
+
+def tet_map(lam):
+    """lambda -> (i, j, k), k <= j <= i: the plane by an integer-corrected
+    cube root, (j, k) = g(lam - tet(i)). Host ints are exact unboundedly;
+    int32 tensors for lam <= TET_TRACED_MAX_LAM."""
+    if _is_host(lam):
+        lam = int(lam)
+        i = round((6 * lam) ** (1.0 / 3.0))
+        while tet(i + 1) <= lam:
+            i += 1
+        while i > 0 and tet(i) > lam:
+            i -= 1
+        j, k = ltm_map(lam - tet(i))
+        return i, j, k
+    lam = _as_index(lam)
+    i = _tet_row_tensor(lam)
+    j, k = ltm_map(lam - tet(i))
+    return i, j, k
+
+
+def tet_inverse(i, j, k):
+    """(i, j, k) -> lambda of ``tet_map``."""
+    return tet(i) + tri(j) + k
+
+
+def bb3_map(lam, n):
+    """BB-3D: row-major index over the n^3 cube -> (i, j, k)."""
+    return lam // (n * n), (lam // n) % n, lam % n
+
+
+def bb3_active(i, j, k):
+    """Whether a BB-3D block lies in the tetrahedron (host or tensor)."""
+    if _is_host(i):
+        return k <= j <= i
+    return (k <= j) & (j <= i)
 
 
 # ---------------------------------------------------------------------------

@@ -29,7 +29,6 @@ namespace tri {
 
 // Threads of a prefill block (packed_fwd and the fused kernel).
 constexpr int PREFILL_NT = 256;
-constexpr int SMEM_LIMIT = 227 * 1024;
 
 template <int BLK, int D>
 struct FwdShape {
@@ -406,11 +405,6 @@ __device__ __forceinline__ void dkv_col_tile(
 // Host dispatch over the kernels' template parameters: calls
 // f(TypeTag<T>, BLK, D) with BLK and D as std::integral_constant for
 // dtype 0 (float32) / 1 (bfloat16), blk and D in 16, 32, 64, 128.
-template <typename T>
-struct TypeTag {
-  using type = T;
-};
-
 template <typename F>
 inline int dispatch_tile(int dtype, int blk, int D, F&& f) {
   auto by_d = [&](auto t, auto b) -> int {
@@ -431,9 +425,7 @@ inline int dispatch_tile(int dtype, int blk, int D, F&& f) {
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   };
-  if (dtype == 0) return by_blk(TypeTag<float>{});
-  if (dtype == 1) return by_blk(TypeTag<__nv_bfloat16>{});
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch_dtype(dtype, by_blk);
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {

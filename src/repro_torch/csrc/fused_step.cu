@@ -103,9 +103,7 @@ int launch_fused(const Args& a) {
   size_t bytes = tri::decode_smem_bytes(stages, g, D, BLK, sizeof(TC));
   if (tri::FwdShape<BLK, D>::BYTES > bytes) bytes = tri::FwdShape<BLK, D>::BYTES;
   if (bytes > tri::SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (int err = tri::set_smem(kern, bytes)) return err;
   const int blocks = (a.n_members - a.r_p) * a.Hkv + a.pack_tiles * a.H;
   kern<<<blocks, NT, bytes, a.stream>>>(
       static_cast<const TQ*>(a.qp), static_cast<const TQ*>(a.kp),

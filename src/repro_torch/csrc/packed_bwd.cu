@@ -124,9 +124,7 @@ extern "C" int packed_bwd_dq_launch(const void* q, const void* k,
     constexpr int BLK = decltype(blk_c)::value, DD = decltype(d_c)::value;
     auto kern = packed_bwd_dq_kernel<T, BLK, DD>;
     constexpr size_t bytes = tri::DqShape<BLK, DD>::BYTES;
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (int err = tri::set_smem(kern, bytes)) return err;
     kern<<<dim3(total_tiles, H, B), NT, bytes, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(dout),
@@ -150,9 +148,7 @@ extern "C" int packed_bwd_dkv_launch(const void* q, const void* k,
     constexpr int BLK = decltype(blk_c)::value, DD = decltype(d_c)::value;
     auto kern = packed_bwd_dkv_kernel<T, BLK, DD>;
     constexpr size_t bytes = tri::DkvShape<BLK, DD>::BYTES;
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (int err = tri::set_smem(kern, bytes)) return err;
     kern<<<dim3(total_tiles, Hkv, B), NT, bytes, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(dout),

@@ -67,9 +67,7 @@ int launch_decode(const void* q, const void* k, const void* v, void* out,
   const int stages = tri::decode_stages(g, D, blk, sizeof(TC));
   const size_t bytes = tri::decode_smem_bytes(stages, g, D, blk, sizeof(TC));
   if (bytes > tri::SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (int err = tri::set_smem(kern, bytes)) return err;
   dim3 grid(n_members, Hkv);
   kern<<<grid, NT, bytes, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TC*>(k),

@@ -71,9 +71,7 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out,
                cudaStream_t stream) {
   auto kern = packed_fwd_kernel<T, BLK, D>;
   constexpr size_t bytes = tri::FwdShape<BLK, D>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (int err = tri::set_smem(kern, bytes)) return err;
   dim3 grid(total_tiles, H, B);
   kern<<<grid, NT, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),

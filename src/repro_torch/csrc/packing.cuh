@@ -2,7 +2,11 @@
 // member-table primitives (core/packing.py). Integer semantics match the
 // reference's traced int32 forms: a correctly rounded float32 sqrt (no
 // fast-math: nvcc's default -prec-sqrt=true emits sqrt.rn.f32) followed
-// by overflow-clamped probes, exact for lam <= LTM_TRACED_MAX_LAM.
+// by overflow-clamped probes, exact for lam <= LTM_TRACED_MAX_LAM; the
+// tetrahedral tet_map takes cbrtf (1 ulp without fast-math) and two
+// clamped probes each way, exact for lam <= TET_TRACED_MAX_LAM. Last, the
+// host side every C entry shares: the shared-memory limit, the dtype
+// dispatch and the opt-in above the 48 KB default.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -30,6 +34,28 @@ __device__ __forceinline__ void ltm_map(int lam, int* i, int* j) {
   const int r = (isqrt_i32(8 * lam + 1) - 1) / 2;
   *i = r;
   *j = lam - tri_n(r);
+}
+
+constexpr int TET_MAX_I = 1624;  // TET_TRACED_MAX_I: tri(i) * (i + 2) < 2^31
+constexpr int TET_PROBES = 2;    // TET_PROBES_UP == TET_PROBES_DOWN
+
+// T3(i) = i(i+1)(i+2)/6 in int32, exact for i <= TET_MAX_I.
+__device__ __forceinline__ int tet_n(int i) { return (tri_n(i) * (i + 2)) / 3; }
+
+// lambda -> (i, j, k), k <= j <= i, plane-major: the plane i is the floor
+// of cbrtf(6 lam) repaired by clamped probes (the candidate lies within
+// [-1, +2] of it), then (j, k) = g(lam - tet(i)).
+__device__ __forceinline__ void tet_map(int lam, int* i, int* j, int* k) {
+  int c = static_cast<int>(floorf(cbrtf(6.0f * static_cast<float>(lam))));
+#pragma unroll
+  for (int t = 0; t < TET_PROBES; ++t)
+    if (tet_n(min(c + 1, TET_MAX_I)) <= lam) c += 1;
+#pragma unroll
+  for (int t = 0; t < TET_PROBES; ++t)
+    if (tet_n(min(c, TET_MAX_I)) > lam) c -= 1;
+  c = min(c, TET_MAX_I - 1);
+  *i = c;
+  ltm_map(lam - tet_n(c), j, k);
 }
 
 // Banded lower triangle of width w tiles: triangular head, then rows of w.
@@ -142,6 +168,30 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// Shared memory a block may take on sm_90 (SMEM_LIMIT in kernels/build.py).
+constexpr int SMEM_LIMIT = 227 * 1024;
+
+template <typename T>
+struct TypeTag {
+  using type = T;
+};
+
+// Calls f(TypeTag<T>) for dtype 0 (float32) / 1 (bfloat16).
+template <typename F>
+inline int dispatch_dtype(int dtype, F&& f) {
+  if (dtype == 0) return f(TypeTag<float>{});
+  if (dtype == 1) return f(TypeTag<__nv_bfloat16>{});
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Opts kern in to `bytes` of dynamic shared memory above the 48 KB default.
+template <typename K>
+int set_smem(K kern, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
 }
 
 }  // namespace tri

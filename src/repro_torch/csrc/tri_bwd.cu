@@ -105,9 +105,7 @@ extern "C" int tri_bwd_dq_launch(const void* q, const void* k, const void* v,
     constexpr int BLK = decltype(blk_c)::value, DD = decltype(d_c)::value;
     auto kern = tri_bwd_dq_kernel<T, BLK, DD>;
     constexpr size_t bytes = tri::DqShape<BLK, DD>::BYTES;
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (int err = tri::set_smem(kern, bytes)) return err;
     kern<<<dim3(n, H, B), NT, bytes, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(dout),
@@ -129,9 +127,7 @@ extern "C" int tri_bwd_dkv_launch(const void* q, const void* k, const void* v,
     constexpr int BLK = decltype(blk_c)::value, DD = decltype(d_c)::value;
     auto kern = tri_bwd_dkv_kernel<T, BLK, DD>;
     constexpr size_t bytes = tri::DkvShape<BLK, DD>::BYTES;
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (int err = tri::set_smem(kern, bytes)) return err;
     kern<<<dim3(n, Hkv, B), NT, bytes, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(dout),

@@ -144,11 +144,6 @@ inline size_t tile_smem(int d, int blk) {
   return sizeof(float) * (2 * static_cast<size_t>(d) * blk + 2 * static_cast<size_t>(blk));
 }
 
-template <typename T>
-struct TypeTag {
-  using type = T;
-};
-
 // Calls f(TypeTag<T>, BLK, DF) with BLK and DF as std::integral_constant
 // for dtype 0 (float32) / 1 (bfloat16), blk in 8..128, DF = d for d <= 4
 // and 0 (runtime d) above.
@@ -173,16 +168,7 @@ int dispatch_edm(int dtype, int blk, int d, F&& f) {
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   };
-  if (dtype == 0) return by_blk(TypeTag<float>{});
-  if (dtype == 1) return by_blk(TypeTag<__nv_bfloat16>{});
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-template <typename K>
-int set_smem(K kern, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  return static_cast<int>(cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
+  return tri::dispatch_dtype(dtype, by_blk);
 }
 
 }  // namespace
@@ -198,7 +184,7 @@ extern "C" int edm_ltm_launch(const void* x, void* out, int N, int d, int blk,
     const long long tiles = static_cast<long long>(n) * (n + 1) / 2;
     const size_t bytes = tile_smem(d, BLK);
     auto kern = edm_ltm_kernel<T, BLK, DF>;
-    if (int err = set_smem(kern, bytes)) return err;
+    if (int err = tri::set_smem(kern, bytes)) return err;
     kern<<<static_cast<unsigned>(tiles), NT, bytes, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(x), static_cast<float*>(out), d, squared);
     return static_cast<int>(cudaGetLastError());
@@ -214,7 +200,7 @@ extern "C" int edm_bb_launch(const void* x, void* out, int N, int d, int blk,
     const int n = N / BLK;
     const size_t bytes = tile_smem(d, BLK);
     auto kern = edm_bb_kernel<T, BLK, DF>;
-    if (int err = set_smem(kern, bytes)) return err;
+    if (int err = tri::set_smem(kern, bytes)) return err;
     kern<<<dim3(n, n), NT, bytes, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(x), static_cast<float*>(out), N, d, squared);
     return static_cast<int>(cudaGetLastError());

@@ -18,3 +18,10 @@ def resolve(device=DEFAULT_DEVICE) -> torch.device:
             f"device={str(device)!r} requested but torch.cuda.is_available() "
             "is False; pass device='cpu' to run the plain PyTorch path")
     return dev
+
+
+def attn_impl(device) -> str:
+    """The attention impl an entry point serves ``device`` with: the kernels
+    on any CUDA device (``"cuda"``, ``"cuda:0"``, ...), their plain versions
+    on the CPU."""
+    return "cuda" if torch.device(device).type == "cuda" else "torch"

@@ -20,13 +20,20 @@ import time
 from pathlib import Path
 from typing import Dict
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
 SOURCES = ("packed_fwd", "packed_decode", "fused_step", "tri_fwd", "tri_bwd",
-           "packed_bwd", "fwd_bb", "tri_edm")
+           "packed_bwd", "fwd_bb", "tri_edm", "tri_3body")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# Shared memory a block may take on sm_90 (tri::SMEM_LIMIT in packing.cuh)
+SMEM_LIMIT = 227 * 1024
+# the dtype codes every C entry takes: 0 = float32, 1 = bfloat16
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -71,6 +78,12 @@ SIGNATURES = {
         "edm_ltm_launch": [_P, _P] + [_I] * 5 + [_P],
         "edm_bb_launch": [_P, _P] + [_I] * 5 + [_P],
         "dummy_ltm_launch": [_P, _I, _P],
+    },
+    # (x, out, N, d, blk, strict, dtype, stream); (out, n, stream)
+    "tri_3body": {
+        "three_body_tet_launch": [_P, _P] + [_I] * 5 + [_P],
+        "three_body_bb3_launch": [_P, _P] + [_I] * 5 + [_P],
+        "dummy_tet_launch": [_P, _I, _P],
     },
 }
 
@@ -140,3 +153,14 @@ def load(name: str) -> ctypes.CDLL:
         f.restype = ctypes.c_int
     _LIBS[name] = lib
     return lib
+
+
+def check(cond: bool, msg: str):
+    """A wrapper's refusal of an input its kernel does not take."""
+    if not cond:
+        raise ValueError(msg)
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    """The current CUDA stream of ``t``'s device, as a C entry takes it."""
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -35,6 +35,9 @@ import torch
 from repro_torch.core import mapping as M
 from repro_torch.core import packing as PK
 from repro_torch.kernels import build as BUILD
+from repro_torch.kernels.build import DTYPE_CODES as _DTYPE_CODES
+from repro_torch.kernels.build import check as _check
+from repro_torch.kernels.build import stream_ptr as _stream_ptr
 from repro_torch.obs import launch as OBS
 
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
@@ -44,7 +47,6 @@ DECODE_NO_EMIT = 2 ** 30
 
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
 SUPPORTED_BLOCKS = (16, 32, 64, 128)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,7 +78,10 @@ class TriSched:
 
     @property
     def p_b(self) -> int:
-        return -(-self.prefix // self.bk) if self.prefix else 0
+        """Prefix width in tiles, bounded by n: a prefix of at least the
+        sequence makes every key visible, and no row walks past column
+        n - 1."""
+        return min(-(-self.prefix // self.bk), self.n) if self.prefix else 0
 
     # ---- row-major enumeration (forward, dq) -----------------------------
     @property
@@ -181,13 +186,18 @@ def device_table(psched: PackedTriSched, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(psched.table(), device=device)
 
 
-def _check(cond: bool, msg: str):
-    if not cond:
-        raise ValueError(msg)
-
-
-def _stream_ptr(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+def check_prefix_bound(op: str, sched):
+    """Refuse a schedule (a TriSched or each member of a PackedTriSched)
+    whose prefix width p_b exceeds its n tiles: the row walks of
+    csrc/attn_tiles.cuh would load key tiles past the member, and past
+    the allocation for the last one. TriSched bounds p_b itself; this
+    stops a schedule built another way before any launch."""
+    members = sched.members if isinstance(sched, PackedTriSched) \
+        else (sched,)
+    bad = [(m.n, m.p_b) for m in members if m.p_b > m.n]
+    _check(not bad, f"{op}: prefix width p_b exceeds the member's n tiles "
+           f"(n, p_b) {bad}: its rows would walk key tiles past the "
+           "sequence")
 
 
 def packed_fwd(q, k, v, psched: PackedTriSched, *, sm_scale=None):
@@ -198,6 +208,7 @@ def packed_fwd(q, k, v, psched: PackedTriSched, *, sm_scale=None):
     lse (B, H, S_total) f32)."""
     b, h, s_len, d = q.shape
     scale = float(sm_scale if sm_scale is not None else 1.0 / (d ** 0.5))
+    check_prefix_bound("packed_fwd", psched)
     if not q.is_cuda:
         from repro_torch.kernels.tri_attn import scan_impl as SC
 
@@ -334,6 +345,7 @@ def fused_step_fwd(q_pack, k_pack, v_pack, q_dec, k_cache, v_cache, tbl, *,
     row B) are left unwritten, so callers mask by the table's coverage
     (ops._fused_covered_slots)."""
     _, h, s_pack, d = q_pack.shape
+    check_prefix_bound("fused_step_fwd", psched)
     b = q_dec.shape[0]
     s_cache, hkv = k_cache.shape[1], k_cache.shape[2]
     blk = psched.blk
@@ -453,6 +465,7 @@ def fwd(q, k, v, sched: TriSched, *, sm_scale=None):
     f32)."""
     b, h, s_len, d = q.shape
     scale = float(sm_scale if sm_scale is not None else 1.0 / (d ** 0.5))
+    check_prefix_bound("fwd", sched)
     if not q.is_cuda:
         from repro_torch.kernels.tri_attn import scan_impl as SC
 
@@ -567,6 +580,7 @@ def bwd_dq(q, k, v, do, lse, delta, sched: TriSched, *, sm_scale=None):
     delta = sum(do * out): (B, H, S) f32. Returns dq in q's dtype."""
     scale = float(sm_scale if sm_scale is not None
                   else 1.0 / (q.shape[-1] ** 0.5))
+    check_prefix_bound("bwd_dq", sched)
     if not q.is_cuda:
         from repro_torch.kernels.tri_attn import scan_impl as SC
 
@@ -587,6 +601,7 @@ def bwd_dkv(q, k, v, do, lse, delta, sched: TriSched, *, sm_scale=None):
     Returns (dk, dv) in k's dtype."""
     scale = float(sm_scale if sm_scale is not None
                   else 1.0 / (q.shape[-1] ** 0.5))
+    check_prefix_bound("bwd_dkv", sched)
     if not q.is_cuda:
         from repro_torch.kernels.tri_attn import scan_impl as SC
 
@@ -619,6 +634,7 @@ def packed_bwd_dq(q, k, v, do, lse, delta, psched: PackedTriSched, *,
     lse and delta (B, H, S_total) f32. Returns dq in q's dtype."""
     scale = float(sm_scale if sm_scale is not None
                   else 1.0 / (q.shape[-1] ** 0.5))
+    check_prefix_bound("packed_bwd_dq", psched)
     if not q.is_cuda:
         from repro_torch.kernels.tri_attn import scan_impl as SC
 
@@ -641,6 +657,7 @@ def packed_bwd_dkv(q, k, v, do, lse, delta, psched: PackedTriSched, *,
     heads in the kernel. Returns (dk, dv) in k's dtype."""
     scale = float(sm_scale if sm_scale is not None
                   else 1.0 / (q.shape[-1] ** 0.5))
+    check_prefix_bound("packed_bwd_dkv", psched)
     if not q.is_cuda:
         from repro_torch.kernels.tri_attn import scan_impl as SC
 

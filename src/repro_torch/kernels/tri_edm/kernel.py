@@ -26,12 +26,14 @@ import torch
 from repro_torch import device as DEV
 from repro_torch.core import mapping as M
 from repro_torch.kernels import build as BUILD
+from repro_torch.kernels.build import SMEM_LIMIT
+from repro_torch.kernels.build import DTYPE_CODES as _DTYPE_CODES
+from repro_torch.kernels.build import check as _check
+from repro_torch.kernels.build import stream_ptr as _stream_ptr
 from repro_torch.kernels.tri_edm import ref as R
 from repro_torch.obs import launch as OBS
 
 SUPPORTED_BLOCKS = (8, 16, 32, 64, 128)
-SMEM_LIMIT = 227 * 1024
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # tiles a plain version computes at once (bounds its temporaries)
 _CHUNK_ELEMS = 1 << 26
 
@@ -51,11 +53,6 @@ def dummy_meta(impl: str, n: int):
     return OBS.meta_exact("tri_edm.dummy_ltm", "tri_edm", impl=impl,
                           kind="ltm", steps=M.tri(n), block_shape=(1, 1),
                           bb_bound=n * n)
-
-
-def _check(cond: bool, msg: str):
-    if not cond:
-        raise ValueError(msg)
 
 
 def _tiles_per_side(op: str, x: torch.Tensor, block: int) -> int:
@@ -147,10 +144,6 @@ def dummy_ltm_torch(n: int, device="cpu") -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # CUDA wrappers
 # ---------------------------------------------------------------------------
-
-
-def _stream_ptr(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _check_kernel_input(op: str, x: torch.Tensor, block: int) -> int:

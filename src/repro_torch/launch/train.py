@@ -15,6 +15,7 @@ from __future__ import annotations
 import argparse
 import time
 
+from repro_torch import device as DEV
 from repro_torch.configs import registry as REG
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.train import checkpoint as CKPT
@@ -53,7 +54,7 @@ def main(argv=None):
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
     opt = OPT.OptConfig(lr=args.lr, warmup_steps=max(2, args.steps // 10),
                         total_steps=args.steps)
-    impl = "cuda" if args.device == "cuda" else "torch"
+    impl = DEV.attn_impl(args.device)
 
     state = TS.init_state(cfg, opt, seed=args.seed, device=args.device)
     n_params = _numel(state.params)

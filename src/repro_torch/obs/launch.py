@@ -108,15 +108,16 @@ def meta_from_packed(name: str, psched, *, impl: str, cells: int = 1,
 
 
 def meta_dense(name: str, family: str, *, impl: str, grid, block_shape,
-               tiles_domain: Optional[int] = None,
+               tiles_domain: Optional[int] = None, kind: str = "bb",
                cells: int = 1) -> LaunchMeta:
-    """Bounding-box grids (kind "bb"): launched is the grid product over
-    the lambda dims (``grid``); the BB bound equals launched."""
+    """Bounding-box grids (kind "bb", "bb3" for the 3-D cube): launched is
+    the grid product over the lambda dims (``grid``); the BB bound equals
+    launched."""
     launched = 1
     for g in grid:
         launched *= int(g)
     return LaunchMeta(
-        name=name, family=family, impl=impl, kind="bb", grid=tuple(grid),
+        name=name, family=family, impl=impl, kind=kind, grid=tuple(grid),
         block_shape=tuple(block_shape), tiles_launched=launched,
         tiles_domain=tiles_domain, tiles_bb=launched, cells=cells)
 

@@ -5,8 +5,9 @@
   arrays to the reference's.
 * No module of src/repro_torch, nor chip_smoke.py, imports jax or the
   JAX package (an AST scan of every import statement).
-* ``import repro_torch`` (and its serving, training and paper-experiment
-  modules) succeeds in a process where importing jax is impossible.
+* ``import repro_torch`` (and its serving, training, paper-experiment
+  and 3-body modules, and the serving CLI) succeeds in a process where
+  importing jax is impossible.
 * Every ``extern "C"`` entry point of ``src/repro_torch/csrc/*.cu`` is
   bound in ``kernels/build.py`` with one ctypes type per parameter, of
   the right kind (pointer, int or float): the check nvcc and the card
@@ -90,9 +91,14 @@ def test_fused_table_bytes_match(lens, window, prefix, kv_lens, slots, b,
     assert gn == wn == tps.steps + sum(-(-k // 4) for k in kv_lens)
     assert gt.dtype == wt.dtype == np.int32 and gt.shape == wt.shape == \
         (8, n_members)
+    r_p = len(lens)
+    # the port bounds a prefill member's prefix width p_b (row 4) by its n
+    # tiles (row 2), where the reference's runs past a prefix longer than
+    # the member (the 5-token prefix of the 4-token member here)
+    wt = wt.copy()
+    wt[4, :r_p] = np.minimum(wt[4, :r_p], wt[2, :r_p])
     assert gt.tobytes() == wt.tobytes()
     assert tuple(gt[:, -1][1:]) == (1, K.DECODE_NO_EMIT, 0, 0, b, 0, 0)
-    r_p = len(lens)
     assert list(gt[1]) == [0] * r_p + [1] * (n_members - r_p)
     unused = gt[:, r_p + len(kv_lens):-1]
     assert (unused[1:] == np.array([[1], [0], [0], [0], [0], [0], [0]])).all()
@@ -112,7 +118,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
     assert {"kernels/tri_edm/kernel.py", "kernels/tri_edm/ops.py",
-            "kernels/tri_edm/ref.py", "core/analysis.py"} <= \
+            "kernels/tri_edm/ref.py", "core/analysis.py",
+            "kernels/tri_3body/kernel.py", "kernels/tri_3body/ops.py",
+            "kernels/tri_3body/ref.py", "launch/serve.py"} <= \
         {str(f.relative_to(PKG)) for f in files if PKG in f.parents}
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "repro")]
@@ -175,6 +183,21 @@ def test_paper_modules_import_with_jax_blocked():
     assert out.stdout.strip() == "ok"
 
 
+def test_3body_slice_modules_import_with_jax_blocked():
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['repro'] = None; "
+            "import repro_torch.kernels.tri_3body.ops, "
+            "repro_torch.kernels.tri_3body.kernel, "
+            "repro_torch.kernels.tri_3body.ref, repro_torch.launch.serve; "
+            "from repro_torch.core.mapping import tet_map; "
+            "print('ok')")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def _c_entry_points(src: str):
     """{name: [parameter kinds]} of the extern "C" functions in ``src``:
     'p' for a pointer, 'i' for an int, 'f' for a float."""
@@ -196,7 +219,9 @@ def test_c_entry_points_match_the_ctypes_bindings():
     kind = {ctypes.c_void_p: "p", ctypes.c_int: "i", ctypes.c_float: "f"}
     sources = sorted(p.stem for p in (PKG / "csrc").glob("*.cu"))
     assert sorted(BUILD.SOURCES) == sorted(BUILD.SIGNATURES) == sources
-    assert {"packed_bwd", "fwd_bb", "tri_edm"} <= set(sources)
+    assert {"packed_bwd", "fwd_bb", "tri_edm", "tri_3body"} <= set(sources)
+    assert set(BUILD.SIGNATURES["tri_3body"]) == {
+        "three_body_tet_launch", "three_body_bb3_launch", "dummy_tet_launch"}
     for name in sources:
         declared = _c_entry_points((PKG / "csrc" / f"{name}.cu").read_text())
         bound = {fn: [kind[t] for t in types]

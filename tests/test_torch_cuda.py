@@ -743,3 +743,217 @@ def test_edm_kernel_impls_refuse_cpu_tensors(impl):
     x = torch.zeros((32, 3))
     with pytest.raises(ValueError, match=f"impl='{impl}' needs CUDA"):
         EOPS.edm(x, 8, impl=impl)
+
+
+# ---------------------------------------------------------------------------
+# The 3-body workload: tri_3body.three_body_tet, three_body_bb3 and
+# dummy_tet (csrc/tri_3body.cu) against their plain versions. A tile's
+# sum may differ from the plain version's by rounding only: at most
+# 2 (b + d) float32 units (2^-24) of its sum(|(A B) * C|).
+# ---------------------------------------------------------------------------
+
+U32 = 2.0 ** -24
+TB_CASES = [(64, 1), (64, 3), (64, 259), (128, 3), (128, 64), (128, 65)]
+
+
+def _tet_check(x, block, strict, got):
+    """Every tile of a packed kernel output against the plain version."""
+    from repro_torch.kernels.tri_3body import kernel as TK
+    from repro_torch.kernels.tri_3body import ref as TR
+
+    n = x.shape[0] // block
+    coords = TR.tet_coords(n, x.device)
+    want, scale = TK.triplet_tiles(x, block, *coords.unbind(1),
+                                   strict=strict, with_abs=True)
+    bound = 2 * (block + x.shape[1]) * U32 * scale
+    assert got.shape == (M.tet(n), 1) and got.dtype == torch.float32
+    assert bool(((got[:, 0] - want).abs() <= bound).all())
+    return coords
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("strict", [False, True])
+@pytest.mark.parametrize("block,d", TB_CASES)
+def test_three_body_tet_matches_plain(dev, block, d, strict, dtype):
+    from repro_torch.kernels.tri_3body import kernel as TK
+
+    x = _points(dev, 5 * block, d, dtype, seed=3)
+    before = TK.three_body_tet.launches
+    got = TK.three_body_tet(x, block, strict=strict)
+    torch.cuda.synchronize()
+    assert TK.three_body_tet.launches == before + 1
+    _tet_check(x, block, strict, got)
+    assert torch.equal(TK.three_body_tet(x, block, strict=strict), got)
+
+
+@pytest.mark.parametrize("strict", [False, True])
+@pytest.mark.parametrize("block,d", TB_CASES)
+def test_three_body_bb3_equals_tet(dev, block, d, strict):
+    """The simplex cells are the tet kernel's bits; the rest exact 0."""
+    from repro_torch.kernels.tri_3body import kernel as TK
+
+    n = 6
+    x = _points(dev, n * block, d, torch.float32, seed=4)
+    before = TK.three_body_bb3.launches
+    cube = TK.three_body_bb3(x, block, strict=strict)
+    torch.cuda.synchronize()
+    assert TK.three_body_bb3.launches == before + 1
+    assert cube.shape == (n, n, n)
+    packed = TK.three_body_tet(x, block, strict=strict)
+    coords = _tet_check(x, block, strict, packed)
+    i, j, k = coords.unbind(1)
+    assert torch.equal(cube[i, j, k], packed[:, 0])
+    dead = torch.ones_like(cube, dtype=torch.bool)
+    dead[i, j, k] = False
+    assert int(torch.count_nonzero(cube[dead])) == 0
+    assert torch.equal(TK.three_body_bb3_torch(x, block, strict=strict)
+                       [dead], cube[dead])
+
+
+@pytest.mark.parametrize("n", [1, 2, 8, 100, 500])
+def test_dummy_tet_matches_plain(dev, n):
+    from repro_torch.kernels.tri_3body import kernel as TK
+
+    before = TK.dummy_tet.launches
+    got = TK.dummy_tet(n, device=dev)
+    torch.cuda.synchronize()
+    assert TK.dummy_tet.launches == before + 1
+    assert got.shape == (M.tet(n), 1) and got.dtype == torch.float32
+    assert torch.equal(got, TK.dummy_tet_torch(n, dev))
+
+
+def _tet64(i):
+    return i * (i + 1) * (i + 2) // 6
+
+
+def test_device_tet_map_over_the_envelope(dev):
+    """All 715,169,000 lambdas of the certified envelope through the
+    device tet_map (dummy_tet at n = 1624), against the exact int64
+    closed form: float64 cube root corrected both ways, then g(mu)."""
+    from repro_torch.kernels.tri_3body import kernel as TK
+
+    n = M.TET_TRACED_MAX_I
+    out = TK.dummy_tet(n, device=dev)
+    t, step = M.tet(n), 1 << 26
+    for t0 in range(0, t, step):
+        lam = torch.arange(t0, min(t, t0 + step), dtype=torch.int64,
+                           device=dev)
+        i = torch.pow((6 * lam).double(), 1.0 / 3.0).floor().long()
+        i = torch.where(_tet64(i + 1) <= lam, i + 1, i)
+        i = torch.where(_tet64(i) > lam, i - 1, i)
+        mu = lam - _tet64(i)
+        j = torch.sqrt((8 * mu + 1).double()).floor().long()
+        j = torch.where(j * j > 8 * mu + 1, j - 1, j)
+        j = (j - 1) // 2
+        assert torch.equal(out[t0:t0 + step, 0],
+                           (i + j + mu - j * (j + 1) // 2).float()), t0
+
+
+def test_three_body_op_on_the_card(dev):
+    """ops.three_body through every impl on one input, and the totals
+    against float64 dense oracles, within 1e-5 of the sum of the absolute
+    summands."""
+    from repro_torch.kernels.tri_3body import ops as TOPS
+    from repro_torch.kernels.tri_3body import ref as TR
+
+    x = _points(dev, 384, 3, torch.float32, seed=5)
+    packed = TOPS.three_body(x, 64, impl="cuda")
+    cube = TOPS.three_body(x, 64, impl="bb3")
+    i, j, k = TR.tet_coords(6, dev).unbind(1)
+    assert torch.equal(cube[i, j, k], packed[:, 0])
+    for impl in ("torch", "ref"):
+        np.testing.assert_allclose(
+            packed.cpu().numpy(),
+            TOPS.three_body(x, 64, impl=impl).cpu().numpy(),
+            atol=2e-4, rtol=2e-5)
+    g = x.double() @ x.double().T
+    low = torch.tril(g, diagonal=-1)
+    oracles = {False: (torch.einsum("ab,bc,ac->", g, g, g),
+                       ((g.abs() @ g.abs()) * g.abs()).sum()),
+               True: (((low @ low) * g).sum(),
+                      ((low.abs() @ low.abs()) * g.abs()).sum())}
+    for strict, (want, scale) in oracles.items():
+        for impl in ("cuda", "bb3"):
+            got = float(TOPS.three_body_total(x, 64, impl=impl,
+                                              strict=strict))
+            assert abs(got - float(want)) <= 1e-5 * float(scale), \
+                (impl, strict)
+
+
+@pytest.mark.parametrize("fn", ["three_body_tet_launch",
+                                "three_body_bb3_launch", "dummy_tet_launch"])
+def test_three_body_failing_launch_raises(dev, monkeypatch, fn):
+    """A launch CUDA refuses raises and is not counted."""
+    from repro_torch.kernels.tri_3body import kernel as TK
+
+    monkeypatch.setattr(BUILD.load("tri_3body"), fn, lambda *a: 9)
+    x = _points(dev, 128, 3, torch.float32)
+    call, wrapper = {
+        "three_body_tet_launch": (lambda: TK.three_body_tet(x, 64),
+                                  TK.three_body_tet),
+        "three_body_bb3_launch": (lambda: TK.three_body_bb3(x, 64),
+                                  TK.three_body_bb3),
+        "dummy_tet_launch": (lambda: TK.dummy_tet(4, device=dev),
+                             TK.dummy_tet)}[fn]
+    before = wrapper.launches
+    with pytest.raises(RuntimeError, match="cudaError 9"):
+        call()
+    assert wrapper.launches == before
+
+
+def test_three_body_kernels_refuse_unsupported_input(dev):
+    from repro_torch.kernels.tri_3body import kernel as TK
+
+    for x, block in ((_points(dev, 128, 3, torch.float32), 32),
+                     (_points(dev, 256, 66, torch.float32), 128),
+                     (_points(dev, 128, 260, torch.float32), 64),
+                     (_points(dev, 128, 3, torch.float16), 64)):
+        for fn in (TK.three_body_tet, TK.three_body_bb3):
+            with pytest.raises(ValueError):
+                fn(x, block)
+
+
+# ---------------------------------------------------------------------------
+# A prefix at least as long as its sequence: the attention kernels walk no
+# key tile past the member and agree with the plain versions and the
+# oracle (every key visible).
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("prefix", [64, 100])
+def test_dense_prefix_past_length_kernels(dev, prefix):
+    rng = np.random.default_rng(prefix)
+    q, k, v = (_rand(rng, shape, torch.float32, dev) for shape in
+               ((1, 4, 64, 16), (1, 2, 64, 16), (1, 2, 64, 16)))
+    do = _rand(rng, (1, 4, 64, 16), torch.float32, dev)
+    res = {}
+    for impl in ("cuda", "torch", "ref"):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = OPS.triangular_attention(*leaves, prefix=prefix, impl=impl,
+                                       block=16)
+        out.backward(do)
+        res[impl] = (out.detach(),) + tuple(x.grad for x in leaves)
+    for want in (res["torch"], res["ref"]):
+        _close(res["cuda"][0], want[0], torch.float32, "out")
+        for got, w in zip(res["cuda"][1:], want[1:]):
+            np.testing.assert_allclose(got.cpu().numpy(), w.cpu().numpy(),
+                                       **GRAD_TOL[torch.float32])
+
+
+def test_packed_prefix_past_member_kernels(dev):
+    rng = np.random.default_rng(48)
+    psched = OPS.make_packed_sched([32, 64], block=16, prefix=[48, 0])
+    q, k, v = (_rand(rng, shape, torch.float32, dev) for shape in
+               ((1, 4, 96, 16), (1, 2, 96, 16), (1, 2, 96, 16)))
+    do = _rand(rng, (1, 4, 96, 16), torch.float32, dev)
+    res = {}
+    for impl in ("cuda", "torch", "ref"):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = OPS.packed_prefill_attention(*leaves, psched, impl=impl)
+        out.backward(do)
+        res[impl] = (out.detach(),) + tuple(x.grad for x in leaves)
+    for want in (res["torch"], res["ref"]):
+        _close(res["cuda"][0], want[0], torch.float32, "out")
+        for got, w in zip(res["cuda"][1:], want[1:]):
+            np.testing.assert_allclose(got.cpu().numpy(), w.cpu().numpy(),
+                                       **GRAD_TOL[torch.float32])

@@ -31,6 +31,7 @@ from repro.models import model as JMD
 from repro.train import data as JDATA
 from repro.train import optimizer as JOPT
 from repro.train import train_step as JTS
+from repro_torch import device as DEV
 from repro_torch.configs import registry as REG
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch import train as LAUNCH
@@ -389,6 +390,10 @@ def test_entry_points_default_to_the_card():
         TS.init_state(cfg, OPT.OptConfig())
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         LAUNCH.main(["--steps", "1"])
+    # any CUDA device string takes the kernels, or raises without a card
+    assert DEV.attn_impl("cuda:0") == "cuda"
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        LAUNCH.main(["--steps", "1", "--device", "cuda:0"])
     state = TS.init_state(cfg, OPT.OptConfig(), device="cpu")
     with pytest.raises(ValueError, match="impl='cuda' needs CUDA tensors"):
         TS.make_train_step(cfg, OPT.OptConfig())(state,
