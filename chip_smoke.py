@@ -4,7 +4,7 @@
 
 Phases (any failure exits non-zero; nothing is caught):
   1. the card's name and power limit (nvidia-smi);
-  2. build the nine CUDA sources of src/repro_torch/csrc (nvcc, sm_90a);
+  2. build the ten CUDA sources of src/repro_torch/csrc (nvcc, sm_90a);
   3. kernels: each kernel of the serving path at full yi-9b width (H=32,
      Hkv=4, D=128, blk=64, bf16 q/k/v, f32 decode cache) against its
      plain PyTorch version on the card (outputs within atol 4e-3 + rtol
@@ -67,6 +67,22 @@ Phases (any failure exits non-zero; nothing is caught):
      n^3 / tet(n), ns a dummy_tet block); then a prefix past its sequence
      (dense and packed) through tri_fwd/tri_bwd and packed_fwd/packed_bwd,
      forward and grads, against the plain versions and the oracle;
+  7c. rwkv6: wkv_scan.wkv at full rwkv6-1.6b width (B 4, L 2048, H 32,
+     hd 64, f32) against its plain version (within 1e-4 of its scale),
+     two halves chained equal to the whole, an L = 1 step whose state
+     aliases its cache (s0 = s_L), bf16 inputs; timed beside the plain
+     version (no library call computes WKV6) and the byte bound; then
+     rwkv6-1.6b at its published widths (all 24 layers, random seeded
+     bf16 weights): make_prefill_step on 4 x 2048 tokens and generate 32
+     tokens, with exactly 24 wkv launches a prefill and a token and no
+     plain version, and prefill of 2047 tokens + one decode step equal to
+     the forward's last logits (2e-2); the engine (4 slots, 8 requests of
+     16-128 prompt tokens, 16 new each): every request done, launches =
+     24 x (admission steps + lockstep rounds), each request's first-token
+     logits within 2e-2 of a batch-1 prefill + serve step; a smoke-size
+     float32 engine (2 slots, 8 requests, a 1-token prompt) emitting
+     batch-1 generate's tokens on the card; the serving CLI with --arch
+     rwkv6-1.6b;
   8. training: yi-9b at full width (24 of 48 layers unless --train-layers
      says otherwise: the 48-layer AdamW state does not fit 80 GB) for 3
      steps of seq 4096, batch 1, remat, random seeded bf16 weights,
@@ -1491,6 +1507,343 @@ def prefix_phase(dev):
           flush=True)
 
 
+RWKV_SHAPE = (4, 2048, 32, 64)  # the kernel at full width: B, L, H, hd
+RWKV_PROMPTS = (4, 2048)  # offline serving: prompts x tokens
+RWKV_NEW = 32  # tokens generate decodes after the prefill
+RWKV_ENGINE = dict(slots=4, requests=8, lens=(16, 128), max_new=16)
+# bf16 full-width logits of one token computed by two paths: the repo's
+# bf16 policy (tests/oracles.py "attn" bf16), whose absolute part
+# tests/test_torch_models.py scales by the largest logit where the two
+# paths round their matmuls at other shapes through every layer
+RWKV_LOGIT_TOL = dict(atol=2e-2, rtol=2e-2)
+# the same invariant in float32 at full width: reassociation only
+RWKV_F32_TOL = dict(atol=1e-3, rtol=1e-3)
+WKV_REL = 1e-4  # f32 kernel against its plain version, relative
+
+
+def _device_ms(fn, count: int, kernel: str) -> float:
+    """Device time a call of the kernels whose name holds ``kernel``, from
+    a torch.profiler window over ``fn()`` (``count`` calls): the
+    wrapper's host time stays out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+             for ev in prof.key_averages() if kernel in ev.key)
+    return us / 1e3 / count
+
+
+def _wkv_close(name, got, want, rel=WKV_REL):
+    """Within rel of the plain version's largest magnitude, elementwise
+    (atol) and relative (rtol)."""
+    scale = float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.allclose(got.float(), want.float(), atol=rel * scale,
+                          rtol=rel):
+        _fail(f"{name}: kernel disagrees with its plain version (max abs "
+              f"err {err}, scale {scale}, relative tolerance {rel})")
+    return err
+
+
+def wkv_kernel_phase(dev):
+    """wkv_scan.wkv at full rwkv6-1.6b width against its plain version
+    (ref.py) on the card: f32, halves chained equal to the whole, an L = 1
+    step with its state aliased (s0 = s_L), bf16 inputs; timed beside the
+    plain version. No PyTorch call computes WKV6 (library: none)."""
+    from repro_torch.kernels.wkv_scan import kernel as WK
+    from repro_torch.kernels.wkv_scan import ref as WR
+
+    b, l, h, hd = RWKV_SHAPE
+    rng = np.random.default_rng(17)
+
+    def rand(*shape):
+        return torch.as_tensor(0.5 * rng.standard_normal(shape, np.float32),
+                               device=dev)
+
+    r, k, v = rand(b, l, h, hd), rand(b, l, h, hd), rand(b, l, h, hd)
+    lw = -torch.exp(rand(b, l, h, hd))
+    u, s0 = rand(h, hd), rand(b, h, hd, hd)
+    with torch.no_grad():
+        out, s_l = WK.wkv(r, k, v, lw, u, s0)
+        want_o, want_s = WR.wkv_ref(r, k, v, lw, u, s0)
+        err = max(_wkv_close("wkv f32 out", out, want_o),
+                  _wkv_close("wkv f32 state", s_l, want_s))
+        m = l // 2
+        o1, s1 = WK.wkv(r[:, :m].contiguous(), k[:, :m].contiguous(),
+                        v[:, :m].contiguous(), lw[:, :m].contiguous(), u, s0)
+        o2, s2 = WK.wkv(r[:, m:].contiguous(), k[:, m:].contiguous(),
+                        v[:, m:].contiguous(), lw[:, m:].contiguous(), u, s1)
+        _wkv_close("wkv halves", torch.cat([o1, o2], 1), out)
+        _wkv_close("wkv halves state", s2, s_l)
+        one = [t[:, :1].contiguous() for t in (r, k, v, lw)]
+        cache = s0.clone()
+        o, s = WK.wkv(*one, u, cache, state_out=cache)
+        w_o, w_s = WR.wkv_ref(*one, u, s0)
+        if s is not cache:
+            _fail("wkv: state_out is not the aliased cache")
+        _wkv_close("wkv L=1 aliased", o, w_o)
+        _wkv_close("wkv L=1 aliased state", cache, w_s)
+        bf = [t.bfloat16() for t in (r, k, v, lw)]
+        o_bf, _ = WK.wkv(*bf, u, s0)
+        w_bf, _ = WR.wkv_ref(*bf, u, s0)
+        if o_bf.dtype != torch.bfloat16:
+            _fail(f"wkv bf16: output dtype {o_bf.dtype}")
+        err_bf = _close("wkv bf16", o_bf, w_bf.bfloat16(),
+                        dict(atol=2e-2, rtol=2e-2))
+        torch.cuda.synchronize()
+        ms = _median_ms(lambda: WK.wkv(r, k, v, lw, u, s0), 20)
+        ms_bf16 = _median_ms(lambda: WK.wkv(*bf, u, s0), 20)
+        ms_step = _median_ms(lambda: WK.wkv(*one, u, cache, state_out=cache),
+                             50)
+        dev_step = _device_ms(lambda: [WK.wkv(*one, u, cache, state_out=cache)
+                                       for _ in range(50)], 50, "wkv_kernel")
+        dev_ms = _device_ms(lambda: [WK.wkv(r, k, v, lw, u, s0)
+                                     for _ in range(5)], 5, "wkv_kernel")
+        plain_ms = _median_ms(lambda: WK.wkv_torch(r, k, v, lw, u, s0), 3, 1)
+    n = b * l * h * hd
+    nbytes = 5 * 4 * n + 4 * h * hd + 2 * 4 * b * h * hd * hd
+    bound = _bound(nbytes, 4 * hd * hd * b * l * h, torch.float32)
+    print(f"wkv: B={b} L={l} H={h} hd={hd} f32 {ms:.4f} ms (bound "
+          f"{bound[0]:.4f} by {bound[1]}, plain {plain_ms:.2f}), bf16 inputs "
+          f"{ms_bf16:.4f} ms (device time by the profiler {dev_ms:.4f} "
+          f"f32), one L=1 step at B={b} {ms_step:.4f} ms through the "
+          f"wrapper, {dev_step:.4f} ms on the device; "
+          f"max abs err {err:.3g} (f32), {err_bf:.3g} (bf16); halves "
+          f"chained and the aliased L=1 state agree", flush=True)
+    return {"name": "wkv_scan.wkv", "route": "cuda",
+            "source": "src/repro_torch/csrc/wkv_scan.cu",
+            "replaces": "src/repro/kernels/wkv_scan/kernel.py:61",
+            "max_abs_err": err, "max_abs_err_bf16": err_bf, "ms": ms,
+            "ms_bf16": ms_bf16, "ms_device": dev_ms, "ms_step_l1": ms_step,
+            "ms_step_l1_device": dev_step, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
+            "library": None,
+            "shape": {"B": b, "L": l, "H": h, "hd": hd, "dtype": "float32"}}
+
+
+def _rwkv_prompts(rng, n, lens, vocab):
+    return [rng.integers(0, vocab, size=int(rng.integers(lens[0],
+                                                        lens[1] + 1)))
+            for _ in range(n)]
+
+
+def rwkv_serving_phase(dev, card):
+    """rwkv6-1.6b at its published widths, all 24 layers, random seeded
+    bf16 weights: (b) make_prefill_step on 4 x 2048 tokens and generate,
+    the reference's prefill + decode == forward invariant, 24 launches a
+    prefill and a token and no plain version; (c) the engine, 4 slots and
+    8 requests, every request done, each request's first-token logits
+    against a batch-1 prefill + serve step; then smoke-size f32 engine
+    tokens equal to batch-1 generate on the card (reused slots, a 1-token
+    prompt). Returns (launches of the engine run, of the offline run)."""
+    from repro_torch.configs import registry as REG
+    from repro_torch.configs import rwkv6_1_6b
+    from repro_torch.kernels.wkv_scan import kernel as WK
+    from repro_torch.models import model as MD
+    from repro_torch.obs import metrics as MET
+    from repro_torch.serve import decode as D
+    from repro_torch.serve.engine import Engine
+    from repro_torch.train import train_step as TS
+
+    cfg = rwkv6_1_6b.CONFIG
+    layers = cfg.n_layers
+    params = MD.init_params(cfg, seed=0, device=dev)
+    prefill = TS.make_prefill_step(cfg)
+    serve = TS.make_serve_step(cfg)
+    rng = np.random.default_rng(18)
+    nb, nl = RWKV_PROMPTS
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (nb, nl)),
+                           device=dev)
+
+    # -- (b) offline serving, counted ---------------------------------------
+    _reset_launches(WK)
+    reg = MET.Registry("rwkv_offline")
+    with MET.scope(reg):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits_full, cache = prefill(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        if WK.wkv.launches != layers:
+            _fail(f"rwkv prefill: {WK.wkv.launches} wkv launches != {layers}")
+        _, cache_m1 = prefill(params, {"tokens": toks[:, :-1]})
+        logits_dec, _ = serve(params, cache_m1, toks[:, -1:], nl - 1)
+        del cache_m1
+        first = D.sample_logits(logits_full, vocab_size=cfg.vocab_size)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen, _, _ = D.generate(params, cfg, cache, first[:, None], nl,
+                               RWKV_NEW)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+    offline = _check_launches("rwkv offline", WK, reg, {
+        "wkv_scan.wkv": layers * (2 + 1 + RWKV_NEW)})
+    scale = float(logits_full.abs().max())
+    err = _close("rwkv prefill + decode vs forward (bf16)", logits_dec,
+                 logits_full, dict(RWKV_LOGIT_TOL, atol=RWKV_LOGIT_TOL["atol"]
+                                   * max(1.0, scale)))
+    if gen.shape != (nb, RWKV_NEW) or not bool(
+            ((gen >= 0) & (gen < cfg.vocab_size)).all()):
+        _fail(f"rwkv generate: tokens {tuple(gen.shape)} out of range")
+    profile_window(lambda: D.generate(params, cfg, cache, gen[:, -1:],
+                                      nl + RWKV_NEW, 4), 4, "token",
+                   f"rwkv generate tokens at B {nb}", card)
+    del cache
+    torch.cuda.empty_cache()
+    first_prefill_s = prefill_s  # cuBLAS's first calls at these shapes
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    profile_window(lambda: prefill(params, {"tokens": toks}), 1, "prefill",
+                   f"rwkv prefill of {nb} x {nl} tokens", card)
+    print(f"rwkv offline: prefill {nb} x {nl} tokens in {prefill_s:.4f} s "
+          f"({nb * nl / prefill_s:.1f} tok/s; the first, counted one "
+          f"{first_prefill_s:.4f} s), generate {RWKV_NEW} tokens "
+          f"for {nb} in {gen_s:.4f} s ({nb * RWKV_NEW / gen_s:.1f} tok/s); "
+          f"wkv launches {layers} a prefill and a token, no plain version; "
+          f"prefill {nl - 1} + decode vs forward last logits (bf16) max abs "
+          f"err {err:.4g}, largest logit {scale:.4g} (tol {RWKV_LOGIT_TOL}, "
+          f"atol x max(1, largest))", flush=True)
+    err32 = _rwkv_f32_invariant(dev, cfg, toks)
+    print(f"rwkv offline: float32 at full width, prefill {nl - 1} + decode "
+          f"vs forward last logits max abs err {err32:.4g} (tol "
+          f"{RWKV_F32_TOL})", flush=True)
+
+    # -- (c) the engine at full width, counted ------------------------------
+    class Probe(Engine):
+        """Keeps each request's first-token logits."""
+        first = {}
+
+        def _decode_round(self, live, kv_lens, rnd):
+            logits, cache = super()._decode_round(live, kv_lens, rnd)
+            for s in live:
+                req = self.slot_req[s]
+                if not req.out:
+                    self.first[req.uid] = logits[s, 0].float()
+            return logits, cache
+
+    ek = RWKV_ENGINE
+    prompts = _rwkv_prompts(rng, ek["requests"], ek["lens"], cfg.vocab_size)
+    max_new = [ek["max_new"]] * len(prompts)
+    _reset_launches(WK)
+    reg = MET.Registry("rwkv_engine")
+    with MET.scope(reg):
+        eng = Probe(params, cfg, slots=ek["slots"], max_len=256, device=dev)
+        results, dt = _serve(eng, prompts, max_new)
+    st = _check_served("rwkv engine", eng, results, range(len(prompts)),
+                       max_new, cfg)
+    engine_launches = _check_launches("rwkv engine", WK, reg, {
+        "wkv_scan.wkv": layers * (st["prefill_launches"]
+                                  + st["decode_rounds"])})
+    if st["prefill_launches"] != sum(len(p) - 1 for p in prompts):
+        _fail(f"rwkv engine: {st['prefill_launches']} admission steps")
+    errs, errs_pf, same = [], [], 0
+    for uid, p in enumerate(prompts):
+        # batch-1 greedy decode, the prompt fed token by token (the
+        # engine's own semantics, and the CPU tests' reference)
+        pt = torch.as_tensor(p, device=dev)[None]
+        c1 = MD.init_cache(cfg, 1, 256, torch.float32, dev)
+        for t in range(len(p)):
+            want, c1 = serve(params, c1, pt[:, t:t + 1], t)
+        errs.append(_close(f"rwkv engine request {uid} first-token logits",
+                           eng.first[uid][None], want, RWKV_LOGIT_TOL))
+        first = D.sample_logits(want, vocab_size=cfg.vocab_size)
+        out, _, _ = D.generate(params, cfg, c1, first[:, None], len(p),
+                               ek["max_new"] - 1)
+        same += [int(first[0])] + out[0].tolist() == results[uid]
+        # the same first token through a prefill of the prompt (one launch
+        # a layer over its L tokens): other matmul shapes, reported
+        pf, _ = prefill(params, {"tokens": pt})
+        errs_pf.append(float((pf - eng.first[uid][None]).abs().max()))
+    n_tok = sum(len(v) for v in results.values())
+    print(f"rwkv engine: {len(prompts)} requests ({ek['lens'][0]}-"
+          f"{ek['lens'][1]} prompt tokens, {ek['max_new']} new) on "
+          f"{ek['slots']} slots, all done, {n_tok} tokens in {dt:.3f} s "
+          f"({n_tok / dt:.2f} tok/s, {st['decode_rounds']} lockstep rounds, "
+          f"{st['prefill_launches']} admission steps); first-token logits "
+          f"within {RWKV_LOGIT_TOL} of a batch-1 greedy decode (max abs err "
+          f"{max(errs):.4g}; against a batch-1 prefill of the prompt "
+          f"{max(errs_pf):.4g}, not asserted); {same}/{len(prompts)} token "
+          f"streams equal the batch-1 greedy decode in bf16 (not asserted: "
+          f"near-ties flip)", flush=True)
+    del params, eng
+    torch.cuda.empty_cache()
+
+    # -- smoke size, float32: tokens identical to batch-1 generate ---------
+    scfg = REG.smoke_config("rwkv6-1.6b")
+    sparams = MD.init_params(scfg, seed=3, device=dev)
+    sprompts = [np.asarray(p, np.int32) for p in
+                ([3, 1, 4, 1, 5], [2, 7, 1], [9, 9, 8, 2, 6, 5], [4, 4, 2],
+                 [7])] + _rwkv_prompts(rng, 3, (16, 40), scfg.vocab_size)
+    smax = [6] * len(sprompts)
+    eng = Engine(sparams, scfg, slots=2, max_len=64, device=dev)
+    got, _ = _serve(eng, sprompts, smax)
+    _check_served("rwkv smoke engine", eng, got, range(len(sprompts)), smax,
+                  scfg)
+    sprefill = TS.make_prefill_step(scfg, cache_dtype=torch.float32)
+    for uid, p in enumerate(sprompts):
+        pt = torch.as_tensor(p, device=dev)[None].long()
+        cache = sprefill(sparams, {"tokens": pt[:, :-1]})[1] if len(p) > 1 \
+            else MD.init_cache(scfg, 1, 64, torch.float32, dev)
+        out, _, _ = D.generate(sparams, scfg, cache, pt[:, -1:], len(p) - 1,
+                               smax[uid])
+        if out[0].tolist() != got[uid]:
+            _fail(f"rwkv smoke: engine request {uid} {got[uid]} != batch-1 "
+                  f"generate {out[0].tolist()}")
+    print(f"rwkv smoke: float32 engine (2 slots, {len(sprompts)} requests, "
+          f"slots reused, a 1-token prompt) emits batch-1 generate's tokens "
+          f"on the card", flush=True)
+    return engine_launches["wkv_scan.wkv"], offline["wkv_scan.wkv"]
+
+
+def _rwkv_f32_invariant(dev, cfg, toks) -> float:
+    """The prefill + decode == forward invariant of rwkv6-1.6b at full
+    width in float32 (random seeded weights, 6.4 GB): a wrong state or a
+    doubled token moves logits by O(1), reassociation by far less than
+    RWKV_F32_TOL."""
+    import dataclasses
+
+    from repro_torch.models import model as MD
+    from repro_torch.train import train_step as TS
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = MD.init_params(cfg32, seed=0, device=dev)
+    prefill = TS.make_prefill_step(cfg32, cache_dtype=torch.float32)
+    full, _ = prefill(params, {"tokens": toks})
+    _, cache = prefill(params, {"tokens": toks[:, :-1]})
+    dec, _ = TS.make_serve_step(cfg32)(params, cache, toks[:, -1:],
+                                       toks.shape[1] - 1)
+    err = _close("rwkv prefill + decode vs forward (f32)", dec, full,
+                 RWKV_F32_TOL)
+    del params, cache
+    torch.cuda.empty_cache()
+    return err
+
+
+def rwkv_cli_phase():
+    """launch/serve.py --arch rwkv6-1.6b on the card: every request done
+    through the WKV kernel."""
+    from repro_torch.kernels.wkv_scan import kernel as WK
+    from repro_torch.launch import serve as SERVE
+
+    _reset_launches(WK)
+    results, eng = SERVE.main(["--arch", "rwkv6-1.6b", "--requests", "6",
+                               "--max-new", "8"])
+    report = eng.report()
+    if sorted(results) != list(range(6)) or any(
+            r["status"] != "done" or r["tokens"] != 8
+            for r in report.values()) or not WK.wkv.launches:
+        _fail(f"serve CLI (rwkv6-1.6b): {report}, launches {_launches(WK)}")
+    print("serve CLI: python -m repro_torch.launch.serve --arch rwkv6-1.6b "
+          "served 6 requests through the WKV kernel", flush=True)
+
+
 def serve_cli_phase():
     """The serving CLI (launch/serve.py) on the card at smoke size, in both
     step modes: every request done through the kernels, no plain
@@ -1828,6 +2181,13 @@ def main():
     kernels += paper_phase(dev, K, OPS, SC)
     torch.cuda.empty_cache()
     kernels += three_body_phase(dev)
+    torch.cuda.empty_cache()
+    wkv_row = wkv_kernel_phase(dev)
+    kernels.append(wkv_row)
+    wkv_row["launches"], wkv_row["launches_offline"] = rwkv_serving_phase(
+        dev, card)
+    rwkv_cli_phase()
+    torch.cuda.empty_cache()
     prefix_phase(dev)
     print("kernels: " + "; ".join(
         f"{k['name']} {k['ms']:.4f} ms (plain {k['plain_ms']:.3f}, library "

@@ -77,6 +77,10 @@ class ModelConfig:
     def padded_vocab(self) -> int:
         return _round_up(self.vocab_size, 256)
 
+    @property
+    def n_rwkv_heads(self) -> int:
+        return self.d_model // self.rwkv_head_dim
+
     def is_moe_layer(self, idx: int) -> bool:
         if self.n_experts == 0:
             return False

@@ -1,7 +1,8 @@
 """Architecture registry of the port: --arch <id> -> ModelConfig.
 
-Only the dense GQA ``yi-9b`` is ported so far; the other architectures of
-``repro/configs`` need MoE, Mamba or RWKV mixers (ROADMAP queue A)."""
+Ported: the dense GQA ``yi-9b`` and the attention-free ``rwkv6-1.6b``.
+The other architectures of ``repro/configs`` need MoE FFNs or Mamba
+mixers (ROADMAP queue A, item 4)."""
 
 from __future__ import annotations
 
@@ -9,15 +10,17 @@ import importlib
 
 from repro_torch.configs.base import ModelConfig, reduced
 
-ARCH_IDS = ("yi-9b",)
+ARCH_IDS = ("yi-9b", "rwkv6-1.6b")
 
 
 def get_config(arch: str) -> ModelConfig:
     if arch not in ARCH_IDS:
-        raise KeyError(f"arch {arch!r} is not ported yet (ROADMAP queue A); "
+        raise KeyError(f"arch {arch!r} is not ported yet (its MoE FFNs or "
+                       f"Mamba mixers wait, ROADMAP queue A item 4); "
                        f"ported: {ARCH_IDS}")
     return importlib.import_module(
-        "repro_torch.configs." + arch.replace("-", "_")).CONFIG
+        "repro_torch.configs." + arch.replace("-", "_").replace(".", "_")
+    ).CONFIG
 
 
 def smoke_config(arch: str, **kw) -> ModelConfig:

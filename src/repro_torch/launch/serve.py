@@ -1,12 +1,15 @@
 """Serving entry point of the port (port of ``repro/launch/serve.py``).
 
 Serves a batch of random prompts through the continuous-batching engine
-on the smoke config: on the card by default (the tri_attn kernels), or
-with ``--device cpu`` on the plain PyTorch versions. Weights are random
-from ``--seed`` (``models.model.init_params``).
+on the smoke config of ``--arch``: on the card by default (the tri_attn
+kernels; for rwkv6-1.6b the WKV kernel under sequential admission and
+lockstep decode, which the engine picks for a recurrent arch), or with
+``--device cpu`` on the plain PyTorch versions. Weights are random from
+``--seed`` (``models.model.init_params``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --requests 6
     PYTHONPATH=src python -m repro_torch.launch.serve --step-mode fused
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b
 """
 
 from __future__ import annotations
@@ -51,11 +54,12 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     impl = DEV.attn_impl(args.device)
-    if impl == "cuda" and (args.prefill_mode == "sequential"
-                           or args.decode_mode == "lockstep"):
-        ap.error("sequential prefill and lockstep decode run the plain "
-                 "version: pass --device cpu with them")
     cfg = REG.smoke_config(args.arch)
+    attn_only = all(k == "attn" for k in cfg.layer_kinds)
+    if impl == "cuda" and attn_only and (args.prefill_mode == "sequential"
+                                         or args.decode_mode == "lockstep"):
+        ap.error("sequential prefill and lockstep decode run the plain "
+                 "version of attention: pass --device cpu with them")
     params = MD.init_params(cfg, seed=args.seed, device=args.device)
     engine = Engine(params, cfg, slots=args.slots, max_len=args.max_len,
                     temperature=args.temperature, seed=args.seed,
@@ -80,8 +84,8 @@ def main(argv=None):
     st = engine.stats
     print(f"{len(results)}/{args.requests} requests, {n_tok} tokens "
           f"in {dt:.1f}s ({n_tok / dt:.1f} tok/s, {args.slots} slots, "
-          f"device={args.device}, step_mode={args.step_mode})")
-    print(f"prefill[{args.prefill_mode}]: {st['prefill_launches']} "
+          f"device={args.device}, step_mode={engine.step_mode})")
+    print(f"prefill[{engine.prefill_mode}]: {st['prefill_launches']} "
           f"launches for {st['prefill_requests']} requests / "
           f"{st['prefill_tokens']} tokens over {st['admit_rounds']} "
           f"admit rounds")

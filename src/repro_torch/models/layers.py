@@ -1,4 +1,5 @@
-"""Shared model layers: RMS norm, RoPE, GQA attention, the swiglu MLP.
+"""Shared model layers: RMS and layer norm, RoPE, GQA attention, the
+swiglu MLP.
 
 Port of the dense-attention part of ``repro/models/layers.py``. Parameters
 are plain dicts of tensors. The large projections stay ``torch.matmul``,
@@ -19,10 +20,33 @@ from repro_torch.kernels.tri_attn import ops as attn_ops
 from repro_torch.kernels.tri_attn import ref as attn_ref
 
 
+def dense_init(gen, shape, fan_in, dtype, device, stack: int = 0):
+    """N(0, 1/fan_in) weights from ``gen``; a stacked leaf is drawn one
+    layer at a time so the f32 draw never holds more than one layer."""
+    if not stack:
+        w = torch.randn(shape, generator=gen, device=device)
+        return (w / math.sqrt(fan_in)).to(dtype)
+    out = torch.empty((stack,) + tuple(shape), dtype=dtype, device=device)
+    for l in range(stack):
+        w = torch.randn(shape, generator=gen, device=device)
+        out[l] = (w / math.sqrt(fan_in)).to(dtype)
+    return out
+
+
 def rms_norm(x, scale, eps=1e-5):
     x32 = x.float()
     var = (x32 * x32).mean(dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def layer_norm(x, scale, bias, eps=1e-5):
+    """Statistics in float32, the result cast back to x's dtype, as the
+    reference's."""
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, unbiased=False)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None):

@@ -1,6 +1,7 @@
 """Top-level model: embedding -> layers -> norm -> LM head.
 
-Port of ``repro/models/model.py`` for the dense attention path:
+Port of ``repro/models/model.py`` for the dense attention and the RWKV-6
+architectures:
   init_params(cfg, seed, device)             -> params
   params_from_jax(np_params, cfg, device)    -> params (reference weights)
   forward(params, cfg, batch, ...)           -> (hidden, aux, states)
@@ -8,6 +9,7 @@ Port of ``repro/models/model.py`` for the dense attention path:
   loss_fn(params, cfg, batch, ...)           -> (loss, {"ce", "aux"})
   init_cache(cfg, batch, max_len, dtype, device)
   decode_step(params, cfg, cache, tok, pos)  -> (logits, cache)
+  prefill_cache(params, cfg, batch, max_len) -> (hidden, cache)
   fused_step(params, cfg, cache, ...)        -> (logits_admit, logits_dec,
                                                  cache, states)
 Params keep the reference pytree layout (``layers`` stacked on a leading
@@ -19,14 +21,13 @@ rather than zero-filling the whole stack for every layer it indexes.
 
 from __future__ import annotations
 
-import math
-
 import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as DEV
 from repro_torch.models import layers as L
+from repro_torch.models import rwkv6 as RW
 from repro_torch.models import transformer as T
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -34,19 +35,6 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 def param_dtype(cfg) -> torch.dtype:
     return _DTYPES[cfg.dtype]
-
-
-def _dense(gen, shape, fan_in, dtype, device, stack: int = 0):
-    """N(0, 1/fan_in) weights; a stacked leaf is drawn one layer at a time
-    so the f32 draw never holds more than one layer."""
-    if not stack:
-        w = torch.randn(shape, generator=gen, device=device)
-        return (w / math.sqrt(fan_in)).to(dtype)
-    out = torch.empty((stack,) + tuple(shape), dtype=dtype, device=device)
-    for l in range(stack):
-        w = torch.randn(shape, generator=gen, device=device)
-        out[l] = (w / math.sqrt(fan_in)).to(dtype)
-    return out
 
 
 def init_params(cfg, seed: int = 0, device=DEV.DEFAULT_DEVICE):
@@ -60,21 +48,28 @@ def init_params(cfg, seed: int = 0, device=DEV.DEFAULT_DEVICE):
     d, vp, n = cfg.d_model, cfg.padded_vocab, cfg.n_superlayers
     h, hkv, hd, f = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
     ones = lambda *s: torch.ones(s, dtype=torch.float32, device=dev)
+    dense = lambda shape, fan_in: L.dense_init(gen, shape, fan_in, dtype,
+                                               dev, n)
     layers = {}
-    for p in range(cfg.superlayer):
+    for p, kind in enumerate(cfg.layer_pattern):
+        if kind == "rwkv":  # the channel mix lives in the mixer dict
+            layers[f"l{p}"] = {"norm1": ones(n, d),
+                               "mixer": RW.init_rwkv(gen, cfg, dtype, dev, n),
+                               "norm2": ones(n, d)}
+            continue
         layers[f"l{p}"] = {
             "norm1": ones(n, d),
             "mixer": {
-                "wq": _dense(gen, (d, h * hd), d, dtype, dev, n),
-                "wk": _dense(gen, (d, hkv * hd), d, dtype, dev, n),
-                "wv": _dense(gen, (d, hkv * hd), d, dtype, dev, n),
-                "wo": _dense(gen, (h * hd, d), h * hd, dtype, dev, n),
+                "wq": dense((d, h * hd), d),
+                "wk": dense((d, hkv * hd), d),
+                "wv": dense((d, hkv * hd), d),
+                "wo": dense((h * hd, d), h * hd),
             },
             "norm2": ones(n, d),
             "ffn": {
-                "wi": _dense(gen, (d, f), d, dtype, dev, n),
-                "wg": _dense(gen, (d, f), d, dtype, dev, n),
-                "wo": _dense(gen, (f, d), f, dtype, dev, n),
+                "wi": dense((d, f), d),
+                "wg": dense((d, f), d),
+                "wo": dense((f, d), f),
             },
         }
     params = {
@@ -84,7 +79,7 @@ def init_params(cfg, seed: int = 0, device=DEV.DEFAULT_DEVICE):
         "final_norm": ones(d),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = _dense(gen, (d, vp), d, dtype, dev)
+        params["lm_head"] = L.dense_init(gen, (d, vp), d, dtype, dev)
     return params
 
 
@@ -111,9 +106,11 @@ def forward(params, cfg, batch, *, attn_impl: str = "cuda",
             collect_state: bool = False, positions=None, packed=None,
             remat: bool = False, block: int = 64):
     """Returns (hidden (B, S, d), aux, states_or_None); states stack each
-    layer's rotated k/v on a leading superlayer axis, as the reference's
-    scan does. Serving prefill passes the packed schedule and positions
-    restarting per request. ``remat`` recomputes each layer in the
+    layer's state leaves (an attention layer's rotated k/v, an rwkv
+    layer's shifts and WKV state) on a leading superlayer axis, as the
+    reference's scan does; ``attn_impl`` also picks the WKV impl.
+    Serving prefill passes the packed schedule and positions restarting
+    per request. ``remat`` recomputes each layer in the
     backward (``torch.utils.checkpoint``, the counterpart of the
     reference's ``jax.checkpoint`` with ``nothing_saveable``): only the
     layer inputs are kept. ``block`` is the attention tile edge of the
@@ -132,9 +129,9 @@ def forward(params, cfg, batch, *, attn_impl: str = "cuda",
 
         def superlayer(x, lp=lp):
             states = {}
-            for p in range(cfg.superlayer):
+            for p, kind in enumerate(cfg.layer_pattern):
                 x, states[f"l{p}"] = T.layer_fwd(
-                    lp[f"l{p}"], x, cfg, positions=positions,
+                    lp[f"l{p}"], x, cfg, kind, positions=positions,
                     attn_impl=attn_impl, packed=packed,
                     collect_state=collect_state, block=block)
             return x, states
@@ -148,11 +145,15 @@ def forward(params, cfg, batch, *, attn_impl: str = "cuda",
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if not collect_state:
         return x, aux, None
-    stacked = {f"l{p}": {kv: torch.stack([st[f"l{p}"][kv]
-                                          for st in per_layer])
-                         for kv in ("k", "v")}
-               for p in range(cfg.superlayer)}
-    return x, aux, stacked
+    return x, aux, _stack_states(per_layer)
+
+
+def _stack_states(per_layer):
+    """[{pattern slot: {leaf: tensor}}] per superlayer -> each leaf stacked
+    on a leading superlayer axis."""
+    return {slot: {name: torch.stack([st[slot][name] for st in per_layer])
+                   for name in leaves}
+            for slot, leaves in per_layer[0].items()}
 
 
 def logits_from_hidden(params, cfg, hidden):
@@ -205,21 +206,22 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
 
 
 def decode_step(params, cfg, cache, tokens, pos, decode_tbl=None,
-                decode_spec=None):
+                decode_spec=None, *, attn_impl: str = "cuda"):
     """One decode step. tokens: (B, 1) int; pos: scalar or (B,) absolute
     position of each new token. Returns (logits (B, 1, Vp) f32, cache);
-    the cache is written in place (see models/layers.py).
+    the cache is written in place (see models/transformer.py).
 
     decode_tbl + decode_spec switch attention to the packed mixed-position
-    decode; every layer shares the round's table."""
+    decode; every layer shares the round's table. ``attn_impl`` picks the
+    rwkv layers' WKV impl (the kernel at L = 1 on the card)."""
     x = params["embed"][tokens]
     for l in range(cfg.n_superlayers):
         lp = T.layer_params(params["layers"], l)
         lc = T.layer_params(cache, l)
-        for p in range(cfg.superlayer):
-            x = T.layer_decode(lp[f"l{p}"], x, cfg, lc[f"l{p}"], pos,
+        for p, kind in enumerate(cfg.layer_pattern):
+            x = T.layer_decode(lp[f"l{p}"], x, cfg, kind, lc[f"l{p}"], pos,
                                decode_tbl=decode_tbl,
-                               decode_spec=decode_spec)
+                               decode_spec=decode_spec, attn_impl=attn_impl)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return logits_from_hidden(params, cfg, x), cache
 
@@ -251,9 +253,33 @@ def fused_step(params, cfg, cache, pack_tokens, pack_positions, dec_tokens,
         per_layer.append(states)
     x_pack = L.rms_norm(x_pack, params["final_norm"], cfg.norm_eps)
     x_dec = L.rms_norm(x_dec, params["final_norm"], cfg.norm_eps)
-    stacked = {f"l{p}": {kv: torch.stack([st[f"l{p}"][kv]
-                                          for st in per_layer])
-                         for kv in ("k", "v")}
-               for p in range(cfg.superlayer)}
     return (logits_from_hidden(params, cfg, x_pack[:, admit_rows]),
-            logits_from_hidden(params, cfg, x_dec), cache, stacked)
+            logits_from_hidden(params, cfg, x_dec), cache,
+            _stack_states(per_layer))
+
+
+def prefill_cache(params, cfg, batch, max_len: int, *,
+                  attn_impl: str = "cuda", block: int = 64,
+                  cache_dtype=torch.bfloat16):
+    """Run the full-sequence forward, collect each layer's states and
+    assemble a decode cache covering positions [0, S). Returns (hidden,
+    cache). KV rows land in their slots (the last window of a rolling
+    cache, in decode's row order); recurrent states replace the cache
+    leaves wholesale."""
+    hidden, _, states = forward(params, cfg, batch, attn_impl=attn_impl,
+                                collect_state=True, block=block)
+    b, s = hidden.shape[0], hidden.shape[1]
+    cache = init_cache(cfg, b, max_len, cache_dtype, hidden.device)
+    for slot, leaves in cache.items():
+        for name, c in leaves.items():
+            st = states[slot][name]
+            if name not in ("k", "v"):
+                c.copy_(st)
+                continue
+            s_slots = c.shape[2]
+            if cfg.sliding_window is not None and s > s_slots:
+                take = st[:, :, s - s_slots:]
+                c.copy_(take.roll((s - s_slots) % s_slots, 2))
+            else:
+                c[:, :, :min(s, s_slots)] = st[:, :, :s_slots]
+    return hidden, cache

@@ -1,10 +1,14 @@
-"""Layer assembly (port of ``repro/models/transformer.py``, dense path).
+"""Layer assembly (port of ``repro/models/transformer.py``: the dense
+attention and the RWKV-6 layers).
 
-Each layer is pre-norm residual: x += Attn(RMS(x)); x += MLP(RMS(x)).
-Only the ``"attn"`` kind with a dense FFN is ported; other mixers and MoE
-FFNs raise ``NotImplementedError`` naming their ROADMAP item. Parameters
-keep the reference's layout: every leaf stacked on a leading superlayer
-axis, so ``layer_params(stack, l)`` views layer l.
+Each layer is pre-norm residual:
+  attn : x += Attn(RMS(x));    x += MLP(RMS(x))
+  rwkv : x += TimeMix(RMS(x)); x += ChannelMix(RMS(x))
+Mamba mixers and MoE FFNs raise ``NotImplementedError`` naming ROADMAP
+queue A item 4. Parameters and caches keep the reference's layout: every
+leaf stacked on a leading superlayer axis, so ``layer_params(stack, l)``
+views layer l. Decode writes every cache leaf IN PLACE (the reference
+returns a new cache).
 """
 
 from __future__ import annotations
@@ -12,19 +16,20 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import rwkv6 as RW
 
 
 def check_supported(cfg):
-    """Raise for the architectures this slice does not carry."""
+    """Raise for the architectures the port does not carry yet."""
     for idx, kind in enumerate(cfg.layer_pattern):
-        if kind != "attn":
+        if kind not in ("attn", "rwkv"):
             raise NotImplementedError(
                 f"{cfg.name}: {kind!r} mixers are not ported yet (ROADMAP "
-                "queue A item 6, models: mamba/rwkv6)")
+                "queue A item 4, models: mamba)")
         if cfg.is_moe_layer(idx):
             raise NotImplementedError(
                 f"{cfg.name}: MoE FFNs are not ported yet (ROADMAP queue A "
-                "item 6, models: moe)")
+                "item 4, models: moe)")
 
 
 def layer_params(tree, l: int):
@@ -35,12 +40,19 @@ def layer_params(tree, l: int):
     return tree[l]
 
 
-def layer_fwd(p, x, cfg, *, positions, attn_impl: str, packed,
+def layer_fwd(p, x, cfg, kind: str, *, positions, attn_impl: str, packed,
               collect_state: bool, block: int = 64):
-    """One attention layer over a full sequence (packed prefill batch or
-    training rows). Returns (x, state) with state {"k", "v"} when
-    collect_state."""
+    """One layer over a full sequence (packed prefill batch or training
+    rows). Returns (x, state): with collect_state an attention layer's
+    rotated {"k", "v"}, an rwkv layer's {"shift", "s", "shift_c"}."""
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
+    if kind == "rwkv":
+        out, st = RW.rwkv_time_mix(p["mixer"], h, cfg, impl=attn_impl)
+        x = x + out
+        h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
+        out2, shift_c = RW.rwkv_channel_mix(p["mixer"], h2, cfg)
+        return x + out2, (dict(st, shift_c=shift_c) if collect_state
+                          else None)
     out, k, v = L.attention(p["mixer"], h, cfg, positions=positions,
                             attn_impl=attn_impl, packed=packed, block=block)
     x = x + out
@@ -49,10 +61,24 @@ def layer_fwd(p, x, cfg, *, positions, attn_impl: str, packed,
     return x, ({"k": k, "v": v} if collect_state else None)
 
 
-def layer_decode(p, x, cfg, cache, pos, decode_tbl=None, decode_spec=None):
-    """x: (B, 1, d); cache: this layer's {"k", "v"} views (written in
-    place). decode_spec selects the packed mixed-position decode."""
+def layer_decode(p, x, cfg, kind: str, cache, pos, decode_tbl=None,
+                 decode_spec=None, attn_impl: str = "cuda"):
+    """x: (B, 1, d); cache: this layer's leaves (written in place).
+    decode_spec selects the packed mixed-position attention decode;
+    attn_impl picks the rwkv layer's WKV impl."""
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
+    if kind == "rwkv":
+        out, st = RW.rwkv_time_mix(
+            p["mixer"], h, cfg, state={"shift": cache["shift"],
+                                       "s": cache["s"]}, impl=attn_impl)
+        x = x + out
+        h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
+        out2, shift_c = RW.rwkv_channel_mix(p["mixer"], h2, cfg,
+                                            state=cache["shift_c"])
+        for name, new in dict(st, shift_c=shift_c).items():
+            if new is not cache[name]:
+                cache[name].copy_(new)
+        return x + out2
     if decode_spec is not None:
         out, _, _ = L.packed_decode_attention(
             p["mixer"], h, cfg, cache_k=cache["k"], cache_v=cache["v"],
@@ -89,11 +115,22 @@ def layer_fused(p, x_pack, x_dec, cfg, cache, pos, *, pack_positions,
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype, device):
-    """Stacked (n_superlayers, B, S, Hkv, hd) k/v cache per pattern slot."""
+    """Per pattern slot, stacked on the superlayer axis: an attention
+    layer's k/v (n_superlayers, B, S, Hkv, hd), an rwkv layer's shift,
+    s (f32) and shift_c."""
     check_supported(cfg)
-    s = max_len if cfg.sliding_window is None \
-        else min(cfg.sliding_window, max_len)
-    shape = (cfg.n_superlayers, batch, s, cfg.n_kv_heads, cfg.head_dim)
-    return {f"l{p}": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                      "v": torch.zeros(shape, dtype=dtype, device=device)}
-            for p in range(cfg.superlayer)}
+    n = cfg.n_superlayers
+    cache = {}
+    for p, kind in enumerate(cfg.layer_pattern):
+        if kind == "rwkv":
+            cache[f"l{p}"] = {
+                name: leaf.new_zeros((n,) + tuple(leaf.shape))
+                for name, leaf in RW.init_rwkv_state(cfg, batch, dtype,
+                                                     device).items()}
+            continue
+        s = max_len if cfg.sliding_window is None \
+            else min(cfg.sliding_window, max_len)
+        shape = (n, batch, s, cfg.n_kv_heads, cfg.head_dim)
+        cache[f"l{p}"] = {"k": torch.zeros(shape, dtype=dtype, device=device),
+                          "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return cache

@@ -13,6 +13,10 @@ sum_r ceil(kv_len_r / blk) tiles instead of the lockstep pad-to-max.
 
 ``fused_step`` does both at once: it prefills the newly admitted prompts
 and advances every live slot in ONE mixed launch per layer.
+
+``generate`` decodes a batch for a fixed number of tokens through
+``decode_step``, with per-slot positions and slot masking: the offline
+serving path, and the one recurrent architectures take.
 """
 
 from __future__ import annotations
@@ -70,14 +74,17 @@ def round_capacity(needed: int, floor: int = 8) -> int:
     return max(floor, 1 << max(0, int(needed) - 1).bit_length())
 
 
-def _attn_cache_len(cfg, cache):
-    """S_cache shared by every attention layer's KV leaves, identified by
-    the (n_sl, B, S, Hkv, hd) signature."""
-    for layer in cache.values():
-        for leaf in layer.values():
-            if leaf.ndim == 5 and tuple(leaf.shape[3:]) == (cfg.n_kv_heads,
-                                                            cfg.head_dim):
-                return leaf.shape[2]
+def _attn_cache_len(cfg, cache, max_len: int = 0):
+    """S_cache shared by every attention layer's KV leaves (n_sl, B, S,
+    Hkv, hd). An attention-free cache has none: with ``max_len`` the
+    reference engine's stand-in (max_len, or the window) is returned for
+    its decode-tile bookkeeping, which nothing else reads."""
+    for slot, kind in enumerate(cfg.layer_pattern):
+        if kind == "attn":
+            return cache[f"l{slot}"]["k"].shape[2]
+    if max_len:
+        return max(1, max_len if cfg.sliding_window is None
+                   else min(cfg.sliding_window, max_len))
     raise ValueError("no attention KV leaves in cache (recurrent-only "
                      "arch cannot take the packed decode path)")
 
@@ -116,6 +123,44 @@ def decode_step_packed(params, cfg, cache, tokens, pos, kv_lens, slots, *,
     info = {"tiles": needed, "tiles_padded": n_live * tiles_max,
             "capacity": capacity, "blk": blk}
     return logits, cache, info
+
+
+def generate(params, cfg, cache, first_tokens, start_pos, n_tokens: int, *,
+             temperature: float = 0.0, generator=None, active=None,
+             attn_impl: str = "cuda"):
+    """Decode ``n_tokens`` (port of the reference's ``generate``).
+
+    first_tokens: (B, 1) the first input token of each sequence;
+    start_pos: scalar or (B,) absolute position of that token; active:
+    optional (B,) bool. An inactive slot emits pad (0), keeps its
+    position, and its cache is left untouched (the in-place step
+    rewrites it; its rows are put back). Returns (tokens (B, n_tokens),
+    cache, pos)."""
+    b = first_tokens.shape[0]
+    dev = first_tokens.device
+    pos = torch.as_tensor(start_pos, dtype=torch.int32,
+                          device=dev).expand(b).clone()
+    act = torch.ones((b,), dtype=torch.bool, device=dev) if active is None \
+        else torch.as_tensor(active, dtype=torch.bool, device=dev)
+    idle = torch.nonzero(~act)[:, 0]
+    tok, toks = first_tokens, []
+    for _ in range(n_tokens):
+        kept = {slot: {name: leaf[:, idle].clone()
+                       for name, leaf in leaves.items()}
+                for slot, leaves in cache.items()} if len(idle) else None
+        logits, cache = MD.decode_step(params, cfg, cache, tok, pos,
+                                       attn_impl=attn_impl)
+        if kept is not None:
+            for slot, leaves in kept.items():
+                for name, rows in leaves.items():
+                    cache[slot][name][:, idle] = rows
+        nxt = sample_logits(logits[:, 0], temperature=temperature,
+                            vocab_size=cfg.vocab_size, generator=generator)
+        nxt = torch.where(act, nxt, 0)
+        toks.append(nxt)
+        tok = nxt[:, None]
+        pos = pos + act.to(torch.int32)
+    return torch.stack(toks, dim=1), cache, pos
 
 
 def _pack_prompts(prompts, block: int):

@@ -38,6 +38,16 @@ uncommitted admits back at the queue head), so a failing kernel never
 hides behind the plain version. Every request that ``run`` returns ended
 ``done`` or ``failed`` (poisoned past the last rung).
 
+An architecture with a recurrent layer (rwkv6) has no packed or fused
+path: as in the reference, its admits are sequential and its decode
+rounds lockstep, and with impl "cuda" both run the WKV kernel at L = 1,
+so the kernel's ladder still holds no plain rung. Unlike the reference,
+an admit first zeroes the slot's state (a retired request's state stays
+in its slot, and a lockstep round advances every slot), prefills
+prompt[:-1] on the slot's batch-1 view of the cache (no other slot's
+state moves), and leaves the last token to the first decode round,
+which applies it once. The reference applies it twice (ROADMAP C).
+
 With ``escalate_step_errors`` (set by a ``Fleet`` on its replicas) a
 poisoned output is not retried, degraded or quarantined either: it raises,
 before the round commits, so the fleet can migrate the replica's requests.
@@ -143,8 +153,10 @@ class Engine:
         for impl in (prefill_impl, decode_impl):
             if impl not in self.IMPLS:
                 raise ValueError(f"impl {impl!r}; known {self.IMPLS}")
-        if (prefill_mode, prefill_impl) == ("sequential", "cuda") or \
-                (decode_mode, decode_impl) == ("lockstep", "cuda"):
+        attn_only = all(k == "attn" for k in cfg.layer_kinds)
+        if attn_only and (
+                (prefill_mode, prefill_impl) == ("sequential", "cuda") or
+                (decode_mode, decode_impl) == ("lockstep", "cuda")):
             raise ValueError("sequential prefill and lockstep decode run the "
                              "plain version: pass impl='torch' with them")
         if not D.traced_prefill_ok([max_len], prefill_block):
@@ -181,15 +193,20 @@ class Engine:
         self.finished: List[Request] = []
         self.temperature = temperature
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        # recurrent state carries across a packed concatenation and has no
+        # packed-member notion: such archs admit sequentially and decode in
+        # lockstep, as the reference's engine does
+        self._recurrent = not attn_only
+        self.prefill_mode = prefill_mode if attn_only else "sequential"
         self.prefill_block = prefill_block
         self.prefill_impl = prefill_impl
-        self._admit_stages = admit_ladder(prefill_mode, prefill_impl)
-        self.decode_mode = decode_mode
+        self._admit_stages = admit_ladder(self.prefill_mode, prefill_impl)
+        self.decode_mode = decode_mode if attn_only else "lockstep"
         self.decode_impl = decode_impl
-        self.step_mode = step_mode
-        self.s_cache = D._attn_cache_len(cfg, self.cache)
+        self.step_mode = step_mode if attn_only else "split"
+        self.s_cache = D._attn_cache_len(cfg, self.cache, max_len)
         self.decode_block = D.decode_block_for(decode_block, self.s_cache)
-        if step_mode == "fused" and \
+        if self.step_mode == "fused" and \
                 not D.traced_prefill_ok([max_len], self.decode_block):
             raise ValueError(
                 f"max_len {max_len} at the fused step's block "
@@ -337,7 +354,10 @@ class Engine:
         """Sequential host-map prefill: run the request's feed through
         lockstep decode steps. Other slots' rows are rewritten at their
         own positions with their own last tokens, which is idempotent for
-        attention caches (see models/layers.py)."""
+        attention caches (see models/layers.py). A recurrent arch takes
+        ``_prefill_recurrent`` instead."""
+        if self._recurrent:
+            return self._prefill_recurrent(slot, req)
         toks = req.feed
         for t_idx, tok in enumerate(toks):
             self.last_tok[slot, 0] = int(tok)
@@ -349,6 +369,30 @@ class Engine:
         self._inc("prefill_launches", len(toks))
         self._inc("prefill_requests")
         self._inc("prefill_tokens", len(toks))
+
+    def _prefill_recurrent(self, slot: int, req: Request):
+        """Admit into a recurrent arch's slot: zero the slot's state, run
+        feed[:-1] through decode steps on the slot's batch-1 view of the
+        cache (the in-place steps move no other slot), and leave feed[-1]
+        to the next decode round, at position len(feed) - 1."""
+        view = {name: {leaf: t[:, slot:slot + 1] for leaf, t in leaves.items()}
+                for name, leaves in self.cache.items()}
+        for leaves in view.values():
+            for t in leaves.values():
+                t.zero_()
+        feed = req.feed
+        toks = torch.as_tensor(feed, dtype=torch.int64, device=self.device)
+        for t_idx in range(len(feed) - 1):
+            MD.decode_step(self.params, self.cfg, view,
+                           toks[t_idx:t_idx + 1, None], t_idx,
+                           attn_impl=self.prefill_impl)
+        self.last_tok[slot, 0] = int(feed[-1])
+        self.pos[slot] = len(feed) - 1
+        self.slot_req[slot] = req
+        self.remaining[slot] = req.max_new - len(req.out)
+        self._inc("prefill_launches", len(feed) - 1)
+        self._inc("prefill_requests")
+        self._inc("prefill_tokens", len(feed) - 1)
 
     def _admit_packed(self, pairs, rnd: int):
         """ONE packed prefill launch per layer for every (slot, request)
@@ -477,7 +521,8 @@ class Engine:
             else:
                 logits, cache = MD.decode_step(self.params, self.cfg,
                                                self.cache, self.last_tok,
-                                               self.pos)
+                                               self.pos,
+                                               attn_impl=self.decode_impl)
             sp.attach(logits)
         return logits, cache
 

@@ -9,6 +9,9 @@ dk/dv kernels, or, for a packed document batch, the packed forward and
 the packed dq and dk/dv kernels. The parameters are updated IN PLACE (the reference returns
 a new state): the returned state shares its tensors with the one passed
 in, which the caller must not reuse.
+
+``make_prefill_step`` and ``make_serve_step`` are the offline serving
+entry points (no autograd).
 """
 
 from __future__ import annotations
@@ -155,3 +158,40 @@ def make_train_step(cfg, opt: OPT.OptConfig, *, microbatches: int = 1,
         return new_state, metrics
 
     return instrumented_step
+
+
+# ---------------------------------------------------------------------------
+# Serving steps (the offline entry points)
+# ---------------------------------------------------------------------------
+
+
+def make_serve_step(cfg, *, attn_impl: str = "cuda"):
+    """serve_step(params, cache, tokens, pos) -> (next-token logits (B,
+    Vp), cache): one new token per sequence against its cache or
+    recurrent state (written in place)."""
+
+    @torch.no_grad()
+    def serve_step(params, cache, tokens, pos):
+        logits, cache = MD.decode_step(params, cfg, cache, tokens, pos,
+                                       attn_impl=attn_impl)
+        return logits[:, -1], cache
+
+    return serve_step
+
+
+def make_prefill_step(cfg, *, attn_impl: str = "cuda", block: int = 64,
+                      cache_dtype=torch.bfloat16):
+    """prefill_step(params, {"tokens": (B, S)}) -> (last-position logits
+    (B, Vp), decode cache covering [0, S)). On the card an rwkv model's
+    WKV region is one kernel launch a layer over all B x S x H streams."""
+
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        MET.counter_inc("prefill_step_calls", 1, {"impl": attn_impl})
+        hidden, cache = MD.prefill_cache(
+            params, cfg, batch, batch["tokens"].shape[1],
+            attn_impl=attn_impl, block=block, cache_dtype=cache_dtype)
+        return MD.logits_from_hidden(params, cfg, hidden[:, -1:])[:, 0], \
+            cache
+
+    return prefill_step

@@ -957,3 +957,143 @@ def test_packed_prefix_past_member_kernels(dev):
         for got, w in zip(res["cuda"][1:], want[1:]):
             np.testing.assert_allclose(got.cpu().numpy(), w.cpu().numpy(),
                                        **GRAD_TOL[torch.float32])
+
+
+# ---------------------------------------------------------------------------
+# The RWKV-6 WKV recurrence: wkv_scan.wkv (csrc/wkv_scan.cu) against its
+# plain version (ref.py) on the same inputs; f32 within 1e-4 (the two
+# sum the hd-long dot products in other orders over up to 100 steps),
+# bf16 outputs within a bf16 rounding.
+# ---------------------------------------------------------------------------
+
+WKV_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
+           torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+
+
+def _wkv_case(dev, b, l, h, hd, dtype=torch.float32, seed=0):
+    rng = np.random.default_rng(seed + l + hd)
+    f = lambda *s: torch.as_tensor(
+        (0.5 * rng.standard_normal(s)).astype(np.float32), device=dev)
+    r, k, v = f(b, l, h, hd), f(b, l, h, hd), f(b, l, h, hd)
+    lw = -torch.exp(f(b, l, h, hd))
+    return ([t.to(dtype) for t in (r, k, v, lw)] + [f(h, hd)],
+            f(b, h, hd, hd))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,l,h,hd,block_l", [(1, 8, 1, 8, 64),
+                                              (2, 64, 4, 64, 64),
+                                              (2, 37, 3, 16, 64),
+                                              (3, 100, 8, 32, 64),
+                                              (2, 96, 2, 64, 16)])
+def test_wkv_matches_plain(dev, b, l, h, hd, block_l, dtype):
+    from repro_torch.kernels.wkv_scan import kernel as WK
+    from repro_torch.kernels.wkv_scan import ref as WR
+
+    xs, s0 = _wkv_case(dev, b, l, h, hd, dtype)
+    before = WK.wkv.launches
+    out, s_l = WK.wkv(*xs, s0, block_l=block_l)
+    torch.cuda.synchronize()
+    assert WK.wkv.launches == before + 1
+    assert out.dtype == dtype and s_l.dtype == torch.float32
+    want_o, want_s = WR.wkv_ref(*xs, s0)
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               want_o.to(dtype).float().cpu().numpy(),
+                               **WKV_TOL[dtype])
+    np.testing.assert_allclose(s_l.cpu().numpy(), want_s.cpu().numpy(),
+                               **WKV_TOL[torch.float32])
+
+
+def test_wkv_aliased_decode_state_and_chaining(dev):
+    """L = 1 steps with s0 and s_L the same cache tensor, chained over 16
+    steps, equal one launch over the 16 (and the plain version)."""
+    from repro_torch.kernels.wkv_scan import kernel as WK
+
+    (r, k, v, lw, u), s0 = _wkv_case(dev, 4, 16, 8, 64, seed=1)
+    whole_o, whole_s = WK.wkv(r, k, v, lw, u, s0)
+    cache = s0.clone()
+    outs = []
+    for t in range(16):
+        o, s = WK.wkv(r[:, t:t + 1].contiguous(), k[:, t:t + 1].contiguous(),
+                      v[:, t:t + 1].contiguous(),
+                      lw[:, t:t + 1].contiguous(), u, cache,
+                      state_out=cache)
+        assert s is cache
+        outs.append(o)
+    torch.cuda.synchronize()
+    tol = WKV_TOL[torch.float32]
+    np.testing.assert_allclose(torch.cat(outs, 1).cpu().numpy(),
+                               whole_o.cpu().numpy(), **tol)
+    np.testing.assert_allclose(cache.cpu().numpy(), whole_s.cpu().numpy(),
+                               **tol)
+    plain_o, plain_s = WK.wkv_torch(r, k, v, lw, u, s0)
+    np.testing.assert_allclose(whole_s.cpu().numpy(), plain_s.cpu().numpy(),
+                               **tol)
+
+
+def test_wkv_refuses_instead_of_falling_back(dev, monkeypatch):
+    """hd > 64, mixed dtypes and inputs that need a gradient raise before
+    a launch; a launch CUDA refuses raises and is not counted."""
+    from repro_torch.kernels.wkv_scan import kernel as WK
+
+    before = WK.wkv.launches
+    (r, k, v, lw, u), _ = _wkv_case(dev, 1, 4, 1, 128)
+    with pytest.raises(ValueError, match="head size 128"):
+        WK.wkv(r, k, v, lw, u)
+    (r, k, v, lw, u), _ = _wkv_case(dev, 1, 4, 2, 16)
+    with pytest.raises(ValueError, match="one dtype"):
+        WK.wkv(r.bfloat16(), k, v, lw, u)
+    with pytest.raises(ValueError, match="no backward"):
+        WK.wkv(r.requires_grad_(), k, v, lw, u)
+    lib = BUILD.load("wkv_scan")
+    monkeypatch.setattr(lib, "wkv_launch", lambda *a: 9)
+    with pytest.raises(RuntimeError, match="cudaError 9"):
+        WK.wkv(r.detach(), k, v, lw, u)
+    assert WK.wkv.launches == before
+
+
+def test_rwkv_serving_on_the_card(dev):
+    """Smoke-size float32 rwkv6 on the card: the engine (2 slots, 5
+    requests: reused slots, a 1-token prompt) through the WKV kernel
+    emits the tokens of a batch-1 generate on the card, and of the
+    engine on the plain versions; every launch is the kernel's."""
+    from repro_torch.configs import registry as REG
+    from repro_torch.kernels.wkv_scan import kernel as WK
+    from repro_torch.models import model as MD
+    from repro_torch.serve import decode as D
+    from repro_torch.serve.engine import Engine
+    from repro_torch.train import train_step as TS
+
+    cfg = REG.smoke_config("rwkv6-1.6b")
+    params = MD.init_params(cfg, seed=3, device=dev)
+    prompts = [[3, 1, 4, 1, 5], [2, 7, 1], [9, 9, 8, 2, 6, 5], [4, 4, 2],
+               [7]]
+
+    def engine(impl, device):
+        p = params if device == dev else _to(params, device)
+        eng = Engine(p, cfg, slots=2, max_len=48, prefill_impl=impl,
+                     decode_impl=impl, device=device)
+        for uid, pr in enumerate(prompts):
+            eng.submit(np.asarray(pr, np.int32), max_new=6, uid=uid)
+        return eng.run()
+
+    before = WK.wkv.launches
+    got = engine("cuda", dev)
+    assert WK.wkv.launches > before
+    assert got == engine("torch", "cpu")
+    prefill = TS.make_prefill_step(cfg, cache_dtype=torch.float32)
+    for uid, pr in enumerate(prompts):
+        toks = torch.as_tensor([pr], device=dev)
+        if len(pr) > 1:
+            _, cache = prefill(params, {"tokens": toks[:, :-1]})
+        else:
+            cache = MD.init_cache(cfg, 1, 48, torch.float32, dev)
+        out, _, _ = D.generate(params, cfg, cache, toks[:, -1:],
+                               len(pr) - 1, 6)
+        assert out[0].tolist() == got[uid], uid
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
