@@ -4,7 +4,7 @@
 
 Phases (any failure exits non-zero; nothing is caught):
   1. the card's name and power limit (nvidia-smi);
-  2. build the ten CUDA sources of src/repro_torch/csrc (nvcc, sm_90a);
+  2. build the eleven CUDA sources of src/repro_torch/csrc (nvcc, sm_90a);
   3. kernels: each kernel of the serving path at full yi-9b width (H=32,
      Hkv=4, D=128, blk=64, bf16 q/k/v, f32 decode cache) against its
      plain PyTorch version on the card (outputs within atol 4e-3 + rtol
@@ -83,6 +83,26 @@ Phases (any failure exits non-zero; nothing is caught):
      float32 engine (2 slots, 8 requests, a 1-token prompt) emitting
      batch-1 generate's tokens on the card; the serving CLI with --arch
      rwkv6-1.6b;
+  7d. jamba: ssm_scan.selective_scan at the model's prefill shape (B 4,
+     L 2048, D 16384, N 16) against its plain version (within 1e-4 of its
+     scale) in f32 and with bf16 inputs (5e-2), at the reference test's
+     shapes, two halves chained equal to the whole, an L = 1 step at B 4
+     whose state aliases its cache; timed beside the plain version (no
+     library call computes a selective scan) and the bound (bytes against
+     the exponentials on the SFUs); then jamba-1.5-large-398b at its
+     published widths cut to one superlayer (7 Mamba + 1 attention
+     layers) and 4 of 16 experts, random seeded bf16 weights (32.26 GB):
+     make_prefill_step on 4 x 2048 tokens with exactly 7 ssm launches and
+     1 tri_attn.fwd and no plain version, generate 32 tokens with 7 a
+     token, prefill of 2047 + one decode step equal to the forward's last
+     logits (the bf16 policy), the engine (4 slots, 8 requests of 16-128
+     prompt tokens, 16 new each): every request done, launches = 7 x
+     (admission steps + lockstep rounds), each slot's state after its
+     admission equal to a batch-1 decode of the prompt bit for bit (the
+     first-token logits against it reported); profiler windows over the
+     prefill and 4 tokens; a smoke-size float32 engine on the kernels
+     emitting the plain versions' tokens; the serving CLI with --arch
+     jamba-1.5-large-398b;
   8. training: yi-9b at full width (24 of 48 layers unless --train-layers
      says otherwise: the 48-layer AdamW state does not fit 80 GB) for 3
      steps of seq 4096, batch 1, remat, random seeded bf16 weights,
@@ -1521,6 +1541,13 @@ RWKV_F32_TOL = dict(atol=1e-3, rtol=1e-3)
 WKV_REL = 1e-4  # f32 kernel against its plain version, relative
 
 
+def _logit_tol(want) -> dict:
+    """RWKV_LOGIT_TOL with its absolute part scaled by the largest logit
+    (the bf16 policy of tests/test_torch_models.py)."""
+    scale = max(1.0, float(want.float().abs().max()))
+    return dict(RWKV_LOGIT_TOL, atol=RWKV_LOGIT_TOL["atol"] * scale)
+
+
 def _device_ms(fn, count: int, kernel: str) -> float:
     """Device time a call of the kernels whose name holds ``kernel``, from
     a torch.profiler window over ``fn()`` (``count`` calls): the
@@ -1684,8 +1711,7 @@ def rwkv_serving_phase(dev, card):
         "wkv_scan.wkv": layers * (2 + 1 + RWKV_NEW)})
     scale = float(logits_full.abs().max())
     err = _close("rwkv prefill + decode vs forward (bf16)", logits_dec,
-                 logits_full, dict(RWKV_LOGIT_TOL, atol=RWKV_LOGIT_TOL["atol"]
-                                   * max(1.0, scale)))
+                 logits_full, _logit_tol(logits_full))
     if gen.shape != (nb, RWKV_NEW) or not bool(
             ((gen >= 0) & (gen < cfg.vocab_size)).all()):
         _fail(f"rwkv generate: tokens {tuple(gen.shape)} out of range")
@@ -1842,6 +1868,362 @@ def rwkv_cli_phase():
         _fail(f"serve CLI (rwkv6-1.6b): {report}, launches {_launches(WK)}")
     print("serve CLI: python -m repro_torch.launch.serve --arch rwkv6-1.6b "
           "served 6 requests through the WKV kernel", flush=True)
+
+
+SSM_SHAPE = (4, 2048, 16384, 16)  # the kernel at full width: B, L, D, N
+SSM_TEST_SHAPES = ((1, 8, 16, 4), (3, 16, 32, 32), (2, 128, 256, 16))
+SSM_REL = 1e-4  # f32 kernel against its plain version, relative
+# bf16 inputs: both run in f32 and round y to bf16 once (the reference
+# test's bf16 tolerance)
+SSM_BF16_TOL = dict(atol=5e-2, rtol=5e-2)
+SFU_EXP_PER_CLOCK_SM = 16  # ex2 a clock on one SM (compute capability 9.0)
+H100_SMS = 132
+# jamba-1.5-large-398b at its published widths, cut to one superlayer
+# (7 Mamba + 1 attention layers) and 4 of its 16 experts (the
+# reference's reduced() expert cut): 32.26 GB of bf16 weights
+JAMBA_CUT = dict(n_layers=8, n_experts=4)
+JAMBA_PROMPTS = (4, 2048)  # offline serving: prompts x tokens
+JAMBA_NEW = 32  # tokens generate decodes after the prefill
+JAMBA_ENGINE = dict(slots=4, requests=8, lens=(16, 128), max_new=16)
+
+
+def _max_sm_clock_hz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def _ssm_inputs(gen, dev, b, l, d, n, dtype=torch.float32):
+    """The reference test's distributions: x, Bt, Ct ~ N(0, 1), dt =
+    softplus(N(0, 1) - 1), A = -exp(0.3 N(0, 1)); h0 ~ N(0, 1)."""
+    rand = lambda *s: torch.randn(s, generator=gen, device=dev)
+    x = rand(b, l, d)
+    dt = torch.nn.functional.softplus(rand(b, l, d) - 1)
+    a = -torch.exp(0.3 * rand(d, n))
+    bt, ct, h0 = rand(b, l, n), rand(b, l, n), rand(b, d, n)
+    return [t.to(dtype) for t in (x, dt)] + [a] + \
+        [t.to(dtype) for t in (bt, ct)] + [h0]
+
+
+def ssm_kernel_phase(dev):
+    """ssm_scan.selective_scan at the model's prefill shape (B 4, L 2048,
+    D 16384, N 16) against its plain version (ref.py) on the card: f32,
+    bf16 inputs, the reference test's shapes, halves chained equal to the
+    whole, an L = 1 step at B 4 with its state aliased (h0 = h_L); timed
+    beside the plain version. No PyTorch call computes a selective scan
+    (library: none)."""
+    from repro_torch.kernels.ssm_scan import kernel as SK
+    from repro_torch.kernels.ssm_scan import ref as SR
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    b, l, d, n = SSM_SHAPE
+    with torch.no_grad():
+        for shape in SSM_TEST_SHAPES:
+            for dtype in (torch.float32, torch.bfloat16):
+                xs = _ssm_inputs(gen, dev, *shape, dtype)
+                y, h = SK.selective_scan(*xs)
+                wy, wh = SR.selective_scan_ref(*xs)
+                if dtype == torch.float32:
+                    _wkv_close(f"ssm {shape} f32", y, wy, SSM_REL)
+                else:
+                    _close(f"ssm {shape} bf16", y, wy.bfloat16(),
+                           SSM_BF16_TOL)
+                _wkv_close(f"ssm {shape} {dtype} state", h, wh, SSM_REL)
+        x, dt, a, bt, ct, h0 = _ssm_inputs(gen, dev, *SSM_SHAPE)
+        y, h_l = SK.selective_scan(x, dt, a, bt, ct, h0)
+        want_y, want_h = SR.selective_scan_ref(x, dt, a, bt, ct, h0)
+        err = max(_wkv_close("ssm f32 y", y, want_y, SSM_REL),
+                  _wkv_close("ssm f32 state", h_l, want_h, SSM_REL))
+        del want_y
+        m = l // 2
+        half = lambda t, s: t[:, s].contiguous()
+        y1, h1 = SK.selective_scan(half(x, slice(0, m)), half(dt, slice(0, m)),
+                                   a, half(bt, slice(0, m)),
+                                   half(ct, slice(0, m)), h0)
+        y2, h2 = SK.selective_scan(half(x, slice(m, l)), half(dt, slice(m, l)),
+                                   a, half(bt, slice(m, l)),
+                                   half(ct, slice(m, l)), h1)
+        _wkv_close("ssm halves", torch.cat([y1, y2], 1), y, SSM_REL)
+        _wkv_close("ssm halves state", h2, h_l, SSM_REL)
+        del y1, y2
+        one = [t[:, :1].contiguous() for t in (x, dt)] + [a] + \
+            [t[:, :1].contiguous() for t in (bt, ct)]
+        cache = h0.clone()
+        o, s = SK.selective_scan(*one, cache, state_out=cache)
+        w_o, w_s = SR.selective_scan_ref(*one, h0)
+        if s is not cache:
+            _fail("ssm: state_out is not the aliased cache")
+        _wkv_close("ssm L=1 aliased", o, w_o, SSM_REL)
+        _wkv_close("ssm L=1 aliased state", cache, w_s, SSM_REL)
+        bf = [t.bfloat16() for t in (x, dt, bt, ct)]
+        bf_args = (bf[0], bf[1], a, bf[2], bf[3], h0)
+        y_bf, _ = SK.selective_scan(*bf_args)
+        w_bf, _ = SR.selective_scan_ref(*bf_args)
+        if y_bf.dtype != torch.bfloat16:
+            _fail(f"ssm bf16: output dtype {y_bf.dtype}")
+        err_bf = _close("ssm bf16", y_bf, w_bf.bfloat16(), SSM_BF16_TOL)
+        del w_bf
+        torch.cuda.synchronize()
+        ms = _median_ms(lambda: SK.selective_scan(x, dt, a, bt, ct, h0), 20)
+        ms_bf16 = _median_ms(lambda: SK.selective_scan(*bf_args), 20)
+        ms_step = _median_ms(
+            lambda: SK.selective_scan(*one, cache, state_out=cache), 50)
+        dev_step = _device_ms(
+            lambda: [SK.selective_scan(*one, cache, state_out=cache)
+                     for _ in range(50)], 50, "ssm_kernel")
+        dev_ms = _device_ms(lambda: [SK.selective_scan(x, dt, a, bt, ct, h0)
+                                     for _ in range(5)], 5, "ssm_kernel")
+        plain_ms = _median_ms(
+            lambda: SK.selective_scan_torch(x, dt, a, bt, ct, h0), 3, 1)
+    # the least time: x, dt, y (B, L, D) and Bt, Ct, A, h0, h_L once each,
+    # against 6 N + 1 f32 flops and N exponentials a (b, t, d) on the
+    # SFUs at the card's largest SM clock
+    nbytes = 4 * (3 * b * l * d + 2 * b * l * n + d * n + 2 * b * d * n)
+    bound_bytes, _ = _bound(nbytes, 0, torch.float32)
+    bound_flops = b * l * d * (6 * n + 1) / PEAK_FLOPS[torch.float32] * 1e3
+    clock = _max_sm_clock_hz()
+    bound_exp = b * l * d * n / (SFU_EXP_PER_CLOCK_SM * H100_SMS * clock) \
+        * 1e3
+    bound = max(bound_bytes, bound_flops, bound_exp)
+    bound_by = "bytes" if bound == bound_bytes else "operations"
+    print(f"ssm: B={b} L={l} D={d} N={n} f32 {ms:.4f} ms (bound "
+          f"{bound:.4f} by {bound_by}: bytes {bound_bytes:.4f}, f32 flops "
+          f"{bound_flops:.4f}, exponentials on the SFUs at "
+          f"{clock / 1e6:.0f} MHz {bound_exp:.4f}; plain {plain_ms:.2f}), "
+          f"bf16 inputs {ms_bf16:.4f} ms (device time by the profiler "
+          f"{dev_ms:.4f} f32), one L=1 step at B={b} {ms_step:.4f} ms "
+          f"through the wrapper, {dev_step:.4f} ms on the device; max abs "
+          f"err {err:.3g} (f32), {err_bf:.3g} (bf16); the reference test's "
+          f"shapes, halves chained and the aliased L=1 state agree",
+          flush=True)
+    return {"name": "ssm_scan.selective_scan", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssm_scan.cu",
+            "replaces": "src/repro/kernels/ssm_scan/kernel.py:67",
+            "max_abs_err": err, "max_abs_err_bf16": err_bf, "ms": ms,
+            "ms_bf16": ms_bf16, "ms_device": dev_ms, "ms_step_l1": ms_step,
+            "ms_step_l1_device": dev_step, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by,
+            "bound_bytes_ms": bound_bytes, "bound_flops_ms": bound_flops,
+            "bound_exp_ms": bound_exp, "library_ms": None, "library": None,
+            "shape": {"B": b, "L": l, "D": d, "N": n, "dtype": "float32"}}
+
+
+def jamba_serving_phase(dev, card):
+    """jamba-1.5-large-398b at its published widths, one superlayer (7
+    Mamba layers, 1 attention layer) and 4 of 16 experts, random seeded
+    bf16 weights: make_prefill_step on 4 x 2048 tokens (7 ssm launches
+    and 1 tri_attn.fwd, no plain version), generate 32 tokens (7 a
+    token), prefill of 2047 + one decode step against the forward's last
+    logits (the bf16 policy); the engine (4 slots, 8 requests of 16-128
+    prompt tokens, 16 new each): every request done, launches = 7 x
+    (admission steps + lockstep rounds), each slot's state after its
+    admission equal to a batch-1 decode of the prompt bit for bit (the
+    first-token logits against it reported); profiler windows over the
+    prefill and 4 tokens. Then at smoke size in f32: the engine on the
+    kernels and on the plain versions emit the same tokens. Returns the
+    ssm launches of the engine run and of the offline run."""
+    import types
+
+    from repro_torch.configs import jamba_1_5_large_398b
+    from repro_torch.configs import registry as REG
+    from repro_torch.kernels.ssm_scan import kernel as SK
+    from repro_torch.kernels.tri_attn import kernel as K
+    from repro_torch.models import model as MD
+    from repro_torch.obs import metrics as MET
+    from repro_torch.serve import decode as D
+    from repro_torch.serve.engine import Engine
+    from repro_torch.train import train_step as TS
+
+    both = types.SimpleNamespace(WRAPPERS={**K.WRAPPERS, **SK.WRAPPERS})
+    cfg = dataclasses.replace(jamba_1_5_large_398b.CONFIG, **JAMBA_CUT)
+    mamba = sum(k == "mamba" for k in cfg.layer_kinds)
+    torch.cuda.reset_peak_memory_stats()
+    params = MD.init_params(cfg, seed=0, device=dev)
+    gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+    counts = cfg.param_counts()
+    print(f"jamba: {cfg.n_layers} layers ({mamba} Mamba), {cfg.n_experts} "
+          f"experts top-{cfg.experts_per_token}, d_model {cfg.d_model}, "
+          f"d_inner {cfg.d_inner}, d_ff {cfg.d_ff}: {gb:.2f} GB of bf16 "
+          f"weights loaded ({counts['total'] / 1e9:.2f} B parameters, "
+          f"{counts['active'] / 1e9:.2f} B active a token)", flush=True)
+    nb, nl = JAMBA_PROMPTS
+    # the attention layer's cache holds the tokens generate adds
+    prefill = TS.make_prefill_step(cfg, max_len=nl + JAMBA_NEW + 4)
+    serve = TS.make_serve_step(cfg)
+    rng = np.random.default_rng(20)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (nb, nl)),
+                           device=dev)
+
+    # -- offline serving, counted --------------------------------------------
+    _reset_launches(both)
+    reg = MET.Registry("jamba_prefill")
+    with MET.scope(reg):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits_full, cache = prefill(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        first_prefill_s = time.perf_counter() - t0
+    _check_launches("jamba prefill", both, reg, {
+        "ssm_scan.selective_scan": mamba, "tri_attn.fwd": 1})
+    _reset_launches(both)
+    reg = MET.Registry("jamba_generate")
+    with MET.scope(reg):
+        first = D.sample_logits(logits_full, vocab_size=cfg.vocab_size)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen, _, _ = D.generate(params, cfg, cache, first[:, None], nl,
+                               JAMBA_NEW)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+    offline = _check_launches("jamba generate", both, reg, {
+        "ssm_scan.selective_scan": mamba * JAMBA_NEW})
+    if gen.shape != (nb, JAMBA_NEW) or not bool(
+            ((gen >= 0) & (gen < cfg.vocab_size)).all()):
+        _fail(f"jamba generate: tokens {tuple(gen.shape)} out of range")
+    profile_window(lambda: D.generate(params, cfg, cache, gen[:, -1:],
+                                      nl + JAMBA_NEW, 4), 4, "token",
+                   f"jamba generate tokens at B {nb}", card)
+    del cache
+    _, cache_m1 = prefill(params, {"tokens": toks[:, :-1]})
+    logits_dec, _ = serve(params, cache_m1, toks[:, -1:], nl - 1)
+    del cache_m1
+    scale = float(logits_full.abs().max())
+    err = _close("jamba prefill + decode vs forward (bf16)", logits_dec,
+                 logits_full, _logit_tol(logits_full))
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    profile_window(lambda: prefill(params, {"tokens": toks}), 1, "prefill",
+                   f"jamba prefill of {nb} x {nl} tokens", card)
+    print(f"jamba offline: prefill {nb} x {nl} tokens in {prefill_s:.4f} s "
+          f"({nb * nl / prefill_s:.1f} tok/s; the first, counted one "
+          f"{first_prefill_s:.4f} s), generate {JAMBA_NEW} tokens for {nb} "
+          f"in {gen_s:.4f} s ({nb * JAMBA_NEW / gen_s:.1f} tok/s); ssm "
+          f"launches {mamba} a prefill (with 1 tri_attn.fwd) and a token, no "
+          f"plain version; prefill {nl - 1} + decode vs forward last logits "
+          f"(bf16) max abs err {err:.4g}, largest logit {scale:.4g} (tol "
+          f"{RWKV_LOGIT_TOL}, atol x max(1, largest)); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+
+    # -- the engine at full width, counted ------------------------------------
+    class Probe(Engine):
+        """Keeps each request's slot state right after its admission and
+        its first-token logits."""
+        admitted, first = {}, {}
+
+        def _prefill_recurrent(self, slot, req):
+            super()._prefill_recurrent(slot, req)
+            self.admitted[req.uid] = {
+                (name, leaf): t[:, slot].clone()
+                for name, leaves in self.cache.items()
+                for leaf, t in leaves.items()}
+
+        def _decode_round(self, live, kv_lens, rnd):
+            logits, cache = super()._decode_round(live, kv_lens, rnd)
+            for s in live:
+                req = self.slot_req[s]
+                if not req.out:
+                    self.first[req.uid] = logits[s, 0].float()
+            return logits, cache
+
+    ek = JAMBA_ENGINE
+    prompts = _rwkv_prompts(rng, ek["requests"], ek["lens"], cfg.vocab_size)
+    max_new = [ek["max_new"]] * len(prompts)
+    _reset_launches(both)
+    reg = MET.Registry("jamba_engine")
+    with MET.scope(reg):
+        eng = Probe(params, cfg, slots=ek["slots"], max_len=256, device=dev)
+        results, dt = _serve(eng, prompts, max_new)
+    st = _check_served("jamba engine", eng, results, range(len(prompts)),
+                       max_new, cfg)
+    engine_launches = _check_launches("jamba engine", both, reg, {
+        "ssm_scan.selective_scan": mamba * (st["prefill_launches"]
+                                            + st["decode_rounds"])})
+    if st["prefill_launches"] != sum(len(p) - 1 for p in prompts):
+        _fail(f"jamba engine: {st['prefill_launches']} admission steps")
+    errs = []
+    for uid, p in enumerate(prompts):
+        # a batch-1 greedy decode, the prompt fed token by token (the
+        # engine's own semantics, and the CPU tests' reference): after
+        # prompt[:-1] the slot's state (h, conv, k/v) is bit for bit the
+        # engine's after admission (a fresh slot, each token applied
+        # once); the last token's logits come from a batch-4 round in the
+        # engine, whose GEMMs round at other places in bf16: reported
+        pt = torch.as_tensor(p, device=dev)[None]
+        c1 = MD.init_cache(cfg, 1, 256, torch.float32, dev)
+        for t in range(len(p) - 1):
+            _, c1 = serve(params, c1, pt[:, t:t + 1], t)
+        for (name, leaf), got in eng.admitted[uid].items():
+            if not torch.equal(got, c1[name][leaf][:, 0]):
+                _fail(f"jamba engine request {uid}: {name}.{leaf} after "
+                      "admission differs from a batch-1 decode of the "
+                      "prompt")
+        want, _ = serve(params, c1, pt[:, -1:], len(p) - 1)
+        errs.append(float((eng.first[uid][None] - want).abs().max()))
+    n_tok = sum(len(v) for v in results.values())
+    print(f"jamba engine: {len(prompts)} requests ({ek['lens'][0]}-"
+          f"{ek['lens'][1]} prompt tokens, {ek['max_new']} new) on "
+          f"{ek['slots']} slots, all done, {n_tok} tokens in {dt:.3f} s "
+          f"({n_tok / dt:.2f} tok/s, {st['decode_rounds']} lockstep rounds, "
+          f"{st['prefill_launches']} admission steps, "
+          f"{engine_launches['ssm_scan.selective_scan']} ssm launches); "
+          f"each slot's state after admission equals a batch-1 decode of "
+          f"its prompt bit for bit; first-token logits against the batch-1 "
+          f"decode's: max abs err {max(errs):.4g} (not asserted: a batch-4 "
+          f"round's bf16 GEMMs); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    del params, eng
+    torch.cuda.empty_cache()
+
+    # -- smoke size, float32: kernel and plain engines emit the same tokens --
+    scfg = REG.smoke_config("jamba-1.5-large-398b")
+    sparams = MD.init_params(scfg, seed=3, device=dev)
+    sprompts = [np.asarray(p, np.int32) for p in
+                ([3, 1, 4, 1, 5], [2, 7, 1], [9, 9, 8, 2, 6, 5], [4, 4, 2],
+                 [7])] + _rwkv_prompts(rng, 3, (16, 40), scfg.vocab_size)
+    smax = [6] * len(sprompts)
+    got = {}
+    for impl in ("cuda", "torch"):
+        _reset_launches(SK)
+        eng = Engine(sparams, scfg, slots=2, max_len=64, prefill_impl=impl,
+                     decode_impl=impl, device=dev)
+        got[impl], _ = _serve(eng, sprompts, smax)
+        _check_served(f"jamba smoke engine ({impl})", eng, got[impl],
+                      range(len(sprompts)), smax, scfg)
+        if (SK.selective_scan.launches > 0) != (impl == "cuda"):
+            _fail(f"jamba smoke ({impl}): {SK.selective_scan.launches} ssm "
+                  "launches")
+    if got["cuda"] != got["torch"]:
+        _fail(f"jamba smoke: kernel engine {got['cuda']} != plain engine "
+              f"{got['torch']}")
+    print(f"jamba smoke: float32 engine (2 slots, {len(sprompts)} requests, "
+          f"slots reused, a 1-token prompt) on the kernels emits the plain "
+          f"versions' tokens on the card", flush=True)
+    return engine_launches["ssm_scan.selective_scan"], \
+        offline["ssm_scan.selective_scan"]
+
+
+def jamba_cli_phase():
+    """launch/serve.py --arch jamba-1.5-large-398b on the card: every
+    request done through the selective-scan kernel."""
+    from repro_torch.kernels.ssm_scan import kernel as SK
+    from repro_torch.launch import serve as SERVE
+
+    _reset_launches(SK)
+    results, eng = SERVE.main(["--arch", "jamba-1.5-large-398b",
+                               "--requests", "6", "--max-new", "8"])
+    report = eng.report()
+    if sorted(results) != list(range(6)) or any(
+            r["status"] != "done" or r["tokens"] != 8
+            for r in report.values()) or not SK.selective_scan.launches:
+        _fail(f"serve CLI (jamba): {report}, launches {_launches(SK)}")
+    print("serve CLI: python -m repro_torch.launch.serve --arch "
+          "jamba-1.5-large-398b served 6 requests through the "
+          "selective-scan kernel", flush=True)
 
 
 def serve_cli_phase():
@@ -2159,7 +2541,7 @@ def main():
         from repro_torch.kernels.tri_attn import scan_impl as SC
         from repro_torch.serve import decode as D
     except ImportError as e:
-        _fail(f"cannot import repro_torch from {src}: {e}")
+        _fail(f"cannot load the repro_torch package from {src}: {e}")
     dev = torch.device("cuda")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2187,6 +2569,13 @@ def main():
     wkv_row["launches"], wkv_row["launches_offline"] = rwkv_serving_phase(
         dev, card)
     rwkv_cli_phase()
+    torch.cuda.empty_cache()
+    ssm_row = ssm_kernel_phase(dev)
+    kernels.append(ssm_row)
+    torch.cuda.empty_cache()
+    ssm_row["launches"], ssm_row["launches_offline"] = jamba_serving_phase(
+        dev, card)
+    jamba_cli_phase()
     torch.cuda.empty_cache()
     prefix_phase(dev)
     print("kernels: " + "; ".join(

@@ -78,6 +78,10 @@ class ModelConfig:
         return _round_up(self.vocab_size, 256)
 
     @property
+    def d_inner(self) -> int:  # mamba
+        return self.ssm_expand * self.d_model
+
+    @property
     def n_rwkv_heads(self) -> int:
         return self.d_model // self.rwkv_head_dim
 
@@ -85,6 +89,39 @@ class ModelConfig:
         if self.n_experts == 0:
             return False
         return idx % self.moe_every == self.moe_offset
+
+    def param_counts(self) -> dict:
+        """{"total", "active"} parameters, the reference's count (its
+        approximations of the rwkv and Mamba projections included)."""
+        d, hd = self.d_model, self.head_dim
+        qkvo = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd \
+            + self.n_heads * hd * d
+        mlp = (3 if self.mlp_activation == "swiglu" else 2) * d * self.d_ff
+        total = active = 0
+        for idx, kind in enumerate(self.layer_kinds):
+            if kind == "attn":
+                m = qkvo
+            elif kind == "mamba":
+                din, ds = self.d_inner, self.d_state
+                m = (d * 2 * din + din * self.d_conv + din * (ds * 2 + 1)
+                     + din + din * ds + din + din * d)
+            else:  # rwkv
+                m = 5 * d * d + 2 * self.rwkv_lora_dim * d \
+                    + self.n_rwkv_heads * self.rwkv_head_dim
+            total, active = total + m, active + m
+            if self.is_moe_layer(idx):
+                total += self.n_experts * mlp + d * self.n_experts
+                active += self.experts_per_token * mlp + d * self.n_experts
+            elif kind == "rwkv":
+                cm = 2 * d * self.d_ff + d * d  # channel mix k, v, r
+                total, active = total + cm, active + cm
+            else:
+                total, active = total + mlp, active + mlp
+            total, active = total + 2 * d, active + 2 * d  # norms
+        emb = self.padded_vocab * d
+        head = 0 if self.tie_embeddings else self.padded_vocab * d
+        return {"total": total + emb + head + d,
+                "active": active + emb + head + d}
 
 
 @dataclasses.dataclass(frozen=True)

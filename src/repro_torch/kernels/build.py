@@ -26,7 +26,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
 SOURCES = ("packed_fwd", "packed_decode", "fused_step", "tri_fwd", "tri_bwd",
-           "packed_bwd", "fwd_bb", "tri_edm", "tri_3body", "wkv_scan")
+           "packed_bwd", "fwd_bb", "tri_edm", "tri_3body", "wkv_scan",
+           "ssm_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -88,6 +89,10 @@ SIGNATURES = {
     # (r, k, v, lw, u, s0, out, s_L, B, L, H, hd, block_l, dtype, stream)
     "wkv_scan": {
         "wkv_launch": [_P] * 8 + [_I] * 6 + [_P],
+    },
+    # (x, dt, A, Bt, Ct, h0, y, h_L, B, L, D, N, dtype, stream)
+    "ssm_scan": {
+        "ssm_scan_launch": [_P] * 8 + [_I] * 5 + [_P],
     },
 }
 

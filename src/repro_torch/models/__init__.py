@@ -1,1 +1,2 @@
-"""Model layers and the dense transformer (ports of ``repro/models``)."""
+"""Model layers, the dense, RWKV-6 and Mamba/MoE layers (ports of
+``repro/models``)."""

@@ -16,6 +16,7 @@ import math
 
 import torch
 
+from repro_torch.kernels.tri_attn import kernel as attn_kernel
 from repro_torch.kernels.tri_attn import ops as attn_ops
 from repro_torch.kernels.tri_attn import ref as attn_ref
 
@@ -73,7 +74,10 @@ def attention(params, x, cfg, *, positions, attn_impl: str, packed=None,
 
     Without ``packed`` each row of the batch is one causal (banded under
     cfg.sliding_window) sequence through ``triangular_attention`` at tile
-    edge ``block`` (halved until it divides S), differentiable. With
+    edge ``block`` (halved until it divides S), differentiable; where
+    that edge falls below the kernels' smallest (a ragged prompt: S =
+    2047), the kernel path pads S to a multiple of ``block`` at its
+    causal tail instead, which no real row attends. With
     ``packed`` (a PackedTriSched) S is the concatenation of a request
     batch, positions restart per request, and attention is block-diagonal
     per request. Returns (out (B, S, d), k, v) with k/v (B, S, Hkv, hd)
@@ -93,12 +97,16 @@ def attention(params, x, cfg, *, positions, attn_impl: str, packed=None,
         blk = block
         while s % blk:
             blk //= 2
+        if attn_impl == "cuda" and blk < attn_kernel.SUPPORTED_BLOCKS[0]:
+            blk = block
+            qt, kt, vt = (torch.nn.functional.pad(t, (0, 0, 0, -s % blk))
+                          for t in (qt, kt, vt))
         # a single tile goes to the oracle, as in the reference, except on
         # the kernel path, which runs the kernel even for one tile
         impl = "ref" if attn_impl == "torch" and s <= blk else attn_impl
         ot = attn_ops.triangular_attention(qt, kt, vt,
                                            window=cfg.sliding_window,
-                                           impl=impl, block=blk)
+                                           impl=impl, block=blk)[:, :, :s]
     ctx = ot.transpose(1, 2).reshape(b, s, h * hd)
     return ctx @ params["wo"], k, v
 

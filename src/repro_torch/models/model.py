@@ -1,7 +1,7 @@
 """Top-level model: embedding -> layers -> norm -> LM head.
 
-Port of ``repro/models/model.py`` for the dense attention and the RWKV-6
-architectures:
+Port of ``repro/models/model.py`` for the dense attention, the RWKV-6 and
+the Mamba/attention hybrid (MoE) architectures:
   init_params(cfg, seed, device)             -> params
   params_from_jax(np_params, cfg, device)    -> params (reference weights)
   forward(params, cfg, batch, ...)           -> (hidden, aux, states)
@@ -27,6 +27,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as DEV
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as MB
+from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv6 as RW
 from repro_torch.models import transformer as T
 
@@ -57,21 +59,20 @@ def init_params(cfg, seed: int = 0, device=DEV.DEFAULT_DEVICE):
                                "mixer": RW.init_rwkv(gen, cfg, dtype, dev, n),
                                "norm2": ones(n, d)}
             continue
-        layers[f"l{p}"] = {
-            "norm1": ones(n, d),
-            "mixer": {
+        if kind == "mamba":
+            mixer = MB.init_mamba(gen, cfg, dtype, dev, n)
+        else:
+            mixer = {
                 "wq": dense((d, h * hd), d),
                 "wk": dense((d, hkv * hd), d),
                 "wv": dense((d, hkv * hd), d),
                 "wo": dense((h * hd, d), h * hd),
-            },
-            "norm2": ones(n, d),
-            "ffn": {
-                "wi": dense((d, f), d),
-                "wg": dense((d, f), d),
-                "wo": dense((f, d), f),
-            },
-        }
+            }
+        ffn = MOE.init_moe(gen, cfg, dtype, dev, n) if cfg.is_moe_layer(p) \
+            else {"wi": dense((d, f), d), "wg": dense((d, f), d),
+                  "wo": dense((f, d), f)}
+        layers[f"l{p}"] = {"norm1": ones(n, d), "mixer": mixer,
+                           "norm2": ones(n, d), "ffn": ffn}
     params = {
         "embed": (torch.randn((vp, d), generator=gen, device=dev)
                   * 0.02).to(dtype),
@@ -104,11 +105,15 @@ def params_from_jax(np_params, cfg, device=DEV.DEFAULT_DEVICE):
 
 def forward(params, cfg, batch, *, attn_impl: str = "cuda",
             collect_state: bool = False, positions=None, packed=None,
-            remat: bool = False, block: int = 64):
-    """Returns (hidden (B, S, d), aux, states_or_None); states stack each
-    layer's state leaves (an attention layer's rotated k/v, an rwkv
-    layer's shifts and WKV state) on a leading superlayer axis, as the
-    reference's scan does; ``attn_impl`` also picks the WKV impl.
+            remat: bool = False, block: int = 64,
+            full_capacity: bool = False):
+    """Returns (hidden (B, S, d), aux, states_or_None); aux sums the MoE
+    layers' load-balance losses; states stack each layer's state leaves
+    (an attention layer's rotated k/v, a mamba layer's h and conv carry,
+    an rwkv layer's shifts and WKV state) on a leading superlayer axis,
+    as the reference's scan does; ``attn_impl`` also picks the WKV and
+    selective-scan impl; ``full_capacity`` keeps every MoE slot, no
+    token dropped at the capacity factor (serving semantics).
     Serving prefill passes the packed schedule and positions restarting
     per request. ``remat`` recomputes each layer in the
     backward (``torch.utils.checkpoint``, the counterpart of the
@@ -124,25 +129,29 @@ def forward(params, cfg, batch, *, attn_impl: str = "cuda",
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=tokens.device)
     per_layer = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for l in range(cfg.n_superlayers):
         lp = T.layer_params(params["layers"], l)
 
-        def superlayer(x, lp=lp):
+        def superlayer(x, aux, lp=lp):
             states = {}
             for p, kind in enumerate(cfg.layer_pattern):
-                x, states[f"l{p}"] = T.layer_fwd(
-                    lp[f"l{p}"], x, cfg, kind, positions=positions,
+                x, a, states[f"l{p}"] = T.layer_fwd(
+                    lp[f"l{p}"], x, cfg, kind, p, positions=positions,
                     attn_impl=attn_impl, packed=packed,
-                    collect_state=collect_state, block=block)
-            return x, states
+                    collect_state=collect_state, block=block,
+                    full_capacity=full_capacity)
+                if a is not None:
+                    aux = aux + a
+            return x, aux, states
 
         if remat:
-            x, states = checkpoint(superlayer, x, use_reentrant=False)
+            x, aux, states = checkpoint(superlayer, x, aux,
+                                        use_reentrant=False)
         else:
-            x, states = superlayer(x)
+            x, aux, states = superlayer(x, aux)
         per_layer.append(states)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if not collect_state:
         return x, aux, None
     return x, aux, _stack_states(per_layer)
@@ -213,13 +222,15 @@ def decode_step(params, cfg, cache, tokens, pos, decode_tbl=None,
 
     decode_tbl + decode_spec switch attention to the packed mixed-position
     decode; every layer shares the round's table. ``attn_impl`` picks the
-    rwkv layers' WKV impl (the kernel at L = 1 on the card)."""
+    rwkv and mamba layers' scan impl (the kernels at L = 1 on the card);
+    MoE layers run drop-free."""
     x = params["embed"][tokens]
     for l in range(cfg.n_superlayers):
         lp = T.layer_params(params["layers"], l)
         lc = T.layer_params(cache, l)
         for p, kind in enumerate(cfg.layer_pattern):
-            x = T.layer_decode(lp[f"l{p}"], x, cfg, kind, lc[f"l{p}"], pos,
+            x = T.layer_decode(lp[f"l{p}"], x, cfg, kind, p, lc[f"l{p}"],
+                               pos,
                                decode_tbl=decode_tbl,
                                decode_spec=decode_spec, attn_impl=attn_impl)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -247,7 +258,7 @@ def fused_step(params, cfg, cache, pack_tokens, pack_positions, dec_tokens,
         states = {}
         for p in range(cfg.superlayer):
             x_pack, x_dec, states[f"l{p}"] = T.layer_fused(
-                lp[f"l{p}"], x_pack, x_dec, cfg, lc[f"l{p}"], pos,
+                lp[f"l{p}"], x_pack, x_dec, cfg, p, lc[f"l{p}"], pos,
                 pack_positions=pack_positions, packed=psched,
                 fused_tbl=fused_tbl, fused_spec=fused_spec)
         per_layer.append(states)
@@ -265,9 +276,15 @@ def prefill_cache(params, cfg, batch, max_len: int, *,
     assemble a decode cache covering positions [0, S). Returns (hidden,
     cache). KV rows land in their slots (the last window of a rolling
     cache, in decode's row order); recurrent states replace the cache
-    leaves wholesale."""
+    leaves wholesale.
+
+    The forward runs MoE drop-free (``full_capacity``), as every decode
+    step does. The reference's prefill_cache drops tokens at the
+    capacity factor here, so its cache diverges from the decode it seeds
+    (ROADMAP C); the port does not copy that."""
     hidden, _, states = forward(params, cfg, batch, attn_impl=attn_impl,
-                                collect_state=True, block=block)
+                                collect_state=True, block=block,
+                                full_capacity=True)
     b, s = hidden.shape[0], hidden.shape[1]
     cache = init_cache(cfg, b, max_len, cache_dtype, hidden.device)
     for slot, leaves in cache.items():

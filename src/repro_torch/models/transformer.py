@@ -1,14 +1,15 @@
-"""Layer assembly (port of ``repro/models/transformer.py``: the dense
-attention and the RWKV-6 layers).
+"""Layer assembly (port of ``repro/models/transformer.py``: the
+attention, Mamba and RWKV-6 layers).
 
 Each layer is pre-norm residual:
-  attn : x += Attn(RMS(x));    x += MLP(RMS(x))
+  attn : x += Attn(RMS(x));    x += FFN_or_MoE(RMS(x))
+  mamba: x += Mamba(RMS(x));   x += FFN_or_MoE(RMS(x))   (jamba style)
   rwkv : x += TimeMix(RMS(x)); x += ChannelMix(RMS(x))
-Mamba mixers and MoE FFNs raise ``NotImplementedError`` naming ROADMAP
-queue A item 4. Parameters and caches keep the reference's layout: every
-leaf stacked on a leading superlayer axis, so ``layer_params(stack, l)``
-views layer l. Decode writes every cache leaf IN PLACE (the reference
-returns a new cache).
+MoE placement follows ``cfg.is_moe_layer(pattern index)``. Parameters
+and caches keep the reference's layout: every leaf stacked on a leading
+superlayer axis, so ``layer_params(stack, l)`` views layer l. Decode
+writes every cache leaf IN PLACE (the reference returns a new cache) and
+runs MoE drop-free, as the reference's does.
 """
 
 from __future__ import annotations
@@ -16,20 +17,20 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as MB
+from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv6 as RW
+
+KINDS = ("attn", "mamba", "rwkv")
 
 
 def check_supported(cfg):
-    """Raise for the architectures the port does not carry yet."""
-    for idx, kind in enumerate(cfg.layer_pattern):
-        if kind not in ("attn", "rwkv"):
+    """Raise for the architectures the port does not carry."""
+    for kind in cfg.layer_pattern:
+        if kind not in KINDS:
             raise NotImplementedError(
-                f"{cfg.name}: {kind!r} mixers are not ported yet (ROADMAP "
-                "queue A item 4, models: mamba)")
-        if cfg.is_moe_layer(idx):
-            raise NotImplementedError(
-                f"{cfg.name}: MoE FFNs are not ported yet (ROADMAP queue A "
-                "item 4, models: moe)")
+                f"{cfg.name}: {kind!r} mixers are not ported (known: "
+                f"{KINDS})")
 
 
 def layer_params(tree, l: int):
@@ -40,32 +41,48 @@ def layer_params(tree, l: int):
     return tree[l]
 
 
-def layer_fwd(p, x, cfg, kind: str, *, positions, attn_impl: str, packed,
-              collect_state: bool, block: int = 64):
+def _ffn(p, x, cfg, p_idx: int, full_capacity: bool):
+    """The layer's FFN: (out, aux), MoE where ``cfg.is_moe_layer``."""
+    if cfg.is_moe_layer(p_idx):
+        return MOE.moe_mlp(p["ffn"], x, cfg, full_capacity=full_capacity)
+    return L.mlp(p["ffn"], x, cfg), None
+
+
+def layer_fwd(p, x, cfg, kind: str, p_idx: int, *, positions,
+              attn_impl: str, packed, collect_state: bool, block: int = 64,
+              full_capacity: bool = False):
     """One layer over a full sequence (packed prefill batch or training
-    rows). Returns (x, state): with collect_state an attention layer's
-    rotated {"k", "v"}, an rwkv layer's {"shift", "s", "shift_c"}."""
+    rows). Returns (x, aux, state): aux the MoE load-balance loss (None
+    without MoE); with collect_state an attention layer's rotated {"k",
+    "v"}, a mamba layer's {"h", "conv"}, an rwkv layer's {"shift", "s",
+    "shift_c"}. full_capacity: drop-free MoE (serving semantics: a
+    prefill that drops tokens diverges from the decode it seeds)."""
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
     if kind == "rwkv":
         out, st = RW.rwkv_time_mix(p["mixer"], h, cfg, impl=attn_impl)
         x = x + out
         h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
         out2, shift_c = RW.rwkv_channel_mix(p["mixer"], h2, cfg)
-        return x + out2, (dict(st, shift_c=shift_c) if collect_state
-                          else None)
-    out, k, v = L.attention(p["mixer"], h, cfg, positions=positions,
-                            attn_impl=attn_impl, packed=packed, block=block)
+        return x + out2, None, (dict(st, shift_c=shift_c) if collect_state
+                                else None)
+    if kind == "mamba":
+        out, st = MB.mamba_mix(p["mixer"], h, cfg, impl=attn_impl)
+    else:
+        out, k, v = L.attention(p["mixer"], h, cfg, positions=positions,
+                                attn_impl=attn_impl, packed=packed,
+                                block=block)
+        st = {"k": k, "v": v}
     x = x + out
     h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
-    x = x + L.mlp(p["ffn"], h2, cfg)
-    return x, ({"k": k, "v": v} if collect_state else None)
+    out2, aux = _ffn(p, h2, cfg, p_idx, full_capacity)
+    return x + out2, aux, (st if collect_state else None)
 
 
-def layer_decode(p, x, cfg, kind: str, cache, pos, decode_tbl=None,
-                 decode_spec=None, attn_impl: str = "cuda"):
+def layer_decode(p, x, cfg, kind: str, p_idx: int, cache, pos,
+                 decode_tbl=None, decode_spec=None, attn_impl: str = "cuda"):
     """x: (B, 1, d); cache: this layer's leaves (written in place).
     decode_spec selects the packed mixed-position attention decode;
-    attn_impl picks the rwkv layer's WKV impl."""
+    attn_impl picks the rwkv and mamba layers' scan impl."""
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
     if kind == "rwkv":
         out, st = RW.rwkv_time_mix(
@@ -75,11 +92,13 @@ def layer_decode(p, x, cfg, kind: str, cache, pos, decode_tbl=None,
         h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
         out2, shift_c = RW.rwkv_channel_mix(p["mixer"], h2, cfg,
                                             state=cache["shift_c"])
-        for name, new in dict(st, shift_c=shift_c).items():
-            if new is not cache[name]:
-                cache[name].copy_(new)
+        _write_state(cache, dict(st, shift_c=shift_c))
         return x + out2
-    if decode_spec is not None:
+    if kind == "mamba":
+        out, st = MB.mamba_mix(p["mixer"], h, cfg, state=cache,
+                               impl=attn_impl)
+        _write_state(cache, st)
+    elif decode_spec is not None:
         out, _, _ = L.packed_decode_attention(
             p["mixer"], h, cfg, cache_k=cache["k"], cache_v=cache["v"],
             pos=pos, decode_tbl=decode_tbl, decode_spec=decode_spec)
@@ -89,16 +108,24 @@ def layer_decode(p, x, cfg, kind: str, cache, pos, decode_tbl=None,
                                        cache_v=cache["v"], pos=pos)
     x = x + out
     h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + L.mlp(p["ffn"], h2, cfg)
+    return x + _ffn(p, h2, cfg, p_idx, full_capacity=True)[0]
 
 
-def layer_fused(p, x_pack, x_dec, cfg, cache, pos, *, pack_positions,
-                packed, fused_tbl, fused_spec):
+def _write_state(cache, new):
+    """Copy a recurrent layer's new state into its cache leaves (a leaf
+    the kernel already updated in place is skipped)."""
+    for name, t in new.items():
+        if t is not cache[name]:
+            cache[name].copy_(t)
+
+
+def layer_fused(p, x_pack, x_dec, cfg, p_idx: int, cache, pos, *,
+                pack_positions, packed, fused_tbl, fused_spec):
     """One layer of the fused step: both streams share the layer's
-    weights, the attention makes ONE fused launch, and the MLP runs on
-    each stream separately. Returns (x_pack, x_dec, {"k", "v"} pack
-    states); the decode half writes its token's k/v into ``cache`` in
-    place."""
+    weights, the attention makes ONE fused launch, and the FFN runs on
+    each stream separately (MoE drop-free on both). Returns (x_pack,
+    x_dec, {"k", "v"} pack states); the decode half writes its token's
+    k/v into ``cache`` in place."""
     h_p = L.rms_norm(x_pack, p["norm1"], cfg.norm_eps)
     h_d = L.rms_norm(x_dec, p["norm1"], cfg.norm_eps)
     out_p, out_d, k, v, _, _ = L.fused_attention(
@@ -109,24 +136,25 @@ def layer_fused(p, x_pack, x_dec, cfg, cache, pos, *, pack_positions,
     x_dec = x_dec + out_d
     h2_p = L.rms_norm(x_pack, p["norm2"], cfg.norm_eps)
     h2_d = L.rms_norm(x_dec, p["norm2"], cfg.norm_eps)
-    x_pack = x_pack + L.mlp(p["ffn"], h2_p, cfg)
-    x_dec = x_dec + L.mlp(p["ffn"], h2_d, cfg)
+    x_pack = x_pack + _ffn(p, h2_p, cfg, p_idx, full_capacity=True)[0]
+    x_dec = x_dec + _ffn(p, h2_d, cfg, p_idx, full_capacity=True)[0]
     return x_pack, x_dec, {"k": k, "v": v}
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype, device):
     """Per pattern slot, stacked on the superlayer axis: an attention
-    layer's k/v (n_superlayers, B, S, Hkv, hd), an rwkv layer's shift,
-    s (f32) and shift_c."""
+    layer's k/v (n_superlayers, B, S, Hkv, hd), a mamba layer's h (f32)
+    and conv carry, an rwkv layer's shift, s (f32) and shift_c."""
     check_supported(cfg)
     n = cfg.n_superlayers
     cache = {}
     for p, kind in enumerate(cfg.layer_pattern):
-        if kind == "rwkv":
+        if kind in ("rwkv", "mamba"):
+            init = RW.init_rwkv_state if kind == "rwkv" else \
+                MB.init_mamba_state
             cache[f"l{p}"] = {
                 name: leaf.new_zeros((n,) + tuple(leaf.shape))
-                for name, leaf in RW.init_rwkv_state(cfg, batch, dtype,
-                                                     device).items()}
+                for name, leaf in init(cfg, batch, dtype, device).items()}
             continue
         s = max_len if cfg.sliding_window is None \
             else min(cfg.sliding_window, max_len)

@@ -198,7 +198,8 @@ def packed_prefill(params, cfg, prompts, *, block: int = 16,
     hidden, _, states = MD.forward(
         params, cfg, {"tokens": torch.as_tensor(tokens, device=device)},
         attn_impl=attn_impl, collect_state=True,
-        positions=torch.as_tensor(positions, device=device), packed=psched)
+        positions=torch.as_tensor(positions, device=device), packed=psched,
+        full_capacity=True)
     return psched, starts, lens, hidden, states
 
 

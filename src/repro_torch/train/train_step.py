@@ -180,16 +180,20 @@ def make_serve_step(cfg, *, attn_impl: str = "cuda"):
 
 
 def make_prefill_step(cfg, *, attn_impl: str = "cuda", block: int = 64,
-                      cache_dtype=torch.bfloat16):
+                      cache_dtype=torch.bfloat16, max_len: int = 0):
     """prefill_step(params, {"tokens": (B, S)}) -> (last-position logits
-    (B, Vp), decode cache covering [0, S)). On the card an rwkv model's
-    WKV region is one kernel launch a layer over all B x S x H streams."""
+    (B, Vp), decode cache of max(S, max_len) positions, [0, S) filled).
+    The reference sizes the cache at S, so a decode step past it wraps
+    onto row 0 of an attention layer's k/v; ``max_len`` leaves room for
+    the tokens a caller decodes next. On the card an rwkv model's WKV
+    region, and each of a jamba model's Mamba layers, is one kernel
+    launch over all B x S streams."""
 
     @torch.no_grad()
     def prefill_step(params, batch):
         MET.counter_inc("prefill_step_calls", 1, {"impl": attn_impl})
         hidden, cache = MD.prefill_cache(
-            params, cfg, batch, batch["tokens"].shape[1],
+            params, cfg, batch, max(batch["tokens"].shape[1], max_len),
             attn_impl=attn_impl, block=block, cache_dtype=cache_dtype)
         return MD.logits_from_hidden(params, cfg, hidden[:, -1:])[:, 0], \
             cache

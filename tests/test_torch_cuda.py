@@ -1097,3 +1097,154 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+SSM_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
+           torch.bfloat16: dict(atol=5e-2, rtol=5e-2)}
+
+
+def _ssm_case(dev, b, l, d, n, dtype=torch.float32, seed=0):
+    """x, dt, A, Bt, Ct (the reference test's distributions) and h0."""
+    rng = np.random.default_rng(seed + 7 * l + d + n)
+    f = lambda *s: torch.as_tensor(rng.standard_normal(s).astype(np.float32),
+                                   device=dev)
+    x, bt, ct, h0 = f(b, l, d), f(b, l, n), f(b, l, n), f(b, d, n)
+    dt = torch.nn.functional.softplus(f(b, l, d) - 1)
+    a = -torch.exp(0.3 * f(d, n))
+    return [x.to(dtype), dt.to(dtype), a, bt.to(dtype), ct.to(dtype)], h0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,l,d,n", [(1, 8, 16, 4), (2, 32, 64, 16),
+                                     (2, 128, 256, 16), (1, 64, 128, 8),
+                                     (3, 16, 32, 32), (2, 37, 200, 8),
+                                     (4, 1, 16384, 16), (1, 300, 130, 4)])
+def test_ssm_matches_plain(dev, b, l, d, n, dtype):
+    from repro_torch.kernels.ssm_scan import kernel as SK
+    from repro_torch.kernels.ssm_scan import ref as SR
+
+    xs, h0 = _ssm_case(dev, b, l, d, n, dtype)
+    before = SK.selective_scan.launches
+    y, h_l = SK.selective_scan(*xs, h0)
+    torch.cuda.synchronize()
+    assert SK.selective_scan.launches == before + 1
+    assert y.dtype == dtype and h_l.dtype == torch.float32
+    want_y, want_h = SR.selective_scan_ref(*xs, h0)
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               want_y.to(dtype).float().cpu().numpy(),
+                               **SSM_TOL[dtype])
+    np.testing.assert_allclose(h_l.cpu().numpy(), want_h.cpu().numpy(),
+                               **SSM_TOL[torch.float32])
+
+
+def test_ssm_aliased_decode_state_and_chaining(dev):
+    """L = 1 steps with h0 and h_L the same cache tensor, chained over 16
+    steps, equal one launch over the 16 (and the plain version)."""
+    from repro_torch.kernels.ssm_scan import kernel as SK
+
+    (x, dt, a, bt, ct), h0 = _ssm_case(dev, 4, 16, 1024, 16, seed=1)
+    whole_y, whole_h = SK.selective_scan(x, dt, a, bt, ct, h0)
+    cache = h0.clone()
+    outs = []
+    step = lambda t, i: t[:, i:i + 1].contiguous()
+    for i in range(16):
+        y, h = SK.selective_scan(step(x, i), step(dt, i), a, step(bt, i),
+                                 step(ct, i), cache, state_out=cache)
+        assert h is cache
+        outs.append(y)
+    torch.cuda.synchronize()
+    tol = SSM_TOL[torch.float32]
+    np.testing.assert_allclose(torch.cat(outs, 1).cpu().numpy(),
+                               whole_y.cpu().numpy(), **tol)
+    np.testing.assert_allclose(cache.cpu().numpy(), whole_h.cpu().numpy(),
+                               **tol)
+    _, plain_h = SK.selective_scan_torch(x, dt, a, bt, ct, h0)
+    np.testing.assert_allclose(whole_h.cpu().numpy(), plain_h.cpu().numpy(),
+                               **tol)
+
+
+def test_ssm_refuses_instead_of_falling_back(dev, monkeypatch):
+    """N 64, mixed dtypes and inputs that need a gradient raise before a
+    launch; a launch CUDA refuses raises and is not counted."""
+    from repro_torch.kernels.ssm_scan import kernel as SK
+
+    before = SK.selective_scan.launches
+    xs, _ = _ssm_case(dev, 1, 4, 32, 64)
+    with pytest.raises(ValueError, match="state size 64"):
+        SK.selective_scan(*xs)
+    (x, dt, a, bt, ct), _ = _ssm_case(dev, 1, 4, 32, 16)
+    with pytest.raises(ValueError, match="one dtype"):
+        SK.selective_scan(x.bfloat16(), dt, a, bt, ct)
+    with pytest.raises(ValueError, match="no backward"):
+        SK.selective_scan(x.clone().requires_grad_(), dt, a, bt, ct)
+    lib = BUILD.load("ssm_scan")
+    monkeypatch.setattr(lib, "ssm_scan_launch", lambda *args: 9)
+    with pytest.raises(RuntimeError, match="cudaError 9"):
+        SK.selective_scan(x, dt, a, bt, ct)
+    assert SK.selective_scan.launches == before
+
+
+@pytest.mark.parametrize("s", [37, 2047])
+def test_attention_pads_a_ragged_sequence_on_the_kernel_path(dev, s):
+    """A sequence no kernel tile divides (a 2047-token prompt) goes
+    through tri_attn.fwd padded at its causal tail; its rows equal the
+    oracle's (impl "ref": the plain path would halve its tile to 1)."""
+    from repro_torch.configs import registry as REG
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as MD
+
+    cfg = dataclasses.replace(REG.smoke_config("yi-9b"), n_layers=1)
+    params = MD.init_params(cfg, seed=5, device=dev)
+    mixer = params["layers"]["l0"]["mixer"]
+    mixer = {k: v[0] for k, v in mixer.items()}
+    x = torch.as_tensor(np.random.default_rng(s).standard_normal(
+        (2, s, cfg.d_model)).astype(np.float32), device=dev)
+    pos = torch.arange(s, dtype=torch.int32, device=dev)
+    before = K.fwd.launches
+    got = L.attention(mixer, x, cfg, positions=pos, attn_impl="cuda")
+    assert K.fwd.launches == before + 1
+    want = L.attention(mixer, x, cfg, positions=pos, attn_impl="ref")
+    for g, w in zip(got, want):
+        _close(g, w, torch.float32)
+
+
+def test_jamba_serving_on_the_card(dev):
+    """Smoke-size float32 jamba on the card: the engine (2 slots, 5
+    requests: reused slots, a 1-token prompt) through the selective-scan
+    kernel emits the tokens of the engine on the plain versions (CPU) and
+    of a batch-1 generate on the card."""
+    from repro_torch.configs import registry as REG
+    from repro_torch.kernels.ssm_scan import kernel as SK
+    from repro_torch.models import model as MD
+    from repro_torch.serve import decode as D
+    from repro_torch.serve.engine import Engine
+    from repro_torch.train import train_step as TS
+
+    cfg = REG.smoke_config("jamba-1.5-large-398b")
+    params = MD.init_params(cfg, seed=3, device=dev)
+    prompts = [[3, 1, 4, 1, 5], [2, 7, 1], [9, 9, 8, 2, 6, 5], [4, 4, 2],
+               [7]]
+
+    def engine(impl, device):
+        p = params if device == dev else _to(params, device)
+        eng = Engine(p, cfg, slots=2, max_len=48, prefill_impl=impl,
+                     decode_impl=impl, device=device)
+        for uid, pr in enumerate(prompts):
+            eng.submit(np.asarray(pr, np.int32), max_new=6, uid=uid)
+        return eng.run()
+
+    before = SK.selective_scan.launches
+    got = engine("cuda", dev)
+    assert SK.selective_scan.launches > before
+    assert got == engine("torch", "cpu")
+    prefill = TS.make_prefill_step(cfg, cache_dtype=torch.float32,
+                                   max_len=48)
+    for uid, pr in enumerate(prompts):
+        toks = torch.as_tensor([pr], device=dev)
+        if len(pr) > 1:
+            _, cache = prefill(params, {"tokens": toks[:, :-1]})
+        else:
+            cache = MD.init_cache(cfg, 1, 48, torch.float32, dev)
+        out, _, _ = D.generate(params, cfg, cache, toks[:, -1:],
+                               len(pr) - 1, 6)
+        assert out[0].tolist() == got[uid], uid

@@ -163,15 +163,19 @@ def test_config_fields_match_reference():
 
 
 def test_unported_mixers_still_raise():
+    """Mamba mixers and MoE FFNs are ported (tests/test_torch_jamba.py);
+    a mixer kind the reference does not have and an unregistered arch
+    still raise."""
     cfg = REG.smoke_config(ARCH)
-    with pytest.raises(NotImplementedError, match="A item 4.*mamba"):
+    with pytest.raises(NotImplementedError, match="'xlstm' mixers"):
         T.check_supported(dataclasses.replace(cfg,
-                                              layer_pattern=("mamba",)))
-    with pytest.raises(NotImplementedError, match="A item 4.*moe"):
-        T.check_supported(dataclasses.replace(
-            REG.smoke_config("yi-9b"), n_experts=4, experts_per_token=2))
+                                              layer_pattern=("xlstm",)))
+    for pattern in (("mamba",), ("attn",), ("rwkv",)):
+        T.check_supported(dataclasses.replace(cfg, layer_pattern=pattern))
+    T.check_supported(dataclasses.replace(
+        REG.smoke_config("yi-9b"), n_experts=4, experts_per_token=2))
     with pytest.raises(KeyError, match="not ported yet"):
-        REG.get_config("jamba-1.5-large-398b")
+        REG.get_config("mixtral-8x7b")
 
 
 def test_params_and_init_match_reference_layout(ctx):
