@@ -5,6 +5,11 @@
 Phases (any failure exits non-zero; nothing is caught):
   1. the card's name and power limit (nvidia-smi);
   2. build the eleven CUDA sources of src/repro_torch/csrc (nvcc, sm_90a);
+     print ptxas's registers and spills of the bf16 tensor-core
+     instantiations of tri_fwd.cu and fwd_bb.cu and the HGMMA / HMMA
+     instructions cuobjdump finds in each (each must hold the instruction
+     of the body kernel.tile_body names, HGMMA at BLK 64 and 128 or HMMA at
+     16 and 32, and none of the other's);
   3. kernels: each kernel of the serving path at full yi-9b width (H=32,
      Hkv=4, D=128, blk=64, bf16 q/k/v, f32 decode cache) against its
      plain PyTorch version on the card (outputs within atol 4e-3 + rtol
@@ -25,9 +30,14 @@ Phases (any failure exits non-zero; nothing is caught):
      train phase's attention shape (B 1, H 32, Hkv 4, S 4096, D 128, ltm,
      blk 64, bf16) against their plain versions on the same inputs
      (OUT_TOL, lse LSE_TOL), timed beside the plain versions, SDPA
-     (is_causal forward; its autograd backward beside dq and dk/dv) and
-     the bound; band and prefix schedules at blk 16 and 64 on small
-     shapes;
+     (is_causal forward, in turns with tri_fwd; its autograd backward
+     beside dq and dk/dv) and the bound; tri_fwd also at
+     jamba-1.5-large's attention shape (B 4, H 64, Hkv 8, S 2048, D 128)
+     against its plain version and SDPA, and at training sequences 64
+     does not divide (S 4064 at blk 32, 4080 at blk 16: the mma.sync
+     body) against SDPA, each timed in turns with SDPA; band, prefix and
+     a 3-token band at blk 16, 32, 64 and 128 on small shapes (both bf16
+     bodies), each forward run twice, bitwise equal and finite;
   6. packed training kernels: packed_fwd and the packed dq and dk/dv
      (tri_attn.packed_bwd) at the packed train phase's attention shape
      (one row of the 8 documents 1500/1000/600/370/250/100/60/40 padded
@@ -45,14 +55,16 @@ Phases (any failure exits non-zero; nothing is caught):
      and every self-distance exactly 0; fwd_bb at the train phase's
      attention shape against fwd_bb_torch and tri_fwd (OUT_TOL, LSE_TOL),
      two runs bitwise equal, its counters n^2 and tri(n) per (batch,
-     head), band windows at blk 16 and 64; the plain versions,
-     torch.cdist and SDPA timed; then the experiment through the entry
-     points with every count at 0 before and asserted after (no plain
-     version): ops.edm cuda and bb over N 16384/32768/65536 x d 1-4 at
+     head), band and 3-token band windows at blk 16, 32, 64 and 128 (two
+     runs bitwise equal, finite); the plain versions and torch.cdist
+     timed, fwd_bb, tri_fwd and SDPA in turns; then the experiment
+     through the entry points with every count at 0 before and asserted
+     after (no plain version): ops.edm cuda and bb over N 16384/32768/65536 x d 1-4 at
      blk 64 and N 65536, d 3 at blk 128 (I_edm = t_bb / t_ltm beside the
      structural n^2 / tri(n) of kernel_summary and the paper's Kepler
      1.12-1.15), dummy_ltm at n = 1024, 4096 and 23169, and
-     triangular_attention bb against cuda (I_attn);
+     triangular_attention bb against cuda (I_attn, and I_attn less the
+     partials' round trip at 3.35 TB/s);
   7b. the 3-body workload on the tetrahedron: dummy_tet over the whole
      certified tet_map envelope (n = 1624, 715,169,000 blocks) equal to
      i + j + k (int64 closed form on the card); three_body_tet and
@@ -132,6 +144,7 @@ import argparse
 import copy
 import dataclasses
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -199,6 +212,77 @@ def _close(name, got, want, tol=OUT_TOL):
         _fail(f"{name}: kernel disagrees with its reference "
               f"(max abs err {err}, tolerance {tol})")
     return err
+
+
+# the tensor-core kernels of tri_fwd.cu / fwd_bb.cu: (kernel, BLK, D)
+TC_KERNEL = re.compile(r"(tri_fwd_tc_kernel|fwd_bb_tc_kernel)ILi(\d+)ELi(\d+)E")
+
+
+def _in_turns(fns: dict, reps: int, rounds: int = 2) -> dict:
+    """CUDA-event medians of each fn, timed in turns (a, b, a, b, ...) in
+    this call: name -> (median of the rounds, the rounds)."""
+    runs = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            runs[name].append(_median_ms(fn, reps))
+    return {name: (statistics.median(r), r) for name, r in runs.items()}
+
+
+# the SASS instruction of each tensor-core tile body (kernel.tile_body)
+BODY_OP = {"wgmma": "HGMMA", "mma.sync": "HMMA"}
+
+
+def tensor_core_build(BUILD, K) -> dict:
+    """What ptxas said of the bf16 tensor-core instantiations (registers,
+    spills) and how many HGMMA (wgmma) and HMMA (mma.sync) instructions
+    cuobjdump finds in each. Each instantiation must hold the instruction
+    of the body K.tile_body names for its BLK and none of the other's, so
+    the label the wrappers report is the compiled dispatch. Returns
+    {(kernel, BLK, D): {"registers": r, "HGMMA": n, ...}}."""
+    info = {}
+    for lib in ("tri_fwd", "fwd_bb"):
+        lines = (BUILD.build_dir() / f"{lib}.log").read_text().splitlines()
+        for at, line in enumerate(lines):
+            m = TC_KERNEL.search(line)
+            if "Compiling entry" not in line or m is None:
+                continue
+            key = (m.group(1), int(m.group(2)), int(m.group(3)))
+            text = " ".join(lines[at + 1:at + 4])
+            regs = re.search(r"Used (\d+) registers", text)
+            spill = re.search(r"(\d+) bytes spill stores", text)
+            info[key] = {"registers": int(regs.group(1)) if regs else None,
+                         "spill_bytes": int(spill.group(1)) if spill else None}
+        cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+        sass = subprocess.run([cuobjdump, "--dump-sass",
+                               str(BUILD.build_dir() / f"lib{lib}.so")],
+                              capture_output=True, text=True, check=True).stdout
+        key = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                m = TC_KERNEL.search(line)
+                key = (m.group(1), int(m.group(2)), int(m.group(3))) if m \
+                    else None
+            elif key is not None:
+                for op in ("HGMMA", "HMMA"):
+                    if op + "." in line:
+                        info[key][op] = info[key].get(op, 0) + 1
+    for (kern, blk, d), row in sorted(info.items()):
+        op = BODY_OP[K.tile_body(torch.bfloat16, blk)]
+        other = next(o for o in BODY_OP.values() if o != op)
+        if not row.get(op) or row.get(other):
+            _fail(f"{kern} BLK {blk} D {d}: SASS holds {row.get(op, 0)} {op}"
+                  f" and {row.get(other, 0)} {other}; tile_body names "
+                  f"{K.tile_body(torch.bfloat16, blk)}")
+    totals = {op: sum(r.get(op, 0) for r in info.values())
+              for op in ("HGMMA", "HMMA")}
+    print(f"tensor cores: {len(info)} bf16 instantiations of tri_fwd_tc_kernel"
+          f" and fwd_bb_tc_kernel, SASS {totals['HGMMA']} HGMMA (BLK 64, 128)"
+          f" and {totals['HMMA']} HMMA (BLK 16, 32); ptxas: " + "; ".join(
+              f"{k[0].split('_tc')[0]} {k[1]}x{k[2]} {r['registers']} regs "
+              f"{r['spill_bytes']} B spills {r.get('HGMMA', 0)} HGMMA "
+              f"{r.get('HMMA', 0)} HMMA" for k, r in sorted(info.items())),
+          flush=True)
+    return info
 
 
 def kernel_phase(dev, K, OPS, SC):
@@ -720,14 +804,21 @@ def train_kernel_phase(dev, K, OPS, SC):
                     _close(f"{label} bwd dv", dv, w_dv)))
         return errs, (out, lse, delta)
 
-    for kind in ("band", "prefix"):
-        for blk in (16, 64):
-            window, prefix = (blk + 5, 0) if kind == "band" else \
-                (None, blk + 3)
+    kinds = {"band": lambda blk: (blk + 5, 0),
+             "prefix": lambda blk: (None, blk + 3),
+             "band_short": lambda blk: (3, 0)}  # whole tile rows masked
+    for kind, geom in kinds.items():
+        for blk in (16, 32, 64, 128):  # both bf16 bodies: mma.sync, wgmma
+            window, prefix = geom(blk)
             q, k, v, do = case(2, 8, 2, 6 * blk, 128)
-            check(f"{kind} blk {blk}", q, k, v, do,
-                  OPS.make_sched(6 * blk, block=blk, window=window,
-                                 prefix=prefix))
+            sched = OPS.make_sched(6 * blk, block=blk, window=window,
+                                   prefix=prefix)
+            _, (out, lse, _) = check(f"{kind} blk {blk}", q, k, v, do, sched)
+            again = K.fwd(q, k, v, sched)
+            if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])
+                    and bool(torch.isfinite(out.float()).all())):
+                _fail(f"tri_fwd {kind} blk {blk}: two runs differ or "
+                      f"non-finite")
     b, h, hkv, s, d, blk = 1, 32, 4, 4096, 128, 64
     q, k, v, do = case(b, h, hkv, s, d)
     sched = OPS.make_sched(s, block=blk)
@@ -740,7 +831,8 @@ def train_kernel_phase(dev, K, OPS, SC):
     o_lib = F.scaled_dot_product_attention(*bw, is_causal=True,
                                            enable_gqa=True)
     sdpa_bwd = lambda: torch.autograd.grad(o_lib, bw, do, retain_graph=True)
-    ms = {"fwd": _median_ms(lambda: K.fwd(q, k, v, sched), 5),
+    turns = _in_turns({"fwd": lambda: K.fwd(q, k, v, sched), "sdpa": sdpa}, 10)
+    ms = {"fwd": turns["fwd"][0],
           "dq": _median_ms(lambda: K.bwd_dq(q, k, v, do, lse, delta, sched),
                            5),
           "dkv": _median_ms(lambda: K.bwd_dkv(q, k, v, do, lse, delta,
@@ -751,7 +843,7 @@ def train_kernel_phase(dev, K, OPS, SC):
                                                   sched, scale), 3, 1),
              "dkv": _median_ms(lambda: SC.dkv_torch(q, k, v, do, lse, delta,
                                                     sched, scale), 3, 1)}
-    lib_fwd, lib_bwd = _median_ms(sdpa, 10), _median_ms(sdpa_bwd, 5)
+    lib_fwd, lib_bwd = turns["sdpa"][0], _median_ms(sdpa_bwd, 5)
     pairs = h * s * (s + 1) // 2  # unmasked (query, key) pairs, ltm
     bounds = _attn_bounds(q, k, pairs)
     names = {"fwd": ("tri_attn.fwd", "src/repro_torch/csrc/tri_fwd.cu",
@@ -776,6 +868,57 @@ def train_kernel_phase(dev, K, OPS, SC):
             "library": lib,
             "shape": {"B": b, "H": h, "Hkv": hkv, "S": s, "D": d,
                       "blk": blk, "kind": "ltm", "pairs": pairs}})
+    fwd_row = out_rows[0]
+
+    def other_shape(label, b, h, hkv, s, blk, plain):
+        """tri_fwd at another shape a main path or a user gives it, held
+        against SDPA (is_causal computes the same ltm function) and, where
+        ``plain``, its plain version (out and lse), then timed in turns
+        with SDPA."""
+        q, k, v, _ = case(b, h, hkv, s, d)
+        sched = OPS.make_sched(s, block=blk)
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                      enable_gqa=True)
+        out, lse = K.fwd(q, k, v, sched)
+        err = _close(f"fwd vs SDPA {label}", out, sdpa())
+        if plain:
+            w_out, w_lse = SC.fwd_torch(q, k, v, sched, scale)
+            err = max(_close(f"fwd out {label}", out, w_out),
+                      _close(f"fwd lse {label}", lse, w_lse, LSE_TOL))
+        at = _in_turns({"fwd": lambda: K.fwd(q, k, v, sched), "sdpa": sdpa},
+                       10)
+        return {"shape": {"B": b, "H": h, "Hkv": hkv, "S": s, "D": d,
+                          "blk": blk},
+                "path": K.tile_body(dt, blk), "max_abs_err": err,
+                "against": "plain version" if plain else "SDPA",
+                "ms": at["fwd"][0], "ms_turns": at["fwd"][1],
+                "library_ms": at["sdpa"][0], "library_ms_turns": at["sdpa"][1],
+                "bound_ms": _attn_bounds(q, k, b * h * s * (s + 1) // 2)[
+                    "fwd"][0]}
+
+    # jamba-1.5-large's attention layer on a 4 x 2048 prefill; training at
+    # a sequence 64 does not divide, which layers.attention runs at the
+    # tile edge halved until it divides (4064: blk 32, 4080: blk 16), on
+    # the mma.sync body
+    fwd_row["at_jamba_shape"] = other_shape("at jamba's shape", 4, 64, 8,
+                                            2048, blk, plain=True)
+    fwd_row["at_ragged_seq"] = [other_shape(f"at S {rs}", b, h, hkv, rs, rb,
+                                            plain=False)
+                                for rs, rb in ((4064, 32), (4080, 16))]
+    fwd_row.update(path=K.tile_body(dt, blk),
+                   bound_share=fwd_row["bound_ms"] / fwd_row["ms"],
+                   ms_turns=turns["fwd"][1], library_ms_turns=turns["sdpa"][1])
+    print(f"train kernels: tri_fwd {ms['fwd']:.4f} ms ({fwd_row['path']}), "
+          f"SDPA {lib_fwd:.4f} ms in turns {turns['fwd'][1]} / "
+          f"{turns['sdpa'][1]}, bound {fwd_row['bound_ms']:.4f} ms "
+          f"({100 * fwd_row['bound_share']:.1f}%); " + "; ".join(
+              f"at (B {r['shape']['B']}, H {r['shape']['H']}, Hkv "
+              f"{r['shape']['Hkv']}, S {r['shape']['S']}, blk "
+              f"{r['shape']['blk']}, {r['path']}) {r['ms']:.4f} ms, SDPA "
+              f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f}, err vs "
+              f"{r['against']} {r['max_abs_err']:.3g}"
+              for r in [fwd_row["at_jamba_shape"]] + fwd_row["at_ragged_seq"]),
+          flush=True)
     return out_rows
 
 
@@ -1075,16 +1218,23 @@ def paper_phase(dev, K, OPS, SC):
                 for shape in ((b, h, s, d), (b, hkv, s, d), (b, hkv, s, d))]
 
     attn_err = 0.0
-    for blk in (16, 64):
-        sched = OPS.make_sched(6 * blk, block=blk, window=blk + 5)
-        q, k, v = qkv(2, 8, 2, 6 * blk, 128)
-        out, lse = K.fwd_bb(q, k, v, sched)
-        for label, (w_out, w_lse) in (
-                ("plain", SC.fwd_bb_torch(q, k, v, sched, 128 ** -0.5)),
-                ("tri_fwd", K.fwd(q, k, v, sched))):
-            _close(f"fwd_bb band blk {blk} vs {label} out", out, w_out)
-            _close(f"fwd_bb band blk {blk} vs {label} lse", lse, w_lse,
-                   LSE_TOL)
+    for blk in (16, 32, 64, 128):  # both bf16 bodies: mma.sync, wgmma
+        for window in (blk + 5, 3):  # band, band_short
+            sched = OPS.make_sched(6 * blk, block=blk, window=window)
+            q, k, v = qkv(2, 8, 2, 6 * blk, 128)
+            out, lse = K.fwd_bb(q, k, v, sched)
+            again = K.fwd_bb(q, k, v, sched)
+            if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])
+                    and bool(torch.isfinite(out.float()).all())):
+                _fail(f"fwd_bb window {window} blk {blk}: two runs differ "
+                      f"or non-finite")
+            for label, (w_out, w_lse) in (
+                    ("plain", SC.fwd_bb_torch(q, k, v, sched, 128 ** -0.5)),
+                    ("tri_fwd", K.fwd(q, k, v, sched))):
+                _close(f"fwd_bb window {window} blk {blk} vs {label} out",
+                       out, w_out)
+                _close(f"fwd_bb window {window} blk {blk} vs {label} lse",
+                       lse, w_lse, LSE_TOL)
     b, h, hkv, s, d, blk = ATTN_SHAPE
     q, k, v = qkv(b, h, hkv, s, d)
     sched = OPS.make_sched(s, block=blk)
@@ -1127,9 +1277,12 @@ def paper_phase(dev, K, OPS, SC):
         "tri_attn.fwd_bb": _median_ms(
             lambda: SC.fwd_bb_torch(q, k, v, sched, scale), 3, 1)}
     cdist = _median_ms(lambda: torch.cdist(x, x), 5, 1)
+    turns = _in_turns({"fwd_bb": lambda: K.fwd_bb(q, k, v, sched),
+                       "tri_fwd": lambda: K.fwd(q, k, v, sched),
+                       "sdpa": sdpa}, 10)
     library = {"tri_edm.ltm": cdist, "tri_edm.bb": cdist,
                "tri_edm.dummy_ltm": None,
-               "tri_attn.fwd_bb": _median_ms(sdpa, 10)}
+               "tri_attn.fwd_bb": turns["sdpa"][0]}
     del x
     torch.cuda.empty_cache()
 
@@ -1177,6 +1330,10 @@ def paper_phase(dev, K, OPS, SC):
     torch.cuda.empty_cache()
 
     i_attn = attn_ms["bb"] / attn_ms["cuda"]
+    # the partials' round trip, which tri_fwd does not pay: written once,
+    # read once, B H tri(n) (blk D + 2 blk) f32
+    part_floor = 2 * 4 * b * h * M.tri(n_attn) * (blk * d + 2 * blk) \
+        / HBM_BYTES_PER_S * 1e3
     for row in sweep:
         print(f"paper: edm N={row['N']} d={row['d']} blk={row['blk']}: LTM "
               f"{row['ltm_ms']:.4f} ms (bound {row['ltm_bound_ms']:.4f}), "
@@ -1190,7 +1347,11 @@ def paper_phase(dev, K, OPS, SC):
     print(f"paper: attention at B {b} H {h} S {s} blk {blk}: fwd_bb "
           f"{attn_ms['bb']:.4f} ms, tri_fwd {attn_ms['cuda']:.4f} ms, I_attn "
           f"{i_attn:.4f} (structural "
-          f"{n_attn * n_attn / M.tri(n_attn):.4f})", flush=True)
+          f"{n_attn * n_attn / M.tri(n_attn):.4f}); the partials' floor "
+          f"{part_floor:.4f} ms, (t_fwd_bb - floor) / t_tri_fwd "
+          f"{(attn_ms['bb'] - part_floor) / attn_ms['cuda']:.4f}; in turns "
+          f"fwd_bb {turns['fwd_bb'][1]}, tri_fwd {turns['tri_fwd'][1]}, SDPA "
+          f"{turns['sdpa'][1]} ms ({K.tile_body(q.dtype, blk)})", flush=True)
 
     head = next(r for r in sweep if (r["N"], r["d"], r["blk"]) == EDM_HEADLINE)
     n_h = EDM_HEADLINE[0] // EDM_HEADLINE[2]
@@ -1230,12 +1391,18 @@ def paper_phase(dev, K, OPS, SC):
          "library": "SDPA is_causal forward",
          "shape": {"B": b, "H": h, "Hkv": hkv, "S": s, "D": d, "blk": blk,
                    "kind": "ltm"},
-         "tri_fwd_ms": attn_ms["cuda"], "I_attn": i_attn}]
+         "tri_fwd_ms": attn_ms["cuda"], "I_attn": i_attn,
+         "path": K.tile_body(q.dtype, blk), "partials_floor_ms": part_floor,
+         "I_attn_less_floor": (attn_ms["bb"] - part_floor) / attn_ms["cuda"],
+         "ms_turns": turns["fwd_bb"][1],
+         "tri_fwd_ms_turns": turns["tri_fwd"][1],
+         "library_ms_turns": turns["sdpa"][1]}]
     for row in rows:
         name = row["name"]
         row.update(route="cuda", plain_ms=plain[name],
                    bound_ms=bounds[name][0], bound_by=bounds[name][1],
                    library_ms=library[name], launches=launches[name])
+    rows[-1]["bound_share"] = rows[-1]["bound_ms"] / rows[-1]["ms"]
     return rows
 
 
@@ -2552,15 +2719,18 @@ def main():
     build_s = BUILD.build_all()
     print(f"build: {build_s:.1f} s (nvcc, sm_90a) into {BUILD.build_dir()}",
           flush=True)
+    tc_build = tensor_core_build(BUILD, K)
     ctx, kernels = kernel_phase(dev, K, OPS, SC)
     kernels.append(fused_kernel_phase(dev, K, OPS, SC, D, ctx))
     del ctx
     kernels += train_kernel_phase(dev, K, OPS, SC)
+    kernels[-3]["ptxas"] = tc_build[("tri_fwd_tc_kernel", 64, 128)]
     packed_rows, packed_fwd_train = packed_train_kernel_phase(dev, K, OPS,
                                                               SC)
     kernels += packed_rows
     torch.cuda.empty_cache()
     kernels += paper_phase(dev, K, OPS, SC)
+    kernels[-1]["ptxas"] = tc_build[("fwd_bb_tc_kernel", 64, 128)]
     torch.cuda.empty_cache()
     kernels += three_body_phase(dev)
     torch.cuda.empty_cache()

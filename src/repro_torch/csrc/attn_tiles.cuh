@@ -16,6 +16,16 @@
 // hands these bodies plain integers, so the (7, R), (5, R) and (8, R) row
 // layouts stay with their kernels, and a fused launch runs exactly the code
 // of the two split kernels.
+//
+// These bodies do their products on the f32 CUDA cores, scalar FMAs from
+// f32 copies in shared memory, though every kernel here is bound by the
+// bf16 tensor-core rate (4 blk^2 D flops a tile over 2 blk D loaded
+// values). tri_fwd.cu and fwd_bb.cu (replacing the reference's fwd and
+// fwd_bb, repro/kernels/tri_attn/kernel.py) run them for f32 inputs only,
+// where the reference computes in f32 and TF32 would compute something
+// else; their bf16 path is the tensor-core body of attn_mma.cuh (wgmma or
+// mma.sync, S / O / P in registers, bf16 tiles in shared memory),
+// included at the end of this file. The other kernels move to it later.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -608,3 +618,6 @@ __device__ __forceinline__ void decode_member(
 }
 
 }  // namespace tri
+
+// The bf16 tensor-core body of tri_fwd.cu and fwd_bb.cu (uses cp_async16).
+#include "attn_mma.cuh"

@@ -488,6 +488,17 @@ def fwd(q, k, v, sched: TriSched, *, sm_scale=None):
 fwd.launches = 0
 
 
+def tile_body(dtype, blk: int) -> str:
+    """The tile body ``fwd`` and ``fwd_bb`` run on the card for q's dtype
+    and the tile edge: bf16 on the tensor cores (csrc/attn_mma.cuh), by
+    wgmma at blk 64 and 128 and by mma.sync at 16 and 32; f32 on the CUDA
+    cores (scalar FMAs, attn_tiles.cuh)."""
+    _check(dtype in _DTYPE_CODES, f"no tile body for {dtype}")
+    if dtype == torch.float32:
+        return "fma_f32"
+    return "wgmma" if blk >= 64 else "mma.sync"
+
+
 def check_bb_sched(sched: TriSched):
     """fwd_bb takes ltm and band schedules only: the BB guard j <= i drops
     the above-diagonal tiles a prefix-causal row attends (the reference's

@@ -324,7 +324,12 @@ def test_fused_engine_raises_when_the_fused_kernel_fails(dev, monkeypatch):
 GRAD_TOL = {torch.float32: dict(atol=2e-4, rtol=2e-3),
             torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
 TRI_KINDS = {"ltm": lambda blk: (None, 0), "band": lambda blk: (blk + 5, 0),
-             "prefix": lambda blk: (None, blk + 3)}
+             "prefix": lambda blk: (None, blk + 3),
+             "band_short": lambda blk: (3, 0)}
+# (blk, D): the mma.sync body (blk 16, 32) and the wgmma body (64, 128) of
+# the bf16 forward, each at every head dim
+TRI_GEOMS = [(16, 64), (16, 32), (32, 16), (32, 128), (64, 128), (64, 32),
+             (128, 16), (128, 64)]
 
 
 def _tri_case(dev, kind, blk, d, g, hkv, dtype, n=5, b=2):
@@ -340,8 +345,8 @@ def _tri_case(dev, kind, blk, d, g, hkv, dtype, n=5, b=2):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("g,hkv", [(1, 2), (2, 2), (8, 1)])
-@pytest.mark.parametrize("blk,d", [(16, 64), (64, 128)])
-@pytest.mark.parametrize("kind", ["ltm", "band", "prefix"])
+@pytest.mark.parametrize("blk,d", TRI_GEOMS)
+@pytest.mark.parametrize("kind", ["ltm", "band", "prefix", "band_short"])
 def test_tri_fwd_and_bwd_match_plain(dev, kind, blk, d, g, hkv, dtype):
     from repro_torch.kernels.tri_attn import scan_impl as SC
 
@@ -364,6 +369,19 @@ def test_tri_fwd_and_bwd_match_plain(dev, kind, blk, d, g, hkv, dtype):
         np.testing.assert_allclose(got.float().cpu().numpy(),
                                    ref.float().cpu().numpy(), err_msg=name,
                                    **GRAD_TOL[dtype])
+
+
+@pytest.mark.parametrize("kind,blk,d", [("ltm", 64, 128),
+                                        ("band_short", 128, 64),
+                                        ("prefix", 32, 128)])
+def test_tri_fwd_is_deterministic(dev, kind, blk, d):
+    """One block per accumulator owner, no atomics: two runs of the bf16
+    forward are bitwise equal, and finite."""
+    sched, q, k, v, _ = _tri_case(dev, kind, blk, d, 8, 1, torch.bfloat16)
+    first = K.fwd(q, k, v, sched)
+    again = K.fwd(q, k, v, sched)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    assert all(bool(torch.isfinite(x.float()).all()) for x in first)
 
 
 def test_tri_bwd_is_deterministic(dev):
