@@ -5,11 +5,14 @@
 Phases (any failure exits non-zero; nothing is caught):
   1. the card's name and power limit (nvidia-smi);
   2. build the eleven CUDA sources of src/repro_torch/csrc (nvcc, sm_90a);
-     print ptxas's registers and spills of the bf16 tensor-core
-     instantiations of tri_fwd.cu and fwd_bb.cu and the HGMMA / HMMA
-     instructions cuobjdump finds in each (each must hold the instruction
-     of the body kernel.tile_body names, HGMMA at BLK 64 and 128 or HMMA at
-     16 and 32, and none of the other's);
+     print ptxas's registers and spills of the bf16 instantiations of the
+     attention tile bodies (tri_fwd.cu's and fwd_bb.cu's tensor-core
+     kernels, tri_bwd.cu's tensor-core and CUDA-core kernels) and the
+     HGMMA / HMMA instructions cuobjdump finds in each (each must hold the
+     instruction of the body kernel.tile_body names for its direction,
+     HGMMA at BLK 64 and 128, HMMA in the forward at 16 and 32, neither in
+     the backward at 16 and 32, and no other; the backward's wgmma
+     instantiations must not spill);
   3. kernels: each kernel of the serving path at full yi-9b width (H=32,
      Hkv=4, D=128, blk=64, bf16 q/k/v, f32 decode cache) against its
      plain PyTorch version on the card (outputs within atol 4e-3 + rtol
@@ -29,15 +32,19 @@ Phases (any failure exits non-zero; nothing is caught):
   5. training kernels: tri_attn.fwd and its dq and dk/dv backward at the
      train phase's attention shape (B 1, H 32, Hkv 4, S 4096, D 128, ltm,
      blk 64, bf16) against their plain versions on the same inputs
-     (OUT_TOL, lse LSE_TOL), timed beside the plain versions, SDPA
-     (is_causal forward, in turns with tri_fwd; its autograd backward
-     beside dq and dk/dv) and the bound; tri_fwd also at
+     (OUT_TOL, lse LSE_TOL, the bf16 wgmma backward's grads
+     BF16_GRAD_TOL), each backward run twice and bitwise equal,
+     timed beside the plain versions, SDPA (is_causal forward, in turns
+     with tri_fwd; its autograd backward in turns with dq and dk/dv, its
+     own grads' largest error against the same plain versions reported)
+     and the bound; tri_fwd also at
      jamba-1.5-large's attention shape (B 4, H 64, Hkv 8, S 2048, D 128)
      against its plain version and SDPA, and at training sequences 64
      does not divide (S 4064 at blk 32, 4080 at blk 16: the mma.sync
      body) against SDPA, each timed in turns with SDPA; band, prefix and
-     a 3-token band at blk 16, 32, 64 and 128 on small shapes (both bf16
-     bodies), each forward run twice, bitwise equal and finite;
+     a 3-token band at blk 16, 32, 64 and 128 on small shapes (every bf16
+     body), each forward and backward run twice, bitwise equal and
+     finite;
   6. packed training kernels: packed_fwd and the packed dq and dk/dv
      (tri_attn.packed_bwd) at the packed train phase's attention shape
      (one row of the 8 documents 1500/1000/600/370/250/100/60/40 padded
@@ -161,6 +168,14 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, no TF32
 # tile moves out by ~1e-2 and lse by ~6e-2, so both limits catch it
 OUT_TOL = dict(atol=4e-3, rtol=1e-2)
 LSE_TOL = dict(atol=1e-2, rtol=0.0)
+# grads of the bf16 wgmma backward (tri_bwd.cu, blk 64 and 128): P and dS
+# enter its dV, dK and dQ products in bf16, as in FlashAttention's and
+# SDPA's backward, ~2^-9 relative a term; where a grad's terms cancel
+# (few live keys, large P and dS) that leaves it a few bf16 steps off the
+# f32 plain version (tests/test_torch_tri_bwd_numerics.py: 0.0039 without
+# the rounding, 0.031 with it). The bf16 grad tolerance of the card tests
+# (GRAD_TOL, tests/test_torch_cuda.py); the CUDA-core bodies keep OUT_TOL
+BF16_GRAD_TOL = dict(atol=2e-2, rtol=2e-2)
 # the packed train phase's documents (real tokens), padded to blk 64
 TRAIN_DOCS = (1500, 1000, 600, 370, 250, 100, 60, 40)
 # bf16 packed and pad-to-max losses round at other places (other matmul
@@ -214,8 +229,21 @@ def _close(name, got, want, tol=OUT_TOL):
     return err
 
 
-# the tensor-core kernels of tri_fwd.cu / fwd_bb.cu: (kernel, BLK, D)
-TC_KERNEL = re.compile(r"(tri_fwd_tc_kernel|fwd_bb_tc_kernel)ILi(\d+)ELi(\d+)E")
+# the tensor-core kernels of tri_fwd.cu / fwd_bb.cu / tri_bwd.cu and the
+# bf16 CUDA-core kernels of tri_bwd.cu (BLK 16 and 32): (kernel, BLK, D)
+TC_KERNEL = re.compile(r"(tri_fwd_tc_kernel|fwd_bb_tc_kernel|tri_bwd_dq_tc_kernel"
+                       r"|tri_bwd_dkv_tc_kernel)ILi(\d+)ELi(\d+)E")
+CC_KERNEL = re.compile(r"(tri_bwd_dq_kernel|tri_bwd_dkv_kernel)"
+                       r"I13__nv_bfloat16Li(\d+)ELi(\d+)E")
+# the direction of each kernel's tile body (kernel.tile_body's op)
+BODY_DIR = {"tri_fwd_tc_kernel": "fwd", "fwd_bb_tc_kernel": "fwd",
+            "tri_bwd_dq_tc_kernel": "bwd", "tri_bwd_dkv_tc_kernel": "bwd",
+            "tri_bwd_dq_kernel": "bwd", "tri_bwd_dkv_kernel": "bwd"}
+
+
+def _kernel_key(line: str):
+    m = TC_KERNEL.search(line) or CC_KERNEL.search(line)
+    return (m.group(1), int(m.group(2)), int(m.group(3))) if m else None
 
 
 def _in_turns(fns: dict, reps: int, rounds: int = 2) -> dict:
@@ -228,25 +256,29 @@ def _in_turns(fns: dict, reps: int, rounds: int = 2) -> dict:
     return {name: (statistics.median(r), r) for name, r in runs.items()}
 
 
-# the SASS instruction of each tensor-core tile body (kernel.tile_body)
+# the SASS instruction of each tensor-core tile body (kernel.tile_body);
+# the CUDA-core body (fma_f32) holds neither
 BODY_OP = {"wgmma": "HGMMA", "mma.sync": "HMMA"}
 
 
 def tensor_core_build(BUILD, K) -> dict:
-    """What ptxas said of the bf16 tensor-core instantiations (registers,
-    spills) and how many HGMMA (wgmma) and HMMA (mma.sync) instructions
-    cuobjdump finds in each. Each instantiation must hold the instruction
-    of the body K.tile_body names for its BLK and none of the other's, so
-    the label the wrappers report is the compiled dispatch. Returns
-    {(kernel, BLK, D): {"registers": r, "HGMMA": n, ...}}."""
+    """What ptxas said of the bf16 instantiations of the attention tile
+    bodies (registers, spills) and how many HGMMA (wgmma) and HMMA
+    (mma.sync) instructions cuobjdump finds in each: tri_fwd.cu's and
+    fwd_bb.cu's tensor-core kernels, tri_bwd.cu's tensor-core kernels and
+    its bf16 CUDA-core kernels. Each instantiation must hold the
+    instruction of the body K.tile_body names for its BLK and direction
+    and no other (a CUDA-core body neither), so the label the wrappers
+    report is the compiled dispatch; the backward's wgmma instantiations
+    must not spill. Returns {(kernel, BLK, D): {"registers": r, "HGMMA":
+    n, ...}}."""
     info = {}
-    for lib in ("tri_fwd", "fwd_bb"):
+    for lib in ("tri_fwd", "fwd_bb", "tri_bwd"):
         lines = (BUILD.build_dir() / f"{lib}.log").read_text().splitlines()
         for at, line in enumerate(lines):
-            m = TC_KERNEL.search(line)
-            if "Compiling entry" not in line or m is None:
+            key = _kernel_key(line)
+            if "Compiling entry" not in line or key is None:
                 continue
-            key = (m.group(1), int(m.group(2)), int(m.group(3)))
             text = " ".join(lines[at + 1:at + 4])
             regs = re.search(r"Used (\d+) registers", text)
             spill = re.search(r"(\d+) bytes spill stores", text)
@@ -259,27 +291,30 @@ def tensor_core_build(BUILD, K) -> dict:
         key = None
         for line in sass.splitlines():
             if "Function :" in line:
-                m = TC_KERNEL.search(line)
-                key = (m.group(1), int(m.group(2)), int(m.group(3))) if m \
-                    else None
+                key = _kernel_key(line)
             elif key is not None:
                 for op in ("HGMMA", "HMMA"):
                     if op + "." in line:
                         info[key][op] = info[key].get(op, 0) + 1
     for (kern, blk, d), row in sorted(info.items()):
-        op = BODY_OP[K.tile_body(torch.bfloat16, blk)]
-        other = next(o for o in BODY_OP.values() if o != op)
-        if not row.get(op) or row.get(other):
-            _fail(f"{kern} BLK {blk} D {d}: SASS holds {row.get(op, 0)} {op}"
-                  f" and {row.get(other, 0)} {other}; tile_body names "
-                  f"{K.tile_body(torch.bfloat16, blk)}")
+        body = K.tile_body(torch.bfloat16, blk, BODY_DIR[kern])
+        op = BODY_OP.get(body)
+        wrong = [o for o in BODY_OP.values() if o != op and row.get(o)]
+        if (op is not None and not row.get(op)) or wrong:
+            _fail(f"{kern} BLK {blk} D {d}: SASS holds {row.get('HGMMA', 0)} "
+                  f"HGMMA and {row.get('HMMA', 0)} HMMA; tile_body names "
+                  f"{body}")
+        if BODY_DIR[kern] == "bwd" and op and row["spill_bytes"] != 0:
+            _fail(f"{kern} BLK {blk} D {d}: ptxas reports "
+                  f"{row['spill_bytes']} bytes of spill stores")
     totals = {op: sum(r.get(op, 0) for r in info.values())
               for op in ("HGMMA", "HMMA")}
-    print(f"tensor cores: {len(info)} bf16 instantiations of tri_fwd_tc_kernel"
-          f" and fwd_bb_tc_kernel, SASS {totals['HGMMA']} HGMMA (BLK 64, 128)"
-          f" and {totals['HMMA']} HMMA (BLK 16, 32); ptxas: " + "; ".join(
-              f"{k[0].split('_tc')[0]} {k[1]}x{k[2]} {r['registers']} regs "
-              f"{r['spill_bytes']} B spills {r.get('HGMMA', 0)} HGMMA "
+    print(f"tensor cores: {len(info)} bf16 instantiations of tri_fwd_tc_kernel,"
+          f" fwd_bb_tc_kernel, tri_bwd_dq/dkv_tc_kernel (BLK 64, 128) and "
+          f"tri_bwd_dq/dkv_kernel (BLK 16, 32), SASS {totals['HGMMA']} HGMMA "
+          f"and {totals['HMMA']} HMMA; ptxas: " + "; ".join(
+              f"{k[0].replace('_kernel', '')} {k[1]}x{k[2]} {r['registers']} "
+              f"regs {r['spill_bytes']} B spills {r.get('HGMMA', 0)} HGMMA "
               f"{r.get('HMMA', 0)} HMMA" for k, r in sorted(info.items())),
           flush=True)
     return info
@@ -772,8 +807,8 @@ def train_kernel_phase(dev, K, OPS, SC):
     """tri_attn.fwd, bwd dq and bwd dk/dv at the attention shape of the
     train phase (one yi-9b layer at seq 4096: B 1, H 32, Hkv 4, D 128,
     ltm, blk 64, bf16) against their plain versions on the same inputs,
-    timed beside them, SDPA and the bound; band and prefix schedules at
-    blk 16 and 64 on small shapes."""
+    timed beside them, SDPA and the bound; band, prefix and 3-token band
+    schedules at blk 16, 32, 64 and 128 on small shapes."""
     import torch.nn.functional as F
 
     rng = np.random.default_rng(3)
@@ -786,34 +821,44 @@ def train_kernel_phase(dev, K, OPS, SC):
                               (b, h, s, d))]
 
     def check(label, q, k, v, do, sched):
-        """The three kernels against their plain versions; returns the
-        errors and the kernels' outputs."""
+        """The three kernels against their plain versions, the backward
+        run twice (bitwise equal: no atomics); returns the errors, the
+        kernels' (out, lse, delta) and the plain grads."""
         scale = q.shape[-1] ** -0.5
         out, lse = K.fwd(q, k, v, sched)
         delta = (do.float() * out.float()).sum(dim=-1)
-        dq = K.bwd_dq(q, k, v, do, lse, delta, sched)
-        dk, dv = K.bwd_dkv(q, k, v, do, lse, delta, sched)
+        grads = (K.bwd_dq(q, k, v, do, lse, delta, sched),
+                 *K.bwd_dkv(q, k, v, do, lse, delta, sched))
+        again = (K.bwd_dq(q, k, v, do, lse, delta, sched),
+                 *K.bwd_dkv(q, k, v, do, lse, delta, sched))
         torch.cuda.synchronize()
+        if not all(torch.equal(a, b) and bool(torch.isfinite(a.float()).all())
+                   for a, b in zip(grads, again)):
+            _fail(f"tri_bwd {label}: two runs of dq / dk / dv differ or "
+                  f"non-finite")
         w_out, w_lse = SC.fwd_torch(q, k, v, sched, scale)
-        w_dq = SC.dq_torch(q, k, v, do, lse, delta, sched, scale)
-        w_dk, w_dv = SC.dkv_torch(q, k, v, do, lse, delta, sched, scale)
+        want = (SC.dq_torch(q, k, v, do, lse, delta, sched, scale),
+                *SC.dkv_torch(q, k, v, do, lse, delta, sched, scale))
+        tol = BF16_GRAD_TOL if K.tile_body(dt, sched.bq, "bwd") == "wgmma" \
+            else OUT_TOL
         errs = (max(_close(f"{label} fwd out", out, w_out),
                     _close(f"{label} fwd lse", lse, w_lse, LSE_TOL)),
-                _close(f"{label} bwd dq", dq, w_dq),
-                max(_close(f"{label} bwd dk", dk, w_dk),
-                    _close(f"{label} bwd dv", dv, w_dv)))
-        return errs, (out, lse, delta)
+                _close(f"{label} bwd dq", grads[0], want[0], tol),
+                max(_close(f"{label} bwd dk", grads[1], want[1], tol),
+                    _close(f"{label} bwd dv", grads[2], want[2], tol)))
+        return errs, (out, lse, delta), want
 
     kinds = {"band": lambda blk: (blk + 5, 0),
              "prefix": lambda blk: (None, blk + 3),
              "band_short": lambda blk: (3, 0)}  # whole tile rows masked
     for kind, geom in kinds.items():
-        for blk in (16, 32, 64, 128):  # both bf16 bodies: mma.sync, wgmma
+        for blk in (16, 32, 64, 128):  # every bf16 body of both directions
             window, prefix = geom(blk)
             q, k, v, do = case(2, 8, 2, 6 * blk, 128)
             sched = OPS.make_sched(6 * blk, block=blk, window=window,
                                    prefix=prefix)
-            _, (out, lse, _) = check(f"{kind} blk {blk}", q, k, v, do, sched)
+            _, (out, lse, _), _ = check(f"{kind} blk {blk}", q, k, v, do,
+                                        sched)
             again = K.fwd(q, k, v, sched)
             if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])
                     and bool(torch.isfinite(out.float()).all())):
@@ -823,7 +868,7 @@ def train_kernel_phase(dev, K, OPS, SC):
     q, k, v, do = case(b, h, hkv, s, d)
     sched = OPS.make_sched(s, block=blk)
     scale = d ** -0.5
-    errs, (out, lse, delta) = check("ltm", q, k, v, do, sched)
+    errs, (out, lse, delta), want = check("ltm", q, k, v, do, sched)
     sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                   enable_gqa=True)
     _close("fwd vs SDPA", out, sdpa())
@@ -831,30 +876,36 @@ def train_kernel_phase(dev, K, OPS, SC):
     o_lib = F.scaled_dot_product_attention(*bw, is_causal=True,
                                            enable_gqa=True)
     sdpa_bwd = lambda: torch.autograd.grad(o_lib, bw, do, retain_graph=True)
+    # SDPA's own grads against the same plain versions, beside the kernels'
+    g_lib = sdpa_bwd()
+    lib_err = [float((got.float() - w.float()).abs().max())
+               for got, w in zip(g_lib, want)]
+    lib_err = {"dq": lib_err[0], "dkv": max(lib_err[1:])}
     turns = _in_turns({"fwd": lambda: K.fwd(q, k, v, sched), "sdpa": sdpa}, 10)
-    ms = {"fwd": turns["fwd"][0],
-          "dq": _median_ms(lambda: K.bwd_dq(q, k, v, do, lse, delta, sched),
-                           5),
-          "dkv": _median_ms(lambda: K.bwd_dkv(q, k, v, do, lse, delta,
-                                              sched), 5)}
+    bturns = _in_turns({
+        "dq": lambda: K.bwd_dq(q, k, v, do, lse, delta, sched),
+        "dkv": lambda: K.bwd_dkv(q, k, v, do, lse, delta, sched),
+        "sdpa": sdpa_bwd}, 10)
+    ms = {"fwd": turns["fwd"][0], "dq": bturns["dq"][0],
+          "dkv": bturns["dkv"][0]}
     plain = {"fwd": _median_ms(lambda: SC.fwd_torch(q, k, v, sched, scale),
                                3, 1),
              "dq": _median_ms(lambda: SC.dq_torch(q, k, v, do, lse, delta,
                                                   sched, scale), 3, 1),
              "dkv": _median_ms(lambda: SC.dkv_torch(q, k, v, do, lse, delta,
                                                     sched, scale), 3, 1)}
-    lib_fwd, lib_bwd = turns["sdpa"][0], _median_ms(sdpa_bwd, 5)
+    lib_fwd, lib_bwd = turns["sdpa"][0], bturns["sdpa"][0]
     pairs = h * s * (s + 1) // 2  # unmasked (query, key) pairs, ltm
     bounds = _attn_bounds(q, k, pairs)
     names = {"fwd": ("tri_attn.fwd", "src/repro_torch/csrc/tri_fwd.cu",
                      "src/repro/kernels/tri_attn/kernel.py:293",
                      "SDPA is_causal forward"),
              "dq": ("tri_attn.bwd_dq", "src/repro_torch/csrc/tri_bwd.cu",
-                    "src/repro/kernels/tri_attn/kernel.py:1090",
+                    "src/repro/kernels/tri_attn/kernel.py:1018",
                     "SDPA is_causal backward through autograd (dq, dk and "
                     "dv together: no PyTorch call computes dq alone)"),
              "dkv": ("tri_attn.bwd_dkv", "src/repro_torch/csrc/tri_bwd.cu",
-                     "src/repro/kernels/tri_attn/kernel.py:1090",
+                     "src/repro/kernels/tri_attn/kernel.py:1055",
                      "SDPA is_causal backward through autograd (dq, dk and "
                      "dv together)")}
     out_rows = []
@@ -869,6 +920,14 @@ def train_kernel_phase(dev, K, OPS, SC):
             "shape": {"B": b, "H": h, "Hkv": hkv, "S": s, "D": d,
                       "blk": blk, "kind": "ltm", "pairs": pairs}})
     fwd_row = out_rows[0]
+    for key, row in zip(("dq", "dkv"), out_rows[1:]):
+        row.update(path=K.tile_body(dt, blk, "bwd"),
+                   bound_share=row["bound_ms"] / row["ms"],
+                   ms_turns=bturns[key][1],
+                   library_ms_turns=bturns["sdpa"][1],
+                   library_max_abs_err=lib_err[key],
+                   grid=list(K.bwd_grid(key, sched, h if key == "dq" else hkv,
+                                        b, dt)))
 
     def other_shape(label, b, h, hkv, s, blk, plain):
         """tri_fwd at another shape a main path or a user gives it, held
@@ -919,6 +978,15 @@ def train_kernel_phase(dev, K, OPS, SC):
               f"{r['against']} {r['max_abs_err']:.3g}"
               for r in [fwd_row["at_jamba_shape"]] + fwd_row["at_ragged_seq"]),
           flush=True)
+    print("train kernels: " + "; ".join(
+        f"{r['name']} {r['ms']:.4f} ms ({r['path']}, grid {r['grid']}) in "
+        f"turns {r['ms_turns']}, bound {r['bound_ms']:.4f} ms "
+        f"({100 * r['bound_share']:.1f}%), err vs plain "
+        f"{r['max_abs_err']:.3g}" for r in out_rows[1:])
+        + f"; SDPA backward (dq, dk, dv) {lib_bwd:.4f} ms in turns "
+        f"{bturns['sdpa'][1]}, err vs plain dq {lib_err['dq']:.3g}, dk/dv "
+        f"{lib_err['dkv']:.3g}; dq + dk/dv {ms['dq'] + ms['dkv']:.4f} ms",
+        flush=True)
     return out_rows
 
 
@@ -2724,7 +2792,10 @@ def main():
     kernels.append(fused_kernel_phase(dev, K, OPS, SC, D, ctx))
     del ctx
     kernels += train_kernel_phase(dev, K, OPS, SC)
-    kernels[-3]["ptxas"] = tc_build[("tri_fwd_tc_kernel", 64, 128)]
+    for row, kern in zip(kernels[-3:], ("tri_fwd_tc_kernel",
+                                        "tri_bwd_dq_tc_kernel",
+                                        "tri_bwd_dkv_tc_kernel")):
+        row["ptxas"] = tc_build[(kern, 64, 128)]
     packed_rows, packed_fwd_train = packed_train_kernel_phase(dev, K, OPS,
                                                               SC)
     kernels += packed_rows

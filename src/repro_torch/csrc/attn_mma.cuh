@@ -1,6 +1,13 @@
 // The tensor-core tile body of the bf16 triangular forward (tri_fwd.cu)
 // and of its bounding-box baseline (fwd_bb.cu), for Hopper (sm_90a).
 // attn_tiles.cuh includes it after its cp.async helpers, which it uses.
+// The backward (tri_bwd.cu) builds its four products on these fragments,
+// descriptors, TMA tiles and mbarriers in attn_mma_bwd.cuh: S = Q K^T and
+// dP = dO V^T in the SS form below (or, for dk/dv, their transposes with
+// the keys as M), dQ += dS K, dV += P^T dO and dK += dS^T Q in the RS form
+// of accumulate_pv, with P and dS repacked from the C fragment as P is
+// here; its numerics follow the order below with lse in place of the
+// running max.
 //
 // Geometry. A block owns BLK query rows, one warp per 16 rows: NT = 2 BLK
 // threads. At BLK 64 and 128 both products are wgmma.mma_async (m64nNk16,
@@ -404,17 +411,36 @@ __device__ __forceinline__ void scores(float (&s)[BLK / 2],
   }
 }
 
-// No element of tile (i, j) is masked: below the diagonal and inside the
-// window, or wholly inside the prefix.
-__device__ __forceinline__ bool tile_inside(int i, int j, int blk,
-                                            int win_eff, int pre) {
-  return (j < i && (i - j + 1) * blk - 1 < win_eff) || (j + 1) * blk <= pre;
+// The reference's token mask: query position qp attends key position kp.
+__device__ __forceinline__ bool keep_pair(int qp, int kp, int win_eff,
+                                          int pre) {
+  return (kp <= qp && qp - kp < win_eff) || kp < pre;
+}
+
+// No pair of the rows x rows block at query positions [qp0, qp0 + rows)
+// and key positions [kp0, kp0 + rows) is masked: below the diagonal and
+// inside the window, or wholly inside the prefix.
+__device__ __forceinline__ bool block_inside(int qp0, int kp0, int rows,
+                                             int win_eff, int pre) {
+  return (kp0 + rows - 1 <= qp0 && qp0 + rows - 1 - kp0 < win_eff) ||
+         kp0 + rows <= pre;
+}
+
+// An f32 C fragment over COLS columns as bf16 A fragments of 16 columns.
+template <int COLS>
+__device__ __forceinline__ void repack(const float (&c)[COLS / 2],
+                                       uint32_t (&a)[COLS / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < COLS / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = pack_bf16(c[8 * kk + 2 * r], c[8 * kk + 2 * r + 1]);
 }
 
 // Scale, mask and online softmax of one tile's scores in place (s becomes
 // p), O rescaled by alpha, P packed into bf16 A fragments (16 keys each).
 // qrow / kcol: token positions of row g and of column 2 (lane % 4) of the
-// tile; full: tile_inside (the mask is skipped).
+// tile; full: block_inside (the mask is skipped).
 template <int BLK, int D>
 __device__ __forceinline__ void softmax(float (&s)[BLK / 2],
                                         float (&o)[D / 2],
@@ -427,10 +453,9 @@ __device__ __forceinline__ void softmax(float (&s)[BLK / 2],
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float x = s[4 * c + e] * scale;
-      if (!full) {
-        const int qp = qrow + 8 * (e >> 1), kp = kcol + 8 * c + (e & 1);
-        if (!((kp <= qp && qp - kp < win_eff) || kp < pre)) x = MASK_VALUE;
-      }
+      if (!full && !keep_pair(qrow + 8 * (e >> 1), kcol + 8 * c + (e & 1),
+                              win_eff, pre))
+        x = MASK_VALUE;
       s[4 * c + e] = x;
       mx[e >> 1] = fmaxf(mx[e >> 1], x);
     }
@@ -452,11 +477,7 @@ __device__ __forceinline__ void softmax(float (&s)[BLK / 2],
   for (int r = 0; r < 2; ++r) st.l[r] = st.l[r] * alpha[r] + sum[r];
 #pragma unroll
   for (int x = 0; x < D / 2; ++x) o[x] *= alpha[(x >> 1) & 1];
-#pragma unroll
-  for (int kk = 0; kk < BLK / 16; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      p[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+  repack<BLK>(s, p);
 }
 
 // O += P V over the tile's BLK keys.
@@ -637,7 +658,8 @@ __device__ __forceinline__ void row_tile(const Src& src, bf16* __restrict__ oh,
     uint32_t p[BLK / 16][4];
     scores<BLK, D>(sc, sq, sk, qf);
     softmax<BLK, D>(sc, o, p, st, ti * BLK + rw, tj * BLK + 2 * (lane & 3),
-                    tile_inside(ti, tj, BLK, win_eff, pre), win_eff, pre,
+                    block_inside(ti * BLK, tj * BLK, BLK, win_eff, pre),
+                    win_eff, pre,
                     scale);
     accumulate_pv<BLK, D>(o, p, sk + TILE);
     __syncthreads();  // this stage is refilled at step s + 1
@@ -686,7 +708,8 @@ __device__ __forceinline__ void bb_partial(const Src& src, int i, int j,
   uint32_t p[BLK / 16][4];
   scores<BLK, D>(sc, smem, smem + TILE, qf);
   softmax<BLK, D>(sc, o, p, st, i * BLK + rw, j * BLK + 2 * t,
-                  tile_inside(i, j, BLK, win_eff, 0), win_eff, 0, scale);
+                  block_inside(i * BLK, j * BLK, BLK, win_eff, 0), win_eff,
+                  0, scale);
   accumulate_pv<BLK, D>(o, p, smem + 2 * TILE);
   reduce_l(st);
 

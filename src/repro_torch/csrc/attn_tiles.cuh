@@ -22,10 +22,14 @@
 // bf16 tensor-core rate (4 blk^2 D flops a tile over 2 blk D loaded
 // values). tri_fwd.cu and fwd_bb.cu (replacing the reference's fwd and
 // fwd_bb, repro/kernels/tri_attn/kernel.py) run them for f32 inputs only,
-// where the reference computes in f32 and TF32 would compute something
-// else; their bf16 path is the tensor-core body of attn_mma.cuh (wgmma or
-// mma.sync, S / O / P in registers, bf16 tiles in shared memory),
-// included at the end of this file. The other kernels move to it later.
+// and tri_bwd.cu (bwd) for f32 inputs and for bf16 at blk 16 and 32, which
+// no bf16 main path reaches: the reference computes in f32 and TF32 would
+// compute something else. Their bf16 paths are the tensor-core bodies of
+// attn_mma.cuh (included at the end of this file: wgmma or mma.sync,
+// S / O / P in registers, bf16 tiles in shared memory) and
+// attn_mma_bwd.cuh (wgmma on 64 x 64 sub-tiles). packed_fwd.cu,
+// packed_decode.cu, fused_step.cu and packed_bwd.cu still run the bodies
+// here in every dtype; they move to the tensor cores next.
 #pragma once
 
 #include <cuda_bf16.h>

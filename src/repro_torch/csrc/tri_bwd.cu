@@ -1,53 +1,134 @@
 // Triangular-domain attention backward for Hopper (sm_90a): two kernels.
 //
 // Replaces the TPU kernels of repro/kernels/tri_attn/kernel.py:bwd:
-//  - tri_bwd_dq (_dq_kernel): dq over the row-major lambdas;
-//  - tri_bwd_dkv (_dkv_kernel): dk/dv over the column-major lambdas.
+//  - tri_bwd_dq (_dq_kernel, :1018, launched at :1103): dq over the
+//    row-major lambdas;
+//  - tri_bwd_dkv (_dkv_kernel, :1055, launched at :1126): dk/dv over the
+//    column-major lambdas.
 // delta = sum(do * out) is computed by the wrapper (kernel.py:bwd), as the
 // reference computes it outside its kernels.
 //
-// Design. The Pallas grids run in order on one core: dq zeroes its
+// Owners. The Pallas grids run in order on one core: dq zeroes its
 // accumulator at a row's first lambda and emits at its last, dk/dv do the
-// same per column. CUDA blocks run in no order, so each accumulator owner
-// is one block that walks its tiles in the reference's order:
-//  - dq: one block per (batch, head, q-row tile i), grid (n, H, B), rows
-//    issued longest first; the block walks j over [first_col(i),
-//    last_col(i)] (tri::dq_row_tile).
-//  - dk/dv: one block per (batch, KV head, key-column tile j), grid
-//    (n, Hkv, B), column 0 (the longest) first; the block sums over the g
-//    query heads of its group and rows i over [cm_first_row(j),
-//    cm_last_row(j)] (tri::dkv_col_tile), and writes dk and dv in k's dtype
-//    directly. The reference writes per-q-head partials and group-sums
-//    them only because a Pallas output block cannot accumulate across the
-//    head axis; here there is no partial buffer and no group sum.
-// Neither kernel uses atomics: every output element is reduced in one
-// fixed order, so two runs on the same inputs are bitwise equal. dq follows
-// the reference's order of sums; dk/dv sums the group's heads inside one
-// accumulator, where the reference rounds each head's partial to q's dtype
-// and sums them after, so dk/dv match the reference within tolerance, not
-// bitwise.
+// same per column. CUDA blocks run in no order, so each accumulator is
+// owned by one block that walks its tiles in the reference's order, and
+// no kernel uses atomics: every output element is reduced in one fixed
+// order, so two runs on the same inputs are bitwise equal. dk/dv sum the
+// group's g query heads inside one accumulator, where the reference
+// rounds each head's partial to q's dtype and sums them after, so they
+// match the reference within tolerance, not bitwise.
+//  - dq: one block per (batch, head, q-row tile i), rows issued longest
+//    first; the block walks j over [first_col(i), last_col(i)].
+//  - dk/dv: one block per (batch, kv head, column pair): the fold. Column
+//    j's walk (every query head, then rows over [cm_first_row(j),
+//    cm_last_row(j)]) is g (n - j) tile steps for ltm, from g n down to g,
+//    so one block a column leaves the card uneven once the body is fast
+//    (at the training shape 256 owners of 8 to 512 steps, all resident in
+//    one wave). A block takes column j, then column n - 1 - j (the middle
+//    column alone when n is odd), each walked and written exactly as
+//    before, so the results are bitwise those of the unfolded walk and
+//    every ltm block does g (n + 1) steps: ceil(n / 2) Hkv B blocks (128 at
+//    the training shape, one even wave on 132 SMs). The rectangular-box
+//    fold of the paper, applied to the owners of a reduction. Band and
+//    prefix columns fold by the same code.
 //
-// Bound on this card. Per tile pair dq does 6 * blk^2 * D flops (S, dP,
-// dS K) and dk/dv 8 * blk^2 * D (S, dP, P^T dO, dS^T Q) over 2 * blk * D
-// loaded values: both are bound by the tensor-core rate in bf16. This first
-// version does the products on the f32 CUDA cores from shared memory and
-// runs far from that bound; wgmma with P and dS in bf16 is the next step.
-// Shared memory at blk 64, D 128: dq 108 KB (Q, dO, one 32-key chunk of K
-// and V, dS), dk/dv 75 KB (32-key chunks of K and V, 32-query chunks of Q
-// and dO, P and dS), with the accumulators in registers (32 floats a
-// thread each way at 256 threads).
+// Bound on this card. Per (query, key) pair dq does 6 D flops (S, dP,
+// dS K) and dk/dv 8 D (S, dP, P^T dO, dS^T Q) over 2 D loaded values a
+// tile row: both are bound by the bf16 tensor-core rate (at B 1, H 32,
+// S 4096, D 128, ltm: 206 and 275 GFLOP, 0.2085 and 0.2780 ms).
+//
+// bf16 at blk 64 and 128 runs on the tensor cores (attn_mma_bwd.cuh):
+// 64 x 64 sub-tiles, wgmma with swizzled TMA tiles through a ring of
+// stages, S / dP / the accumulators in registers, P and dS rounded to bf16
+// only as A operands. dq: one warpgroup a block of 64 query rows (a blk
+// 128 row tile is two blocks), grid (n blk / 64, H, B). dk/dv: two
+// warpgroups a block of 64 keys (a blk 128 column is two blocks), grid
+// (ceil(n / 2) blk / 64, Hkv, B): WG0 computes S^T, P^T and dV += P^T dO,
+// hands P^T to WG1 through shared memory and named barriers, and WG1
+// computes dP^T, dS^T and dK += dS^T Q, so each issues two of the four
+// products and holds one accumulator. The two run decoupled: each thread
+// releases a ring stage on an mbarrier, P^T alternates between two
+// buffers, and WG0 computes the next step's P^T while WG1 finishes this
+// one, where a block barrier a step would hold both to the slower.
+// Shared memory at D 128: dq 97 KB (two ring stages, two blocks an SM; a
+// third stage would cost the second block), dk/dv 163 KB (three ring
+// stages, so WG0 may lead by two steps).
+//
+// float32 at every tile edge, and bf16 at blk 16 and 32, keep the
+// CUDA-core bodies (tri::dq_row_tile / dkv_col_tile, attn_tiles.cuh,
+// scalar f32 FMAs, the same fold): the reference computes in f32 and TF32
+// would compute something else, and no bf16 main path runs the backward
+// at blk 16 or 32. kernel.tile_body(dtype, blk, "bwd") names the body.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "attn_tiles.cuh"
+#include <cstdint>
+#include <initializer_list>
+#include <type_traits>
+
+#include "attn_mma_bwd.cuh"
 
 namespace {
 
-constexpr int NT = tri::PREFILL_NT;
+using tri::tc::BwdShape;
+using tri::tc::QB;
+
+template <int BLK, int D>
+__global__ void __launch_bounds__(BwdShape<D>::DQ_NT)
+tri_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tdo,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     __nv_bfloat16* __restrict__ dq, int H, int Hkv, int S,
+                     int n, int w, int p, int win, int pre, float scale) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = tri::tc::align_1k(smem_raw);
+  constexpr int NSUB = BLK / QB;
+  const int r = n * NSUB - 1 - static_cast<int>(blockIdx.x);
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (H / Hkv);
+  const int q_row = (b * H + h) * S;
+  const tri::tc::BwdSrc src{&tq, &tk, &tv, &tdo, q_row, (b * Hkv + hk) * S};
+  tri::tc::dq_sub_row<BLK, D>(src, dq + static_cast<size_t>(q_row) * D,
+                              lse + q_row, delta + q_row, 0, r / NSUB,
+                              r % NSUB, w, p, win, pre, scale, smem);
+}
+
+template <int BLK, int D>
+__global__ void __launch_bounds__(BwdShape<D>::DKV_NT)
+tri_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdo,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      __nv_bfloat16* __restrict__ dk,
+                      __nv_bfloat16* __restrict__ dv, int H, int Hkv, int S,
+                      int n, int w, int p, int win, int pre, float scale) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = tri::tc::align_1k(smem_raw);
+  constexpr int NSUB = BLK / QB;
+  const int pair = blockIdx.x / NSUB, half = blockIdx.x % NSUB;
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int g = H / Hkv;
+  const int q_row = (b * H + hk * g) * S, kv_row = (b * Hkv + hk) * S;
+  const tri::tc::BwdSrc src{&tq, &tk, &tv, &tdo, q_row, kv_row};
+  tri::tc::BwdRing ring{0, 0};
+  const size_t kv = static_cast<size_t>(kv_row) * D;
+  const int cols = 2 * pair + 1 == n ? 1 : 2;  // the middle column of an odd n
+  for (int c = 0; c < cols; ++c)
+    tri::tc::dkv_sub_col<BLK, D>(src, lse + q_row, delta + q_row, dk + kv,
+                                 dv + kv, g, S, 0, c ? n - 1 - pair : pair,
+                                 half, n, w, p, win, pre, scale, smem, ring);
+}
+
+constexpr int NT_F32 = tri::PREFILL_NT;
 
 template <typename T, int BLK, int D>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT_F32)
 tri_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const T* __restrict__ dout,
                   const float* __restrict__ lse,
@@ -68,7 +149,7 @@ tri_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int BLK, int D>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT_F32)
 tri_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const T* __restrict__ dout,
                    const float* __restrict__ lse,
@@ -76,41 +157,73 @@ tri_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    T* __restrict__ dv, int H, int Hkv, int S, int n, int w,
                    int p, int win, int pre, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int j = blockIdx.x;
+  const int pair = blockIdx.x;
   const int hk = blockIdx.y, b = blockIdx.z;
   const int g = H / Hkv;
   const size_t plane = static_cast<size_t>(S) * D;
   const size_t qo = (static_cast<size_t>(b) * H + hk * g) * plane;
   const size_t ko = (static_cast<size_t>(b) * Hkv + hk) * plane;
   const size_t ro = (static_cast<size_t>(b) * H + hk * g) * S;
-  tri::dkv_col_tile<T, BLK, D>(q + qo, k + ko, v + ko, dout + qo, lse + ro,
-                               delta + ro, dk + ko, dv + ko, g, S, 0, j, n, w,
-                               p, win, pre, scale,
-                               reinterpret_cast<float*>(smem));
+  const int cols = 2 * pair + 1 == n ? 1 : 2;  // the middle column of an odd n
+  for (int c = 0; c < cols; ++c)
+    tri::dkv_col_tile<T, BLK, D>(q + qo, k + ko, v + ko, dout + qo, lse + ro,
+                                 delta + ro, dk + ko, dv + ko, g, S, 0,
+                                 c ? n - 1 - pair : pair, n, w, p, win, pre,
+                                 scale, reinterpret_cast<float*>(smem));
+}
+
+// The bf16 tensor-core body runs at blk 64 and 128 (kernel.tile_body).
+template <typename T, int BLK>
+constexpr bool kTensorCores = std::is_same_v<T, __nv_bfloat16> && BLK >= QB;
+
+// The bf16 body reads q, k, v, do by TMA and lse, delta by bulk copy, and
+// writes 4-byte pairs: every pointer must be 16-byte aligned.
+inline bool misaligned(std::initializer_list<const void*> ptrs) {
+  uintptr_t bits = 0;
+  for (const void* x : ptrs) bits |= reinterpret_cast<uintptr_t>(x);
+  return bits & 15;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, do, dq, dk, dv share it; lse
 // and delta are (B, H, S) f32). (n, w, p) and win / pre as in
-// tri_fwd_launch.
+// tri_fwd_launch. On the bf16 tensor-core path every pointer must be
+// 16-byte aligned (cudaErrorMisalignedAddress otherwise).
 extern "C" int tri_bwd_dq_launch(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, void* dq, int B, int H,
                                  int Hkv, int S, int D, int blk, int n, int w,
                                  int p, int win, int pre, float scale,
                                  int dtype, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
   return tri::dispatch_tile(dtype, blk, D, [&](auto t, auto blk_c, auto d_c) {
     using T = typename decltype(t)::type;
     constexpr int BLK = decltype(blk_c)::value, DD = decltype(d_c)::value;
-    auto kern = tri_bwd_dq_kernel<T, BLK, DD>;
-    constexpr size_t bytes = tri::DqShape<BLK, DD>::BYTES;
-    if (int err = tri::set_smem(kern, bytes)) return err;
-    kern<<<dim3(n, H, B), NT, bytes, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<T*>(dq), H, Hkv, S, n, w, p, win, pre, scale);
+    if constexpr (kTensorCores<T, BLK>) {
+      if (misaligned({q, k, v, dout, lse, delta, dq}))
+        return static_cast<int>(cudaErrorMisalignedAddress);
+      CUtensorMap maps[4] = {};
+      if (int err = tri::tc::make_bwd_tmaps<DD>(maps, q, k, v, dout, B, H,
+                                                Hkv, S))
+        return err;
+      auto kern = tri_bwd_dq_tc_kernel<BLK, DD>;
+      constexpr size_t bytes = BwdShape<DD>::DQ_BYTES;
+      if (int err = tri::set_smem(kern, bytes)) return err;
+      kern<<<dim3(n * (BLK / QB), H, B), BwdShape<DD>::DQ_NT, bytes, st>>>(
+          maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
+          static_cast<const float*>(delta), static_cast<T*>(dq), H, Hkv, S, n,
+          w, p, win, pre, scale);
+    } else {
+      auto kern = tri_bwd_dq_kernel<T, BLK, DD>;
+      constexpr size_t bytes = tri::DqShape<BLK, DD>::BYTES;
+      if (int err = tri::set_smem(kern, bytes)) return err;
+      kern<<<dim3(n, H, B), NT_F32, bytes, st>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const T*>(dout),
+          static_cast<const float*>(lse), static_cast<const float*>(delta),
+          static_cast<T*>(dq), H, Hkv, S, n, w, p, win, pre, scale);
+    }
     return static_cast<int>(cudaGetLastError());
   });
 }
@@ -122,18 +235,37 @@ extern "C" int tri_bwd_dkv_launch(const void* q, const void* k, const void* v,
                                   int blk, int n, int w, int p, int win,
                                   int pre, float scale, int dtype,
                                   void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  const int pairs = (n + 1) / 2;
   return tri::dispatch_tile(dtype, blk, D, [&](auto t, auto blk_c, auto d_c) {
     using T = typename decltype(t)::type;
     constexpr int BLK = decltype(blk_c)::value, DD = decltype(d_c)::value;
-    auto kern = tri_bwd_dkv_kernel<T, BLK, DD>;
-    constexpr size_t bytes = tri::DkvShape<BLK, DD>::BYTES;
-    if (int err = tri::set_smem(kern, bytes)) return err;
-    kern<<<dim3(n, Hkv, B), NT, bytes, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<T*>(dk), static_cast<T*>(dv), H, Hkv, S, n, w, p, win,
-        pre, scale);
+    if constexpr (kTensorCores<T, BLK>) {
+      if (misaligned({q, k, v, dout, lse, delta, dk, dv}))
+        return static_cast<int>(cudaErrorMisalignedAddress);
+      CUtensorMap maps[4] = {};
+      if (int err = tri::tc::make_bwd_tmaps<DD>(maps, q, k, v, dout, B, H,
+                                                Hkv, S))
+        return err;
+      auto kern = tri_bwd_dkv_tc_kernel<BLK, DD>;
+      constexpr size_t bytes = BwdShape<DD>::DKV_BYTES;
+      if (int err = tri::set_smem(kern, bytes)) return err;
+      kern<<<dim3(pairs * (BLK / QB), Hkv, B), BwdShape<DD>::DKV_NT, bytes,
+             st>>>(maps[0], maps[1], maps[2], maps[3],
+                   static_cast<const float*>(lse),
+                   static_cast<const float*>(delta), static_cast<T*>(dk),
+                   static_cast<T*>(dv), H, Hkv, S, n, w, p, win, pre, scale);
+    } else {
+      auto kern = tri_bwd_dkv_kernel<T, BLK, DD>;
+      constexpr size_t bytes = tri::DkvShape<BLK, DD>::BYTES;
+      if (int err = tri::set_smem(kern, bytes)) return err;
+      kern<<<dim3(pairs, Hkv, B), NT_F32, bytes, st>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const T*>(dout),
+          static_cast<const float*>(lse), static_cast<const float*>(delta),
+          static_cast<T*>(dk), static_cast<T*>(dv), H, Hkv, S, n, w, p, win,
+          pre, scale);
+    }
     return static_cast<int>(cudaGetLastError());
   });
 }

@@ -488,15 +488,34 @@ def fwd(q, k, v, sched: TriSched, *, sm_scale=None):
 fwd.launches = 0
 
 
-def tile_body(dtype, blk: int) -> str:
-    """The tile body ``fwd`` and ``fwd_bb`` run on the card for q's dtype
-    and the tile edge: bf16 on the tensor cores (csrc/attn_mma.cuh), by
-    wgmma at blk 64 and 128 and by mma.sync at 16 and 32; f32 on the CUDA
-    cores (scalar FMAs, attn_tiles.cuh)."""
+def tile_body(dtype, blk: int, op: str = "fwd") -> str:
+    """The tile body a kernel runs on the card for q's dtype and the tile
+    edge: op "fwd" for ``fwd`` and ``fwd_bb`` (csrc/tri_fwd.cu,
+    csrc/fwd_bb.cu), "bwd" for ``bwd_dq`` and ``bwd_dkv``
+    (csrc/tri_bwd.cu). bf16 at blk 64 and 128 runs on the tensor cores by
+    wgmma (csrc/attn_mma.cuh, attn_mma_bwd.cuh); bf16 at blk 16 and 32 by
+    mma.sync in the forward and on the CUDA cores in the backward, which
+    no bf16 main path runs at those edges; f32 on the CUDA cores (scalar
+    FMAs, attn_tiles.cuh), since TF32 would compute something else."""
     _check(dtype in _DTYPE_CODES, f"no tile body for {dtype}")
+    _check(op in ("fwd", "bwd"), f"tile_body: op must be fwd or bwd, got "
+           f"{op!r}")
     if dtype == torch.float32:
         return "fma_f32"
-    return "wgmma" if blk >= 64 else "mma.sync"
+    if blk >= 64:
+        return "wgmma"
+    return "mma.sync" if op == "fwd" else "fma_f32"
+
+
+def bwd_grid(op: str, sched: TriSched, heads: int, b: int, dtype) -> tuple:
+    """The CUDA grid of tri_bwd_dq (op "dq") or tri_bwd_dkv (op "dkv"):
+    the wgmma body takes 64 rows (dq) or 64 keys (dk/dv) a block, so a
+    blk 128 tile is two blocks; dk/dv fold column j with column n - 1 - j
+    into one block, ceil(n / 2) of them."""
+    sub = sched.bq // 64 if tile_body(dtype, sched.bq, "bwd") == "wgmma" \
+        else 1
+    owners = sched.n if op == "dq" else (sched.n + 1) // 2
+    return (owners * sub, heads, b)
 
 
 def check_bb_sched(sched: TriSched):
@@ -575,8 +594,9 @@ def _bwd_launch(name, c_fn, sched, q, k, v, do, lse, delta, outs, scale):
         tail = (device_table(sched, q.device).data_ptr(),
                 len(sched.members), sched.total_tiles)
     else:
-        meta = OBS.meta_from_trisched(name, sched, impl="cuda", cells=b * h,
-                                      grid=(sched.n, heads, b))
+        meta = OBS.meta_from_trisched(
+            name, sched, impl="cuda", cells=b * h,
+            grid=bwd_grid(name.split("_")[-1], sched, heads, b, q.dtype))
         tail = _sched_args(sched)
     OBS.instrumented_launch(
         meta, c_fn, (q, k, v, do),

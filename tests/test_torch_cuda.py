@@ -326,8 +326,11 @@ GRAD_TOL = {torch.float32: dict(atol=2e-4, rtol=2e-3),
 TRI_KINDS = {"ltm": lambda blk: (None, 0), "band": lambda blk: (blk + 5, 0),
              "prefix": lambda blk: (None, blk + 3),
              "band_short": lambda blk: (3, 0)}
-# (blk, D): the mma.sync body (blk 16, 32) and the wgmma body (64, 128) of
-# the bf16 forward, each at every head dim
+# (blk, D), each head dim at some edge. bf16 forward (tri_fwd.cu): the
+# mma.sync body at blk 16 and 32, the wgmma body at 64 and 128; bf16
+# backward (tri_bwd.cu): the CUDA-core body at blk 16 and 32, the wgmma
+# body at 64 and 128 (64 x 64 sub-tiles, dk/dv folded); f32 in both
+# directions: the CUDA-core body (kernel.tile_body)
 TRI_GEOMS = [(16, 64), (16, 32), (32, 16), (32, 128), (64, 128), (64, 32),
              (128, 16), (128, 64)]
 
@@ -347,10 +350,13 @@ def _tri_case(dev, kind, blk, d, g, hkv, dtype, n=5, b=2):
 @pytest.mark.parametrize("g,hkv", [(1, 2), (2, 2), (8, 1)])
 @pytest.mark.parametrize("blk,d", TRI_GEOMS)
 @pytest.mark.parametrize("kind", ["ltm", "band", "prefix", "band_short"])
-def test_tri_fwd_and_bwd_match_plain(dev, kind, blk, d, g, hkv, dtype):
+# the dk/dv fold pairs column j with n - 1 - j: n 5 leaves the middle
+# column alone, n 6 pairs every column
+@pytest.mark.parametrize("n", [5, 6])
+def test_tri_fwd_and_bwd_match_plain(dev, kind, blk, d, g, hkv, dtype, n):
     from repro_torch.kernels.tri_attn import scan_impl as SC
 
-    sched, q, k, v, do = _tri_case(dev, kind, blk, d, g, hkv, dtype)
+    sched, q, k, v, do = _tri_case(dev, kind, blk, d, g, hkv, dtype, n=n)
     scale = d ** -0.5
     before = (K.fwd.launches, K.bwd_dq.launches, K.bwd_dkv.launches)
     out, lse = K.fwd(q, k, v, sched)
@@ -384,14 +390,18 @@ def test_tri_fwd_is_deterministic(dev, kind, blk, d):
     assert all(bool(torch.isfinite(x.float()).all()) for x in first)
 
 
-def test_tri_bwd_is_deterministic(dev):
-    """No atomics: the same inputs give bitwise-equal grads."""
-    sched, q, k, v, do = _tri_case(dev, "ltm", 64, 128, 8, 1,
-                                   torch.bfloat16)
+@pytest.mark.parametrize("kind,blk,d", [("ltm", 64, 128),
+                                        ("band_short", 64, 128),
+                                        ("ltm", 128, 64),
+                                        ("band_short", 128, 128)])
+def test_tri_bwd_is_deterministic(dev, kind, blk, d):
+    """No atomics: the same inputs give bitwise-equal grads, and finite."""
+    sched, q, k, v, do = _tri_case(dev, kind, blk, d, 8, 1, torch.bfloat16)
     out, lse = K.fwd(q, k, v, sched)
     first = K.bwd(q, k, v, out, lse, do, sched)
     again = K.bwd(q, k, v, out, lse, do, sched)
     assert all(torch.equal(a, b) for a, b in zip(first, again))
+    assert all(bool(torch.isfinite(x.float()).all()) for x in first)
 
 
 @pytest.mark.parametrize("kind", ["ltm", "band", "prefix"])
@@ -435,6 +445,30 @@ def test_tri_failing_launch_raises(dev, monkeypatch, fn):
         assert after == (before[0], before[1] + 1, before[2])
     else:
         assert after == before
+
+
+@pytest.mark.parametrize("arg", range(4))
+def test_tri_bwd_misaligned_bf16_raises(dev, arg):
+    """The bf16 wgmma backward reads q, k, v, do by TMA: a contiguous
+    operand 2 bytes off a 16-byte boundary is refused with
+    cudaErrorMisalignedAddress, counted by neither wrapper, as tri_fwd
+    refuses one; nothing falls back."""
+    sched, q, k, v, do = _tri_case(dev, "ltm", 64, 64, 2, 2, torch.bfloat16)
+    out, lse = K.fwd(q, k, v, sched)
+    delta = (do.float() * out.float()).sum(dim=-1)
+    ops = [q, k, v, do]
+    shifted = torch.empty(ops[arg].numel() + 1, dtype=torch.bfloat16,
+                          device=dev)[1:].view(ops[arg].shape)
+    shifted.copy_(ops[arg])
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    ops[arg] = shifted
+    code = 716  # cudaErrorMisalignedAddress
+    before = (K.bwd_dq.launches, K.bwd_dkv.launches)
+    with pytest.raises(RuntimeError, match=f"cudaError {code}"):
+        K.bwd_dq(*ops, lse, delta, sched)
+    with pytest.raises(RuntimeError, match=f"cudaError {code}"):
+        K.bwd_dkv(*ops, lse, delta, sched)
+    assert (K.bwd_dq.launches, K.bwd_dkv.launches) == before
 
 
 # ---------------------------------------------------------------------------
