@@ -7,8 +7,9 @@ Phases (any failure exits non-zero; nothing is caught):
   2. build the eleven CUDA sources of src/repro_torch/csrc (nvcc, sm_90a);
      print ptxas's registers and spills of the bf16 instantiations of the
      attention tile bodies (tri_fwd.cu's and fwd_bb.cu's tensor-core
-     kernels, tri_bwd.cu's tensor-core and CUDA-core kernels) and the
-     HGMMA / HMMA instructions cuobjdump finds in each (each must hold the
+     kernels, tri_bwd.cu's and packed_bwd.cu's tensor-core and CUDA-core
+     kernels) and the HGMMA / HMMA instructions cuobjdump finds in each
+     (every one of those kernels must be found, and each must hold the
      instruction of the body kernel.tile_body names for its direction,
      HGMMA at BLK 64 and 128, HMMA in the forward at 16 and 32, neither in
      the backward at 16 and 32, and no other; the backward's wgmma
@@ -49,10 +50,12 @@ Phases (any failure exits non-zero; nothing is caught):
      (tri_attn.packed_bwd) at the packed train phase's attention shape
      (one row of the 8 documents 1500/1000/600/370/250/100/60/40 padded
      to blk 64 multiples, 4096 rows, ltm members; H 32, Hkv 4, D 128,
-     bf16) against their plain versions, timed beside them, SDPA with the
-     block-diagonal causal mask (forward; its autograd backward beside dq
-     and dk/dv) and the bound; mixed ltm/prefix/band members at blk 16
-     and 64; two runs of the backward bitwise equal;
+     bf16) against their plain versions (the bf16 wgmma backward's grads
+     at BF16_GRAD_TOL), timed beside them, SDPA with the block-diagonal
+     causal mask (forward; its autograd backward in turns with dq and
+     dk/dv, its own grads' error against the plain versions reported) and
+     the bound; mixed ltm/prefix/band/3-token band members at blk 16, 64
+     and 128; two runs of the backward bitwise equal;
   7. the paper's experiment: dummy_ltm over the whole certified ltm_map
      envelope (n = 23169, 268,412,865 blocks) equal to i + j on the card;
      edm_ltm and edm_bb against their plain versions (EDM tolerances of
@@ -229,20 +232,28 @@ def _close(name, got, want, tol=OUT_TOL):
     return err
 
 
-# the tensor-core kernels of tri_fwd.cu / fwd_bb.cu / tri_bwd.cu and the
-# bf16 CUDA-core kernels of tri_bwd.cu (BLK 16 and 32): (kernel, BLK, D)
-TC_KERNEL = re.compile(r"(tri_fwd_tc_kernel|fwd_bb_tc_kernel|tri_bwd_dq_tc_kernel"
-                       r"|tri_bwd_dkv_tc_kernel)ILi(\d+)ELi(\d+)E")
-CC_KERNEL = re.compile(r"(tri_bwd_dq_kernel|tri_bwd_dkv_kernel)"
-                       r"I13__nv_bfloat16Li(\d+)ELi(\d+)E")
-# the direction of each kernel's tile body (kernel.tile_body's op)
-BODY_DIR = {"tri_fwd_tc_kernel": "fwd", "fwd_bb_tc_kernel": "fwd",
-            "tri_bwd_dq_tc_kernel": "bwd", "tri_bwd_dkv_tc_kernel": "bwd",
-            "tri_bwd_dq_kernel": "bwd", "tri_bwd_dkv_kernel": "bwd"}
+# the tensor-core kernels of tri_fwd.cu / fwd_bb.cu / tri_bwd.cu /
+# packed_bwd.cu and the CUDA-core kernels of tri_bwd.cu and packed_bwd.cu:
+# the source of each and the direction of its tile body (kernel.tile_body's
+# op)
+BODY_DIR = {"tri_fwd_tc_kernel": ("tri_fwd", "fwd"),
+            "fwd_bb_tc_kernel": ("fwd_bb", "fwd"),
+            "tri_bwd_dq_tc_kernel": ("tri_bwd", "bwd"),
+            "tri_bwd_dkv_tc_kernel": ("tri_bwd", "bwd"),
+            "tri_bwd_dq_kernel": ("tri_bwd", "bwd"),
+            "tri_bwd_dkv_kernel": ("tri_bwd", "bwd"),
+            "packed_bwd_dq_tc_kernel": ("packed_bwd", "bwd"),
+            "packed_bwd_dkv_tc_kernel": ("packed_bwd", "bwd"),
+            "packed_bwd_dq_kernel": ("packed_bwd", "bwd"),
+            "packed_bwd_dkv_kernel": ("packed_bwd", "bwd")}
+# their bf16 instantiations in mangled names: (kernel, BLK, D) of
+# <BLK, D> (the tensor-core kernels) or <__nv_bfloat16, BLK, D>
+KERNEL_KEY = re.compile(rf"({'|'.join(BODY_DIR)})I(?:13__nv_bfloat16)?"
+                        r"Li(\d+)ELi(\d+)E")
 
 
 def _kernel_key(line: str):
-    m = TC_KERNEL.search(line) or CC_KERNEL.search(line)
+    m = KERNEL_KEY.search(line)
     return (m.group(1), int(m.group(2)), int(m.group(3))) if m else None
 
 
@@ -265,15 +276,16 @@ def tensor_core_build(BUILD, K) -> dict:
     """What ptxas said of the bf16 instantiations of the attention tile
     bodies (registers, spills) and how many HGMMA (wgmma) and HMMA
     (mma.sync) instructions cuobjdump finds in each: tri_fwd.cu's and
-    fwd_bb.cu's tensor-core kernels, tri_bwd.cu's tensor-core kernels and
-    its bf16 CUDA-core kernels. Each instantiation must hold the
+    fwd_bb.cu's tensor-core kernels, tri_bwd.cu's and packed_bwd.cu's
+    tensor-core kernels and their bf16 CUDA-core kernels. Every kernel of
+    BODY_DIR must be found, and each instantiation must hold the
     instruction of the body K.tile_body names for its BLK and direction
     and no other (a CUDA-core body neither), so the label the wrappers
     report is the compiled dispatch; the backward's wgmma instantiations
     must not spill. Returns {(kernel, BLK, D): {"registers": r, "HGMMA":
     n, ...}}."""
     info = {}
-    for lib in ("tri_fwd", "fwd_bb", "tri_bwd"):
+    for lib in sorted({lib for lib, _ in BODY_DIR.values()}):
         lines = (BUILD.build_dir() / f"{lib}.log").read_text().splitlines()
         for at, line in enumerate(lines):
             key = _kernel_key(line)
@@ -296,23 +308,27 @@ def tensor_core_build(BUILD, K) -> dict:
                 for op in ("HGMMA", "HMMA"):
                     if op + "." in line:
                         info[key][op] = info[key].get(op, 0) + 1
+    missing = set(BODY_DIR) - {kern for kern, _, _ in info}
+    if missing:
+        _fail(f"tensor cores: no bf16 instantiation of {sorted(missing)}")
     for (kern, blk, d), row in sorted(info.items()):
-        body = K.tile_body(torch.bfloat16, blk, BODY_DIR[kern])
+        body = K.tile_body(torch.bfloat16, blk, BODY_DIR[kern][1])
         op = BODY_OP.get(body)
         wrong = [o for o in BODY_OP.values() if o != op and row.get(o)]
         if (op is not None and not row.get(op)) or wrong:
             _fail(f"{kern} BLK {blk} D {d}: SASS holds {row.get('HGMMA', 0)} "
                   f"HGMMA and {row.get('HMMA', 0)} HMMA; tile_body names "
                   f"{body}")
-        if BODY_DIR[kern] == "bwd" and op and row["spill_bytes"] != 0:
+        if BODY_DIR[kern][1] == "bwd" and op and row["spill_bytes"] != 0:
             _fail(f"{kern} BLK {blk} D {d}: ptxas reports "
                   f"{row['spill_bytes']} bytes of spill stores")
     totals = {op: sum(r.get(op, 0) for r in info.values())
               for op in ("HGMMA", "HMMA")}
     print(f"tensor cores: {len(info)} bf16 instantiations of tri_fwd_tc_kernel,"
-          f" fwd_bb_tc_kernel, tri_bwd_dq/dkv_tc_kernel (BLK 64, 128) and "
-          f"tri_bwd_dq/dkv_kernel (BLK 16, 32), SASS {totals['HGMMA']} HGMMA "
-          f"and {totals['HMMA']} HMMA; ptxas: " + "; ".join(
+          f" fwd_bb_tc_kernel, tri_bwd_dq/dkv_tc_kernel, "
+          f"packed_bwd_dq/dkv_tc_kernel (BLK 64, 128) and tri_bwd_dq/dkv_kernel,"
+          f" packed_bwd_dq/dkv_kernel (BLK 16, 32), SASS {totals['HGMMA']} "
+          f"HGMMA and {totals['HMMA']} HMMA; ptxas: " + "; ".join(
               f"{k[0].replace('_kernel', '')} {k[1]}x{k[2]} {r['registers']} "
               f"regs {r['spill_bytes']} B spills {r.get('HGMMA', 0)} HGMMA "
               f"{r.get('HMMA', 0)} HMMA" for k, r in sorted(info.items())),
@@ -1011,11 +1027,15 @@ def packed_train_kernel_phase(dev, K, OPS, SC):
     """packed_fwd and the packed dq and dk/dv at the attention shape of the
     packed train phase (one row of TRAIN_DOCS padded to blk 64: 4096 rows,
     8 ltm members; B 1, H 32, Hkv 4, D 128, bf16) against their plain
-    versions on the same inputs, timed beside them, SDPA with the
-    block-diagonal causal mask and the bound; mixed ltm/prefix/band
-    members at blk 16 and 64 on small shapes. Every run of the backward is
-    repeated and must be bitwise equal (no atomics). Returns the rows of
-    the two backward kernels and packed_fwd's reading at this shape."""
+    versions on the same inputs (the bf16 wgmma backward's grads at
+    BF16_GRAD_TOL, the CUDA-core body's at OUT_TOL), timed beside them,
+    SDPA with the block-diagonal causal mask (its autograd backward in
+    turns with dq and dk/dv, its own grads' largest error against the same
+    plain versions reported) and the bound; mixed ltm/prefix/band/3-token
+    band members at blk 16, 64 and 128 on small shapes. Every run of the
+    backward is repeated and must be bitwise equal (no atomics). Returns
+    the rows of the two backward kernels and packed_fwd's reading at this
+    shape."""
     import torch.nn.functional as F
 
     rng = np.random.default_rng(4)
@@ -1036,23 +1056,25 @@ def packed_train_kernel_phase(dev, K, OPS, SC):
         again = (K.packed_bwd_dq(q, k, v, do, lse, delta, psched),
                  *K.packed_bwd_dkv(q, k, v, do, lse, delta, psched))
         torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
-            _fail(f"{label}: two runs of packed_bwd differ")
+        if not all(torch.equal(a, b) and bool(torch.isfinite(a.float()).all())
+                   for a, b in zip(grads, again)):
+            _fail(f"{label}: two runs of packed_bwd differ or non-finite")
         w_out, w_lse = SC.packed_fwd_torch(q, k, v, psched, scale)
-        w_dq = SC.packed_dq_torch(q, k, v, do, lse, delta, psched, scale)
-        w_dk, w_dv = SC.packed_dkv_torch(q, k, v, do, lse, delta, psched,
-                                         scale)
+        want = (SC.packed_dq_torch(q, k, v, do, lse, delta, psched, scale),
+                *SC.packed_dkv_torch(q, k, v, do, lse, delta, psched, scale))
+        tol = BF16_GRAD_TOL \
+            if K.tile_body(dt, psched.blk, "bwd") == "wgmma" else OUT_TOL
         errs = (max(_close(f"{label} packed_fwd out", out, w_out),
                     _close(f"{label} packed_fwd lse", lse, w_lse, LSE_TOL)),
-                _close(f"{label} packed_bwd dq", grads[0], w_dq),
-                max(_close(f"{label} packed_bwd dk", grads[1], w_dk),
-                    _close(f"{label} packed_bwd dv", grads[2], w_dv)))
-        return errs, (out, lse, delta)
+                _close(f"{label} packed_bwd dq", grads[0], want[0], tol),
+                max(_close(f"{label} packed_bwd dk", grads[1], want[1], tol),
+                    _close(f"{label} packed_bwd dv", grads[2], want[2], tol)))
+        return errs, (out, lse, delta), want
 
-    for blk in (16, 64):
+    for blk in (16, 64, 128):  # the CUDA-core body, then wgmma at 64, 128
         psched = OPS.make_packed_sched([5 * blk, 2 * blk, 3 * blk, blk],
                                        block=blk,
-                                       window=[None, None, blk + 3, None],
+                                       window=[None, None, blk + 3, 3],
                                        prefix=[0, blk + 1, 0, 0])
         check(f"mixed blk {blk}", *case(8, 2, psched.s_total, 128), psched)
     h, hkv, d, blk = 32, 4, 128, 64
@@ -1061,7 +1083,7 @@ def packed_train_kernel_phase(dev, K, OPS, SC):
     s = psched.s_total
     q, k, v, do = case(h, hkv, s, d)
     scale = d ** -0.5
-    errs, (out, lse, delta) = check("ltm docs", q, k, v, do, psched)
+    errs, (out, lse, delta), want = check("ltm docs", q, k, v, do, psched)
     mask = torch.zeros((s, s), dtype=torch.bool, device=dev)
     base = 0
     for n_tok in lens:
@@ -1075,18 +1097,32 @@ def packed_train_kernel_phase(dev, K, OPS, SC):
     o_lib = F.scaled_dot_product_attention(*bw, attn_mask=mask,
                                            enable_gqa=True)
     sdpa_bwd = lambda: torch.autograd.grad(o_lib, bw, do, retain_graph=True)
+    # SDPA's own grads against the same plain versions, beside the kernels'
+    lib_err = [float((got.float() - w.float()).abs().max())
+               for got, w in zip(sdpa_bwd(), want)]
+    lib_err = {"dq": lib_err[0], "dkv": max(lib_err[1:])}
+    bturns = _in_turns({
+        "dq": lambda: K.packed_bwd_dq(q, k, v, do, lse, delta, psched),
+        "dkv": lambda: K.packed_bwd_dkv(q, k, v, do, lse, delta, psched),
+        "sdpa": sdpa_bwd}, 10)
     ms = {"fwd": _median_ms(lambda: K.packed_fwd(q, k, v, psched), 5),
-          "dq": _median_ms(lambda: K.packed_bwd_dq(q, k, v, do, lse, delta,
-                                                   psched), 5),
-          "dkv": _median_ms(lambda: K.packed_bwd_dkv(q, k, v, do, lse,
-                                                     delta, psched), 5)}
+          "dq": bturns["dq"][0], "dkv": bturns["dkv"][0]}
     plain = {"fwd": _median_ms(lambda: SC.packed_fwd_torch(q, k, v, psched,
                                                            scale), 3, 1),
              "dq": _median_ms(lambda: SC.packed_dq_torch(
                  q, k, v, do, lse, delta, psched, scale), 3, 1),
              "dkv": _median_ms(lambda: SC.packed_dkv_torch(
                  q, k, v, do, lse, delta, psched, scale), 3, 1)}
-    lib_fwd, lib_bwd = _median_ms(sdpa, 10), _median_ms(sdpa_bwd, 5)
+    lib_fwd, lib_bwd = _median_ms(sdpa, 10), bturns["sdpa"][0]
+    # the kernels' own time on the device (the wrappers' host work, which
+    # the event timings above include once it outlasts the kernel, left out)
+    device = {
+        "dq": _device_ms(lambda: [K.packed_bwd_dq(q, k, v, do, lse, delta,
+                                                  psched)
+                                  for _ in range(20)], 20, "packed_bwd_dq"),
+        "dkv": _device_ms(lambda: [K.packed_bwd_dkv(q, k, v, do, lse, delta,
+                                                    psched)
+                                   for _ in range(20)], 20, "packed_bwd_dkv")}
     pairs = h * int(mask.sum())  # unmasked (query, key) pairs
     bounds = _attn_bounds(q, k, pairs)
     shape = {"B": 1, "H": h, "Hkv": hkv, "D": d, "blk": blk, "docs":
@@ -1100,8 +1136,26 @@ def packed_train_kernel_phase(dev, K, OPS, SC):
              "replaces": "src/repro/kernels/tri_attn/kernel.py:549",
              "max_abs_err": err, "ms": ms[key], "plain_ms": plain[key],
              "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
-             "library_ms": lib_bwd, "library": lib, "shape": shape}
+             "library_ms": lib_bwd, "library": lib, "shape": shape,
+             "path": K.tile_body(dt, blk, "bwd"),
+             "bound_share": bounds[key][0] / ms[key],
+             "ms_turns": bturns[key][1], "device_ms": device[key],
+             "library_ms_turns": bturns["sdpa"][1],
+             "library_max_abs_err": lib_err[key],
+             "grid": list(K.packed_bwd_grid(key, psched,
+                                            h if key == "dq" else hkv, 1,
+                                            dt))}
             for key, err in zip(("dq", "dkv"), errs[1:])]
+    print("packed train kernels: " + "; ".join(
+        f"{r['name']} {r['ms']:.4f} ms ({r['path']}, grid {r['grid']}) in "
+        f"turns {r['ms_turns']}, on the device {r['device_ms']:.4f} ms, "
+        f"bound {r['bound_ms']:.4f} ms ({100 * r['bound_share']:.1f}%), "
+        f"err vs plain {r['max_abs_err']:.3g}" for r in rows)
+        + f"; SDPA backward with the block mask (dq, dk, dv) {lib_bwd:.4f} "
+        f"ms in turns {bturns['sdpa'][1]}, err vs plain dq "
+        f"{lib_err['dq']:.3g}, dk/dv {lib_err['dkv']:.3g}; dq + dk/dv "
+        f"{ms['dq'] + ms['dkv']:.4f} ms; packed_fwd {ms['fwd']:.4f} ms "
+        f"(SDPA {lib_fwd:.4f})", flush=True)
     fwd_reading = {"max_abs_err": errs[0], "ms": ms["fwd"],
                    "plain_ms": plain["fwd"], "bound_ms": bounds["fwd"][0],
                    "bound_by": bounds["fwd"][1], "library_ms": lib_fwd,
@@ -2798,6 +2852,9 @@ def main():
         row["ptxas"] = tc_build[(kern, 64, 128)]
     packed_rows, packed_fwd_train = packed_train_kernel_phase(dev, K, OPS,
                                                               SC)
+    for row, kern in zip(packed_rows, ("packed_bwd_dq_tc_kernel",
+                                       "packed_bwd_dkv_tc_kernel")):
+        row["ptxas"] = tc_build[(kern, 64, 128)]
     kernels += packed_rows
     torch.cuda.empty_cache()
     kernels += paper_phase(dev, K, OPS, SC)

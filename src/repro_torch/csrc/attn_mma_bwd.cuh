@@ -1,6 +1,7 @@
 // The tensor-core tile bodies of the bf16 triangular backward (tri_bwd.cu)
-// for Hopper (sm_90a), built on the forward's fragments and helpers
-// (attn_mma.cuh): wgmma m64nNk16 (f32 += bf16 x bf16), swizzled TMA tiles,
+// and of the packed backward (packed_bwd.cu, row0 > 0) for Hopper
+// (sm_90a), built on the forward's fragments and helpers (attn_mma.cuh):
+// wgmma m64nNk16 (f32 += bf16 x bf16), swizzled TMA tiles,
 // mbarriers, the C-to-A repack of a 64 x 64 f32 fragment into bf16 A
 // operands, and accumulate_pv's RS product against an MN-major tile.
 //
@@ -35,6 +36,10 @@
 // operands of the RS products (FlashAttention's choice). dk/dv sum the
 // group's query heads in one f32 accumulator.
 #pragma once
+
+#include <cstdint>
+#include <initializer_list>
+#include <type_traits>
 
 #include "attn_tiles.cuh"
 
@@ -385,6 +390,19 @@ __device__ __forceinline__ void dkv_sub_col(const BwdSrc& src,
   ring_at.steps += steps;
   ring_at.cols += 1;
   store_acc<D>(acc, wg ? dkh : dvh, kg0);
+}
+
+// The bf16 tensor-core body runs at blk 64 and 128 (kernel.tile_body);
+// float32, and bf16 at blk 16 and 32, keep the CUDA-core body.
+template <typename T, int BLK>
+constexpr bool kTensorCores = std::is_same_v<T, __nv_bfloat16> && BLK >= QB;
+
+// The bf16 body reads q, k, v, do by TMA and lse, delta by bulk copy, and
+// writes 4-byte pairs: every pointer must be 16-byte aligned.
+inline bool misaligned(std::initializer_list<const void*> ptrs) {
+  uintptr_t bits = 0;
+  for (const void* x : ptrs) bits |= reinterpret_cast<uintptr_t>(x);
+  return bits & 15;
 }
 
 // Host side: the maps of q, do (B H S rows) and k, v (B Hkv S rows) in

@@ -63,10 +63,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <cstdint>
-#include <initializer_list>
-#include <type_traits>
-
 #include "attn_mma_bwd.cuh"
 
 namespace {
@@ -172,18 +168,6 @@ tri_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                  scale, reinterpret_cast<float*>(smem));
 }
 
-// The bf16 tensor-core body runs at blk 64 and 128 (kernel.tile_body).
-template <typename T, int BLK>
-constexpr bool kTensorCores = std::is_same_v<T, __nv_bfloat16> && BLK >= QB;
-
-// The bf16 body reads q, k, v, do by TMA and lse, delta by bulk copy, and
-// writes 4-byte pairs: every pointer must be 16-byte aligned.
-inline bool misaligned(std::initializer_list<const void*> ptrs) {
-  uintptr_t bits = 0;
-  for (const void* x : ptrs) bits |= reinterpret_cast<uintptr_t>(x);
-  return bits & 15;
-}
-
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, do, dq, dk, dv share it; lse
@@ -200,8 +184,8 @@ extern "C" int tri_bwd_dq_launch(const void* q, const void* k, const void* v,
   return tri::dispatch_tile(dtype, blk, D, [&](auto t, auto blk_c, auto d_c) {
     using T = typename decltype(t)::type;
     constexpr int BLK = decltype(blk_c)::value, DD = decltype(d_c)::value;
-    if constexpr (kTensorCores<T, BLK>) {
-      if (misaligned({q, k, v, dout, lse, delta, dq}))
+    if constexpr (tri::tc::kTensorCores<T, BLK>) {
+      if (tri::tc::misaligned({q, k, v, dout, lse, delta, dq}))
         return static_cast<int>(cudaErrorMisalignedAddress);
       CUtensorMap maps[4] = {};
       if (int err = tri::tc::make_bwd_tmaps<DD>(maps, q, k, v, dout, B, H,
@@ -240,8 +224,8 @@ extern "C" int tri_bwd_dkv_launch(const void* q, const void* k, const void* v,
   return tri::dispatch_tile(dtype, blk, D, [&](auto t, auto blk_c, auto d_c) {
     using T = typename decltype(t)::type;
     constexpr int BLK = decltype(blk_c)::value, DD = decltype(d_c)::value;
-    if constexpr (kTensorCores<T, BLK>) {
-      if (misaligned({q, k, v, dout, lse, delta, dk, dv}))
+    if constexpr (tri::tc::kTensorCores<T, BLK>) {
+      if (tri::tc::misaligned({q, k, v, dout, lse, delta, dk, dv}))
         return static_cast<int>(cudaErrorMisalignedAddress);
       CUtensorMap maps[4] = {};
       if (int err = tri::tc::make_bwd_tmaps<DD>(maps, q, k, v, dout, B, H,

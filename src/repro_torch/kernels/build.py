@@ -61,8 +61,7 @@ SIGNATURES = {
         "tri_bwd_dq_launch": [_P] * 7 + [_I] * 11 + [_F, _I, _P],
         "tri_bwd_dkv_launch": [_P] * 8 + [_I] * 11 + [_F, _I, _P],
     },
-    # (B, H, Hkv, S, D, blk, table, n_members, total_tiles, scale, dtype,
-    #  stream)
+    # (B, H, Hkv, S, D, blk, table, n_members, owners, scale, dtype, stream)
     "packed_bwd": {
         "packed_bwd_dq_launch": [_P] * 7 + [_I] * 6 + [_P, _I, _I]
         + [_F, _I, _P],

@@ -492,7 +492,8 @@ def tile_body(dtype, blk: int, op: str = "fwd") -> str:
     """The tile body a kernel runs on the card for q's dtype and the tile
     edge: op "fwd" for ``fwd`` and ``fwd_bb`` (csrc/tri_fwd.cu,
     csrc/fwd_bb.cu), "bwd" for ``bwd_dq`` and ``bwd_dkv``
-    (csrc/tri_bwd.cu). bf16 at blk 64 and 128 runs on the tensor cores by
+    (csrc/tri_bwd.cu) and for ``packed_bwd_dq`` and ``packed_bwd_dkv``
+    (csrc/packed_bwd.cu). bf16 at blk 64 and 128 runs on the tensor cores by
     wgmma (csrc/attn_mma.cuh, attn_mma_bwd.cuh); bf16 at blk 16 and 32 by
     mma.sync in the forward and on the CUDA cores in the backward, which
     no bf16 main path runs at those edges; f32 on the CUDA cores (scalar
@@ -507,15 +508,32 @@ def tile_body(dtype, blk: int, op: str = "fwd") -> str:
     return "mma.sync" if op == "fwd" else "fma_f32"
 
 
+def _owners(op: str, members) -> int:
+    """Accumulator owners of a backward launch: dq a row tile each, dk/dv a
+    pair of columns (j, n - 1 - j) of one member each."""
+    return sum(m.n if op == "dq" else (m.n + 1) // 2 for m in members)
+
+
+def _fold_grid(op: str, members, blk: int, heads: int, b: int,
+               dtype) -> tuple:
+    sub = blk // 64 if tile_body(dtype, blk, "bwd") == "wgmma" else 1
+    return (_owners(op, members) * sub, heads, b)
+
+
 def bwd_grid(op: str, sched: TriSched, heads: int, b: int, dtype) -> tuple:
     """The CUDA grid of tri_bwd_dq (op "dq") or tri_bwd_dkv (op "dkv"):
     the wgmma body takes 64 rows (dq) or 64 keys (dk/dv) a block, so a
     blk 128 tile is two blocks; dk/dv fold column j with column n - 1 - j
     into one block, ceil(n / 2) of them."""
-    sub = sched.bq // 64 if tile_body(dtype, sched.bq, "bwd") == "wgmma" \
-        else 1
-    owners = sched.n if op == "dq" else (sched.n + 1) // 2
-    return (owners * sub, heads, b)
+    return _fold_grid(op, (sched,), sched.bq, heads, b, dtype)
+
+
+def packed_bwd_grid(op: str, psched: PackedTriSched, heads: int, b: int,
+                    dtype) -> tuple:
+    """The CUDA grid of packed_bwd_dq (op "dq") or packed_bwd_dkv (op
+    "dkv"): ``bwd_grid`` summed over the members, each member's columns
+    folded among themselves (sum_r ceil(n_r / 2) dk/dv owners)."""
+    return _fold_grid(op, psched.members, psched.blk, heads, b, dtype)
 
 
 def check_bb_sched(sched: TriSched):
@@ -588,15 +606,17 @@ def _bwd_launch(name, c_fn, sched, q, k, v, do, lse, delta, outs, scale):
            f"{tuple(delta.shape)} {delta.dtype}")
     hkv = k.shape[1]
     heads = h if name.endswith("_dq") else hkv
+    grad = name.split("_")[-1]  # dq or dkv
     if isinstance(sched, PackedTriSched):
-        meta = OBS.meta_from_packed(name, sched, impl="cuda", cells=b * h,
-                                    grid=(sched.total_tiles, heads, b))
+        meta = OBS.meta_from_packed(
+            name, sched, impl="cuda", cells=b * h,
+            grid=packed_bwd_grid(grad, sched, heads, b, q.dtype))
         tail = (device_table(sched, q.device).data_ptr(),
-                len(sched.members), sched.total_tiles)
+                len(sched.members), _owners(grad, sched.members))
     else:
         meta = OBS.meta_from_trisched(
             name, sched, impl="cuda", cells=b * h,
-            grid=bwd_grid(name.split("_")[-1], sched, heads, b, q.dtype))
+            grid=bwd_grid(grad, sched, heads, b, q.dtype))
         tail = _sched_args(sched)
     OBS.instrumented_launch(
         meta, c_fn, (q, k, v, do),

@@ -474,7 +474,9 @@ def test_tri_bwd_misaligned_bf16_raises(dev, arg):
 # ---------------------------------------------------------------------------
 # Packed document training: tri_attn.packed_bwd dq and dk/dv
 # (csrc/packed_bwd.cu) on a mixed member zoo (ltm, prefix, band, short
-# ltm in one launch), at the tolerances of the training kernels above.
+# ltm in one launch), at the tolerances of the training kernels above:
+# bf16 at blk 64 and 128 on the wgmma body of tri_bwd (each member's
+# columns folded), float32 and bf16 at 16 and 32 on the CUDA cores.
 # ---------------------------------------------------------------------------
 
 PACKED_D = {16: 64, 32: 64, 64: 128, 128: 128}
@@ -516,13 +518,64 @@ def test_packed_bwd_matches_plain(dev, blk, g, hkv, dtype):
                                    **GRAD_TOL[dtype])
 
 
-def test_packed_bwd_is_deterministic(dev):
-    """No atomics: the same inputs give bitwise-equal grads."""
-    psched, q, k, v, do = _packed_case(dev, 64, 8, 1, torch.bfloat16)
+@pytest.mark.parametrize("blk", [64, 128])  # the bf16 wgmma body
+def test_packed_bwd_is_deterministic(dev, blk):
+    """No atomics: the same inputs give bitwise-equal grads, and finite."""
+    psched, q, k, v, do = _packed_case(dev, blk, 8, 1, torch.bfloat16)
     out, lse = K.packed_fwd(q, k, v, psched)
     first = K.packed_bwd(q, k, v, out, lse, do, psched)
     again = K.packed_bwd(q, k, v, out, lse, do, psched)
     assert all(torch.equal(a, b) for a, b in zip(first, again))
+    assert all(bool(torch.isfinite(x.float()).all()) for x in first)
+
+
+@pytest.mark.parametrize("g,hkv", [(1, 2), (8, 1)])
+def test_packed_bwd_long_member_matches_plain(dev, g, hkv):
+    """A member of 24 tiles at blk 64 (the largest of the packed train
+    phase) beside short ltm, band and prefix members: the wgmma body's
+    longest dq rows and dk/dv pairs, at the bf16 grad tolerance."""
+    from repro_torch.kernels.tri_attn import scan_impl as SC
+
+    blk, d, h = 64, 128, g * hkv
+    rng = np.random.default_rng(24 + g)
+    psched = OPS.make_packed_sched([24 * blk, 3 * blk, 2 * blk, blk],
+                                   block=blk, window=[None, blk + 3, None, 3],
+                                   prefix=[0, 0, blk + 1, 0])
+    s = psched.s_total
+    q, k, v, do = (_rand(rng, shape, torch.bfloat16, dev) for shape in
+                   ((1, h, s, d), (1, hkv, s, d), (1, hkv, s, d),
+                    (1, h, s, d)))
+    out, lse = K.packed_fwd(q, k, v, psched)
+    got = K.packed_bwd(q, k, v, out, lse, do, psched)
+    want = SC.packed_bwd_torch(q, k, v, out, lse, do, psched, d ** -0.5)
+    for x, ref, name in zip(got, want, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(x.float().cpu().numpy(),
+                                   ref.float().cpu().numpy(), err_msg=name,
+                                   **GRAD_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("arg", range(4))
+def test_packed_bwd_misaligned_bf16_raises(dev, arg):
+    """The bf16 wgmma packed backward reads q, k, v, do by TMA: a
+    contiguous operand 2 bytes off a 16-byte boundary is refused with
+    cudaErrorMisalignedAddress, counted by neither wrapper; nothing falls
+    back."""
+    psched, q, k, v, do = _packed_case(dev, 64, 2, 2, torch.bfloat16)
+    out, lse = K.packed_fwd(q, k, v, psched)
+    delta = (do.float() * out.float()).sum(dim=-1)
+    ops = [q, k, v, do]
+    shifted = torch.empty(ops[arg].numel() + 1, dtype=torch.bfloat16,
+                          device=dev)[1:].view(ops[arg].shape)
+    shifted.copy_(ops[arg])
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    ops[arg] = shifted
+    code = 716  # cudaErrorMisalignedAddress
+    before = (K.packed_bwd_dq.launches, K.packed_bwd_dkv.launches)
+    with pytest.raises(RuntimeError, match=f"cudaError {code}"):
+        K.packed_bwd_dq(*ops, lse, delta, psched)
+    with pytest.raises(RuntimeError, match=f"cudaError {code}"):
+        K.packed_bwd_dkv(*ops, lse, delta, psched)
+    assert (K.packed_bwd_dq.launches, K.packed_bwd_dkv.launches) == before
 
 
 def test_packed_attention_cuda_grads_match_ref(dev):

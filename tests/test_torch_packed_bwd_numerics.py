@@ -1,0 +1,231 @@
+"""The numerics and the owners of the bf16 tensor-core packed backward
+(csrc/packed_bwd.cu on csrc/attn_mma_bwd.cuh) against the reference's
+kernels.
+
+``packed_bwd_dq`` and ``packed_bwd_dkv`` on the card run the wgmma body of
+``tri_bwd`` on each member of a packed row, with the member's first tile
+row as row0: 64 x 64 sub-tiles, S and dP in f32, the finite MASK_VALUE,
+p = exp2((s - lse) log2 e) after the mask, dS from the f32 p, P and dS
+rounded to bf16 only as A operands, dk/dv over the group in one f32
+accumulator. dq's blocks own the packed tile rows; dk/dv's own each
+member's column pairs (j, n_r - 1 - j), counted member by member over the
+table's n row (``pair_of`` in the source). ``_packed_tc_dq`` and
+``_packed_tc_dkv`` below walk those owners in plain torch, finding each
+one's member as the kernels do, and address the packed planes at row0;
+the same numpy inputs in bf16 go through the reference's ``packed_bwd``
+(Pallas in interpret mode, as its own tests run it) on a mixed zoo (ltm,
+prefix, band and a 3-token band member of 5, 2, 3 and 1 tiles: odd and
+even n_r, a member with no partner column, whole masked tile rows) at blk
+64 and 128, D 64 and 128, g 1 and 4, at the bf16 attention tolerance of
+tests/oracles.py. The folded walk is held bitwise equal to the dense
+emulation of each member alone. Last, the grids the packed launches take
+and the fold's cover of every column.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import oracles as O
+from repro.kernels.tri_attn import kernel as JK
+from repro.kernels.tri_attn import ops as JOPS
+from repro_torch.kernels.tri_attn import kernel as K
+from repro_torch.kernels.tri_attn import ops as OPS
+from test_torch_tri_bwd_numerics import GEOMS, GROUPS, QB, _bf16, _mask, \
+    _p_ds, _tc_dkv, _tc_dq
+
+torch.set_num_threads(2)
+
+# the mixed zoo: member tiles, window and prefix (tokens) at tile edge blk
+ZOO = {"tiles": (5, 2, 3, 1),
+       "window": lambda blk: [None, None, blk + 3, 3],
+       "prefix": lambda blk: [0, blk + 1, 0, 0]}
+# the packed train phase's documents (real tokens, chip_smoke.py)
+TRAIN_DOCS = (1500, 1000, 600, 370, 250, 100, 60, 40)
+
+
+def _zoo(blk, make):
+    return make([n * blk for n in ZOO["tiles"]], block=blk,
+                window=ZOO["window"](blk), prefix=ZOO["prefix"](blk))
+
+
+def _member_of(tile, psched):
+    """The member of packed tile `tile` and its first tile row, found over
+    the table's tile-row offsets (row 1) as csrc/packed_bwd.cu does."""
+    rows = psched.table()[1]
+    r = int(np.searchsorted(rows, tile, side="right")) - 1
+    return psched.members[r], int(rows[r])
+
+
+def _pair_of(pair, psched):
+    """Column pair `pair` of the pack: its member, the member's first tile
+    row and first column j, the pairs counted member by member over the
+    table's n row (row 2), as csrc/packed_bwd.cu's pair_of does."""
+    tbl = psched.table()
+    r = 0
+    while r < tbl.shape[1] - 1 and pair >= (tbl[2, r] + 1) // 2:
+        pair -= (tbl[2, r] + 1) // 2
+        r += 1
+    return psched.members[r], int(tbl[1, r]), int(pair)
+
+
+def _packed_tc_dq(q, k, v, do, lse, dlt, psched, scale):
+    """packed_bwd_dq: each packed row tile's 64-row sub-blocks walk j over
+    the member's [first_col(i), last_col(i)] at the member's positions,
+    the planes read at row0 * blk on."""
+    blk = psched.blk
+    g = q.shape[1] // k.shape[1]
+    kf, vf = (x.float().repeat_interleave(g, dim=1) for x in (k, v))
+    dq = torch.full(q.shape, float("nan"), dtype=torch.bfloat16)
+    for tile in range(psched.total_tiles):
+        m, row0 = _member_of(tile, psched)
+        i, base = tile - row0, row0 * blk
+        for sub in range(blk // QB):
+            qp0 = i * blk + QB * sub
+            rows = slice(base + qp0, base + qp0 + QB)
+            acc = torch.zeros(q.shape[:2] + (QB, q.shape[-1]))
+            for j in range(m.rm_first_col(i), m.rm_last_col(i) + 1):
+                for half in range(blk // QB):
+                    kp0 = j * blk + QB * half
+                    cols = slice(base + kp0, base + kp0 + QB)
+                    _, ds = _p_ds(q[:, :, rows].float(), kf[:, :, cols],
+                                  vf[:, :, cols], do[:, :, rows].float(),
+                                  lse[:, :, rows], dlt[:, :, rows],
+                                  _mask(qp0, kp0, m.window or 0, m.prefix),
+                                  scale)
+                    acc = acc + _bf16(ds) @ kf[:, :, cols]
+            dq[:, :, rows] = acc.to(torch.bfloat16)
+    return dq
+
+
+def _packed_tc_dkv(q, k, v, do, lse, dlt, psched, scale):
+    """packed_bwd_dkv: each column pair's 64-key halves walk column j, then
+    n_r - 1 - j (the middle column alone for an odd n_r), each over the
+    group's heads and rows [cm_first_row, cm_last_row] of the member;
+    dV += bf16(P)^T dO, dK += bf16(dS)^T Q, the heads in one f32
+    accumulator."""
+    blk = psched.blk
+    b, hkv, _, d = k.shape
+    g = q.shape[1] // hkv
+    qg, dog = (x.float().reshape(b, hkv, g, -1, d) for x in (q, do))
+    lg, dg = (x.reshape(b, hkv, g, -1) for x in (lse, dlt))
+    dk = torch.full(k.shape, float("nan"), dtype=k.dtype)
+    dv = torch.full(v.shape, float("nan"), dtype=v.dtype)
+    for pair in range(K.packed_bwd_grid("dkv", psched, 1, 1,
+                                        torch.float32)[0]):
+        m, row0, j0 = _pair_of(pair, psched)
+        base = row0 * blk
+        for half in range(blk // QB):
+            for j in dict.fromkeys((j0, m.n - 1 - j0)):  # pair order
+                kp0 = j * blk + QB * half
+                cols = slice(base + kp0, base + kp0 + QB)
+                kj, vj = k[:, :, cols].float(), v[:, :, cols].float()
+                acc_k = torch.zeros((b, hkv, QB, d))
+                acc_v = torch.zeros_like(acc_k)
+                for gi in range(g):
+                    for qp0 in range(m.cm_first_row(j) * blk,
+                                     (m.cm_last_row(j) + 1) * blk, QB):
+                        rows = slice(base + qp0, base + qp0 + QB)
+                        qs, dos = qg[:, :, gi, rows], dog[:, :, gi, rows]
+                        p, ds = _p_ds(qs, kj, vj, dos, lg[:, :, gi, rows],
+                                      dg[:, :, gi, rows],
+                                      _mask(qp0, kp0, m.window or 0,
+                                            m.prefix), scale)
+                        acc_v = acc_v + _bf16(p).transpose(-1, -2) @ dos
+                        acc_k = acc_k + _bf16(ds).transpose(-1, -2) @ qs
+                dk[:, :, cols] = acc_k.to(k.dtype)
+                dv[:, :, cols] = acc_v.to(v.dtype)
+    return dk, dv
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+@pytest.mark.parametrize("g,hkv", GROUPS)
+@pytest.mark.parametrize("blk,d", GEOMS)
+def test_packed_tensor_core_backward_matches_reference(blk, d, g, hkv):
+    jps, tps = _zoo(blk, JOPS.make_packed_sched), _zoo(blk,
+                                                       OPS.make_packed_sched)
+    h, s = g * hkv, tps.s_total
+    rng = np.random.default_rng(blk + d + g)
+    arrs = [rng.standard_normal(shape).astype(np.float32) for shape in
+            ((1, h, s, d), (1, hkv, s, d), (1, hkv, s, d), (1, h, s, d))]
+    jq, jk, jv, jdo = (jnp.asarray(x, jnp.bfloat16) for x in arrs)
+    q, k, v, do = (torch.as_tensor(x).to(torch.bfloat16) for x in arrs)
+    jout, jlse = JK.packed_fwd(jq, jk, jv, jps, interpret=True)
+    want = JK.packed_bwd(jq, jk, jv, jout, jlse, jdo, jps, interpret=True)
+    out = torch.from_numpy(_np(jout).copy()).to(torch.bfloat16)
+    lse = torch.from_numpy(_np(jlse).copy())
+    dlt = (do.float() * out.float()).sum(dim=-1)
+    scale = d ** -0.5
+    got = (_packed_tc_dq(q, k, v, do, lse, dlt, tps, scale),
+           *_packed_tc_dkv(q, k, v, do, lse, dlt, tps, scale))
+    for x, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert x.dtype == torch.bfloat16 and tuple(x.shape) == w.shape, name
+        assert torch.isfinite(x.float()).all(), name  # every owner wrote
+        O.assert_close(_np(x), _np(w), "attn", jnp.bfloat16, name)
+    # each member's rows and columns, walked at row0 and folded, are the
+    # dense walk of the member alone (tri_bwd.cu at row0 0), bit for bit
+    row0 = 0
+    for m in tps.members:
+        at = slice(row0 * blk, (row0 + m.n) * blk)
+        part = [x[:, :, at] for x in (q, k, v, do, lse, dlt)]
+        alone = (_tc_dq(*part, m, scale), *_tc_dkv(*part, m, scale))
+        for x, a, name in zip(got, alone, ("dq", "dk", "dv")):
+            assert torch.equal(x[:, :, at], a), (name, m)
+        row0 += m.n
+
+
+def _train_sched(blk):
+    return OPS.make_packed_sched([-(-n // blk) * blk for n in TRAIN_DOCS],
+                                 block=blk)
+
+
+@pytest.mark.parametrize("blk,dtype,dq_grid,dkv_grid", [
+    # the packed train phase: 64 q-row blocks a head, 12 + 8 + 5 + 3 + 2 +
+    # 1 + 1 + 1 = 33 column pairs a kv head: 132 blocks, one wave
+    (64, torch.bfloat16, (64, 32, 1), (33, 4, 1)),
+    # blk 128 (the documents padded to 128): two 64-row blocks a row tile
+    # (33 tiles) and two 64-key blocks a pair (6 + 4 + 3 + 2 + 1 + 1 + 1 +
+    # 1 = 19 pairs)
+    (128, torch.bfloat16, (66, 32, 1), (38, 4, 1)),
+    # the CUDA-core bodies: one block a row tile, one a column pair (blk
+    # 16: members of 94, 63, 38, 24, 16, 7, 4 and 3 tiles, 126 pairs)
+    (64, torch.float32, (64, 32, 1), (33, 4, 1)),
+    (16, torch.bfloat16, (249, 32, 1), (126, 4, 1))])
+def test_packed_bwd_grid(blk, dtype, dq_grid, dkv_grid):
+    psched = _train_sched(blk)
+    assert K.packed_bwd_grid("dq", psched, 32, 1, dtype) == dq_grid
+    assert K.packed_bwd_grid("dkv", psched, 4, 1, dtype) == dkv_grid
+
+
+@pytest.mark.parametrize("case", ["zoo16", "zoo64", "train64", "train128",
+                                  "single"])
+def test_packed_fold_covers_every_column_once(case):
+    """The column pairs of the dk/dv grid cover every (member, column)
+    exactly once, each pair within one member, and together walk every
+    tile of the pack once; for an ltm member every pair walks n_r + 1
+    tile rows (the middle column of an odd n_r its (n_r + 1) / 2)."""
+    psched = {"zoo16": lambda: _zoo(16, OPS.make_packed_sched),
+              "zoo64": lambda: _zoo(64, OPS.make_packed_sched),
+              "train64": lambda: _train_sched(64),
+              "train128": lambda: _train_sched(128),
+              "single": lambda: OPS.make_packed_sched([64], block=64)}[case]()
+    pairs = K.packed_bwd_grid("dkv", psched, 1, 1, torch.float32)[0]
+    walked, walks = [], 0
+    for pair in range(pairs):
+        m, row0, j = _pair_of(pair, psched)
+        assert 0 <= j <= m.n - 1 - j, (case, m, j)
+        cols = [j] if 2 * j + 1 == m.n else [j, m.n - 1 - j]
+        walked += [row0 + c for c in cols]
+        rows = sum(m.cm_last_row(c) - m.cm_first_row(c) + 1 for c in cols)
+        walks += rows
+        if m.kind == "ltm":
+            assert rows == (m.n + 1 if len(cols) == 2
+                            else (m.n + 1) // 2), (m, j)
+    assert sorted(walked) == list(range(psched.total_tiles))
+    assert walks == psched.steps
