@@ -6,22 +6,25 @@ Phases (any failure exits non-zero; nothing is caught):
   1. the card's name and power limit (nvidia-smi);
   2. build the eleven CUDA sources of src/repro_torch/csrc (nvcc, sm_90a);
      print ptxas's registers and spills of the bf16 instantiations of the
-     attention tile bodies (tri_fwd.cu's and fwd_bb.cu's tensor-core
-     kernels, tri_bwd.cu's and packed_bwd.cu's tensor-core and CUDA-core
-     kernels) and the HGMMA / HMMA instructions cuobjdump finds in each
-     (every one of those kernels must be found, and each must hold the
-     instruction of the body kernel.tile_body names for its direction,
-     HGMMA at BLK 64 and 128, HMMA in the forward at 16 and 32, neither in
-     the backward at 16 and 32, and no other; the backward's wgmma
-     instantiations must not spill);
+     attention tile bodies (the tensor-core kernels of tri_fwd.cu,
+     fwd_bb.cu, packed_fwd.cu, tri_bwd.cu and packed_bwd.cu, fused_step.cu's
+     bf16-q kernels, the CUDA-core kernels of tri_bwd.cu and packed_bwd.cu)
+     and the HGMMA / HMMA instructions cuobjdump finds in each (every one
+     of those kernels must be found, and each must hold the instruction of
+     the body kernel.tile_body names for its direction, HGMMA at BLK 64
+     and 128, HMMA in the forward at 16 and 32, neither in the backward at
+     16 and 32, and no other; no tensor-core instantiation may spill);
   3. kernels: each kernel of the serving path at full yi-9b width (H=32,
      Hkv=4, D=128, blk=64, bf16 q/k/v, f32 decode cache) against its
      plain PyTorch version on the card (outputs within atol 4e-3 + rtol
      1e-2, log-sum-exp within atol 1e-2), timed with CUDA events beside
      the plain version, one library call (scaled_dot_product_attention
-     with the equivalent mask; used nowhere in the port) and the bound
-     max(bytes / 3.35 TB/s, flops / peak), both counted from what this
-     run's masks and kv lengths need;
+     with the equivalent mask; used nowhere in the port; packed_fwd in
+     turns with it, and on the device through the profiler, its two runs
+     bitwise equal) and the bound max(bytes / 3.35 TB/s, flops / peak),
+     both counted from what this run's masks and kv lengths need; the
+     fused step against the split kernels on the same round (its prefill
+     half bitwise equal to packed_fwd) at its block's thread count;
   4. serving: yi-9b at full width (48 layers unless --layers cuts it) with
      random seeded bf16 weights, an Engine with both kernels serving 8
      skewed requests; asserts every request done, no degrade, no failure,
@@ -52,9 +55,9 @@ Phases (any failure exits non-zero; nothing is caught):
      to blk 64 multiples, 4096 rows, ltm members; H 32, Hkv 4, D 128,
      bf16) against their plain versions (the bf16 wgmma backward's grads
      at BF16_GRAD_TOL), timed beside them, SDPA with the block-diagonal
-     causal mask (forward; its autograd backward in turns with dq and
-     dk/dv, its own grads' error against the plain versions reported) and
-     the bound; mixed ltm/prefix/band/3-token band members at blk 16, 64
+     causal mask (its forward in turns with packed_fwd; its autograd
+     backward in turns with dq and dk/dv, its own grads' error against the
+     plain versions reported), the kernels' device time and the bound; mixed ltm/prefix/band/3-token band members at blk 16, 64
      and 128; two runs of the backward bitwise equal;
   7. the paper's experiment: dummy_ltm over the whole certified ltm_map
      envelope (n = 23169, 268,412,865 blocks) equal to i + j on the card;
@@ -232,12 +235,15 @@ def _close(name, got, want, tol=OUT_TOL):
     return err
 
 
-# the tensor-core kernels of tri_fwd.cu / fwd_bb.cu / tri_bwd.cu /
-# packed_bwd.cu and the CUDA-core kernels of tri_bwd.cu and packed_bwd.cu:
-# the source of each and the direction of its tile body (kernel.tile_body's
-# op)
+# the tensor-core kernels of tri_fwd.cu / fwd_bb.cu / packed_fwd.cu /
+# fused_step.cu (its bf16-q instantiations, whose prefill half runs the
+# forward body) / tri_bwd.cu / packed_bwd.cu and the CUDA-core kernels of
+# tri_bwd.cu and packed_bwd.cu: the source of each and the direction of its
+# tile body (kernel.tile_body's op)
 BODY_DIR = {"tri_fwd_tc_kernel": ("tri_fwd", "fwd"),
             "fwd_bb_tc_kernel": ("fwd_bb", "fwd"),
+            "packed_fwd_tc_kernel": ("packed_fwd", "fwd"),
+            "fused_step_kernel": ("fused_step", "fwd"),
             "tri_bwd_dq_tc_kernel": ("tri_bwd", "bwd"),
             "tri_bwd_dkv_tc_kernel": ("tri_bwd", "bwd"),
             "tri_bwd_dq_kernel": ("tri_bwd", "bwd"),
@@ -247,14 +253,26 @@ BODY_DIR = {"tri_fwd_tc_kernel": ("tri_fwd", "fwd"),
             "packed_bwd_dq_kernel": ("packed_bwd", "bwd"),
             "packed_bwd_dkv_kernel": ("packed_bwd", "bwd")}
 # their bf16 instantiations in mangled names: (kernel, BLK, D) of
-# <BLK, D> (the tensor-core kernels) or <__nv_bfloat16, BLK, D>
+# <BLK, D> (the tensor-core kernels) or <__nv_bfloat16, BLK, D>, and the
+# fused kernel's <__nv_bfloat16, cache type, BLK, D> (float "f", or bf16
+# again, a substitution "S<n>_"), keyed "fused_step_kernel f32 cache" /
+# "... bf16 cache"
 KERNEL_KEY = re.compile(rf"({'|'.join(BODY_DIR)})I(?:13__nv_bfloat16)?"
                         r"Li(\d+)ELi(\d+)E")
+FUSED_KEY = re.compile(r"fused_step_kernelI13__nv_bfloat16(f|S\d*_)"
+                       r"Li(\d+)ELi(\d+)E")
 
 
 def _kernel_key(line: str):
     m = KERNEL_KEY.search(line)
-    return (m.group(1), int(m.group(2)), int(m.group(3))) if m else None
+    if m is not None:
+        return (m.group(1), int(m.group(2)), int(m.group(3)))
+    m = FUSED_KEY.search(line)
+    if m is not None:
+        cache = "f32" if m.group(1) == "f" else "bf16"
+        return (f"fused_step_kernel {cache} cache", int(m.group(2)),
+                int(m.group(3)))
+    return None
 
 
 def _in_turns(fns: dict, reps: int, rounds: int = 2) -> dict:
@@ -275,16 +293,16 @@ BODY_OP = {"wgmma": "HGMMA", "mma.sync": "HMMA"}
 def tensor_core_build(BUILD, K) -> dict:
     """What ptxas said of the bf16 instantiations of the attention tile
     bodies (registers, spills) and how many HGMMA (wgmma) and HMMA
-    (mma.sync) instructions cuobjdump finds in each: tri_fwd.cu's and
-    fwd_bb.cu's tensor-core kernels, tri_bwd.cu's and packed_bwd.cu's
-    tensor-core kernels and their bf16 CUDA-core kernels. Every kernel of
-    BODY_DIR must be found, and each instantiation must hold the
-    instruction of the body K.tile_body names for its BLK and direction
-    and no other (a CUDA-core body neither), so the label the wrappers
-    report is the compiled dispatch; the backward's wgmma instantiations
-    must not spill. Returns {(kernel, BLK, D): {"registers": r, "HGMMA":
-    n, ...}}."""
-    info = {}
+    (mma.sync) instructions cuobjdump finds in each: the tensor-core
+    kernels of tri_fwd.cu, fwd_bb.cu, packed_fwd.cu, tri_bwd.cu and
+    packed_bwd.cu, fused_step.cu's bf16-q kernels and the bf16 CUDA-core
+    kernels of tri_bwd.cu and packed_bwd.cu. Every kernel of BODY_DIR must
+    be found, and each instantiation must hold the instruction of the body
+    K.tile_body names for its BLK and direction and no other (a CUDA-core
+    body neither), so the label the wrappers report is the compiled
+    dispatch; no tensor-core instantiation may spill. Returns {(kernel,
+    BLK, D): {"registers": r, "HGMMA": n, ...}}."""
+    info, said = {}, {}  # said: ptxas's lines on each instantiation
     for lib in sorted({lib for lib, _ in BODY_DIR.values()}):
         lines = (BUILD.build_dir() / f"{lib}.log").read_text().splitlines()
         for at, line in enumerate(lines):
@@ -296,6 +314,7 @@ def tensor_core_build(BUILD, K) -> dict:
             spill = re.search(r"(\d+) bytes spill stores", text)
             info[key] = {"registers": int(regs.group(1)) if regs else None,
                          "spill_bytes": int(spill.group(1)) if spill else None}
+            said[key] = text
         cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
         sass = subprocess.run([cuobjdump, "--dump-sass",
                                str(BUILD.build_dir() / f"lib{lib}.so")],
@@ -308,24 +327,14 @@ def tensor_core_build(BUILD, K) -> dict:
                 for op in ("HGMMA", "HMMA"):
                     if op + "." in line:
                         info[key][op] = info[key].get(op, 0) + 1
-    missing = set(BODY_DIR) - {kern for kern, _, _ in info}
+    missing = set(BODY_DIR) - {kern.split(" ")[0] for kern, _, _ in info}
     if missing:
         _fail(f"tensor cores: no bf16 instantiation of {sorted(missing)}")
-    for (kern, blk, d), row in sorted(info.items()):
-        body = K.tile_body(torch.bfloat16, blk, BODY_DIR[kern][1])
-        op = BODY_OP.get(body)
-        wrong = [o for o in BODY_OP.values() if o != op and row.get(o)]
-        if (op is not None and not row.get(op)) or wrong:
-            _fail(f"{kern} BLK {blk} D {d}: SASS holds {row.get('HGMMA', 0)} "
-                  f"HGMMA and {row.get('HMMA', 0)} HMMA; tile_body names "
-                  f"{body}")
-        if BODY_DIR[kern][1] == "bwd" and op and row["spill_bytes"] != 0:
-            _fail(f"{kern} BLK {blk} D {d}: ptxas reports "
-                  f"{row['spill_bytes']} bytes of spill stores")
     totals = {op: sum(r.get(op, 0) for r in info.values())
               for op in ("HGMMA", "HMMA")}
     print(f"tensor cores: {len(info)} bf16 instantiations of tri_fwd_tc_kernel,"
-          f" fwd_bb_tc_kernel, tri_bwd_dq/dkv_tc_kernel, "
+          f" fwd_bb_tc_kernel, packed_fwd_tc_kernel, fused_step_kernel (bf16 "
+          f"q, f32 and bf16 cache), tri_bwd_dq/dkv_tc_kernel, "
           f"packed_bwd_dq/dkv_tc_kernel (BLK 64, 128) and tri_bwd_dq/dkv_kernel,"
           f" packed_bwd_dq/dkv_kernel (BLK 16, 32), SASS {totals['HGMMA']} "
           f"HGMMA and {totals['HMMA']} HMMA; ptxas: " + "; ".join(
@@ -333,6 +342,19 @@ def tensor_core_build(BUILD, K) -> dict:
               f"regs {r['spill_bytes']} B spills {r.get('HGMMA', 0)} HGMMA "
               f"{r.get('HMMA', 0)} HMMA" for k, r in sorted(info.items())),
           flush=True)
+    for (kern, blk, d), row in sorted(info.items()):
+        body = K.tile_body(torch.bfloat16, blk,
+                           BODY_DIR[kern.split(" ")[0]][1])
+        op = BODY_OP.get(body)
+        wrong = [o for o in BODY_OP.values() if o != op and row.get(o)]
+        if (op is not None and not row.get(op)) or wrong:
+            _fail(f"{kern} BLK {blk} D {d}: SASS holds {row.get('HGMMA', 0)} "
+                  f"HGMMA and {row.get('HMMA', 0)} HMMA; tile_body names "
+                  f"{body}")
+        if op and row["spill_bytes"] != 0:
+            _fail(f"{kern} BLK {blk} D {d}: ptxas reports "
+                  f"{row['spill_bytes']} bytes of spill stores: "
+                  f"{said[(kern, blk, d)]}")
     return info
 
 
@@ -378,10 +400,16 @@ def kernel_phase(dev, K, OPS, SC):
     lib = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                                  enable_gqa=True)
     _close("packed_fwd vs SDPA", out, lib())
-    fwd_ms = _median_ms(lambda: K.packed_fwd(q, k, v, psched), 20)
+    again = K.packed_fwd(q, k, v, psched)
+    if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+        _fail("packed_fwd: two runs on the same inputs differ")
+    turns = _in_turns({"fwd": lambda: K.packed_fwd(q, k, v, psched),
+                       "sdpa": lib}, 20)
+    fwd_ms, fwd_lib = turns["fwd"][0], turns["sdpa"][0]
+    fwd_device = _device_ms(lambda: [K.packed_fwd(q, k, v, psched)
+                                     for _ in range(20)], 20, "packed_fwd")
     fwd_plain = _median_ms(
         lambda: SC.packed_fwd_torch(q, k, v, psched, d ** -0.5), 3, 1)
-    fwd_lib = _median_ms(lib, 20)
     fwd_bytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel()) \
         + 4 * lse.numel()
     # QK^T and PV: 2 * D multiply-adds per head for each unmasked pair
@@ -428,17 +456,28 @@ def kernel_phase(dev, K, OPS, SC):
     ctx = dict(psched=psched, qkv=(q, k, v), out=out, pairs=pairs,
                fwd_lib=lib, kv_lens=kv_lens, dec=(qd, kc, vc), dec_out=got,
                kv_tokens=kv_tokens, dec_lib=dec_lib)
+    path = K.tile_body(dt, blk, BODY_DIR["packed_fwd_tc_kernel"][1])
+    print(f"kernels: packed_fwd at the serving shape {fwd_ms:.4f} ms "
+          f"({path}) in turns {turns['fwd'][1]}, on the device "
+          f"{fwd_device:.4f} ms, SDPA with the block mask {fwd_lib:.4f} ms in "
+          f"turns {turns['sdpa'][1]}, bound {fwd_bound:.6f} ms "
+          f"({100 * fwd_bound / fwd_device:.1f}% on the device), err vs plain "
+          f"{err_fwd:.3g}", flush=True)
     return ctx, [
         {"name": "tri_attn.packed_fwd", "route": "cuda",
          "source": "src/repro_torch/csrc/packed_fwd.cu",
          "replaces": "src/repro/kernels/tri_attn/kernel.py:384",
          "max_abs_err": err_fwd, "ms": fwd_ms, "plain_ms": fwd_plain,
          "bound_ms": fwd_bound, "bound_by": fwd_by, "library_ms": fwd_lib,
+         "library": "SDPA forward with the block-diagonal member mask",
+         "path": path, "device_ms": fwd_device, "ms_turns": turns["fwd"][1],
+         "library_ms_turns": turns["sdpa"][1],
          "shape": {"lens": lens, "H": h, "Hkv": hkv, "D": d, "blk": blk,
                    "steps": psched.steps, "pairs": pairs}},
         {"name": "tri_attn.packed_decode_fwd", "route": "cuda",
          "source": "src/repro_torch/csrc/packed_decode.cu",
          "replaces": "src/repro/kernels/tri_attn/kernel.py:742",
+         "path": "fma_f32",
          "max_abs_err": err_dec, "ms": dec_ms, "plain_ms": dec_plain,
          "bound_ms": dec_bound, "bound_by": dec_by,
          "library_ms": dec_lib_ms,
@@ -453,9 +492,9 @@ def fused_kernel_phase(dev, K, OPS, SC, D, ctx):
     the packed_fwd row admitted into slots 4-7 of B = 8 while slots 0-3
     decode the packed_decode row's kv_lens, on the same tensors. Held
     against the plain version, and against the split kernels: bitwise on
-    the prefill half (same body, same 256 threads); the decode half runs
-    its body at 256 threads where packed_decode runs 512, so it is held at
-    OUT_TOL and its bitwise equality is reported."""
+    the prefill half (packed_fwd's tensor-core body at its 2 blk threads);
+    the decode half runs its body at that count where packed_decode runs
+    512, so it is held at OUT_TOL and its bitwise equality is reported."""
     rng = np.random.default_rng(1)
     psched = ctx["psched"]
     qp, kp, vp = ctx["qkv"]
@@ -512,7 +551,7 @@ def fused_kernel_phase(dev, K, OPS, SC, D, ctx):
 
     # re-read the split kernels beside the fused one, in turns
     times = {"fused": [], "split": [], "fwd": [], "dec": []}
-    for _ in range(2):
+    for _ in range(3):
         times["fwd"].append(_median_ms(lambda: K.packed_fwd(qp, kp, vp,
                                                             psched), 10))
         times["dec"].append(_median_ms(lambda: K.packed_decode_fwd(
@@ -521,6 +560,8 @@ def fused_kernel_phase(dev, K, OPS, SC, D, ctx):
         times["fused"].append(_median_ms(raw, 10))
         times["split"].append(_median_ms(split, 10))
     fused_ms = statistics.median(times["fused"])
+    device_ms = _device_ms(lambda: [raw() for _ in range(20)], 20,
+                           "fused_step")
     plain_ms = _median_ms(lambda: SC.fused_step_torch(
         *ins, capacity=capacity, blk=blk, tiles=needed, scale=d ** -0.5),
         3, 1)
@@ -535,15 +576,23 @@ def fused_kernel_phase(dev, K, OPS, SC, D, ctx):
              + 4 * h * d * ctx["kv_tokens"] / PEAK_FLOPS[torch.float32]) * 1e3
     bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else \
         (t_ops, "operations")
-    print(f"fused: fused_step_fwd {times['fused']} ms, split kernels summed "
+    path = K.tile_body(qp.dtype, blk, BODY_DIR["fused_step_kernel"][1])
+    # csrc/fused_step.cu's FusedShape::NT: the prefill body's threads
+    threads = 256 if path == "fma_f32" else 2 * blk
+    print(f"fused: fused_step_fwd at {threads} threads a block ({path} "
+          f"prefill, the decode half at {threads}) {times['fused']} ms, on "
+          f"the device {device_ms:.4f} ms; split kernels summed "
           f"{times['split']} ms, packed_fwd {times['fwd']} ms, "
-          f"packed_decode_fwd {times['dec']} ms (re-read in turns); decode "
-          f"half bitwise equal to packed_decode_fwd: {dec_bitwise}; "
-          f"{nbytes} bytes, grid {(n_members - len(psched.members)) * hkv} "
-          f"decode + {psched.total_tiles * h} prefill blocks", flush=True)
+          f"packed_decode_fwd {times['dec']} ms (re-read in turns); prefill "
+          f"half bitwise equal to packed_fwd; decode half bitwise equal to "
+          f"packed_decode_fwd: {dec_bitwise}; {nbytes} bytes, grid "
+          f"{(n_members - len(psched.members)) * hkv} decode + "
+          f"{psched.total_tiles * h} prefill blocks", flush=True)
     return {"name": "tri_attn.fused_step_fwd", "route": "cuda",
             "source": "src/repro_torch/csrc/fused_step.cu",
             "replaces": "src/repro/kernels/tri_attn/kernel.py:909",
+            "path": path, "threads": threads, "device_ms": device_ms,
+            "ms_turns": times["fused"],
             "max_abs_err": err, "ms": fused_ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
             "library": "two SDPA calls (prefill with the dense block mask, "
@@ -747,10 +796,12 @@ def profile_window(fn, count: int, unit: str, label: str, card):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(PROFILE_PAD_S)
     rows = []  # device kernels only: host ops carry their kernels' time too
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total",
@@ -1105,18 +1156,22 @@ def packed_train_kernel_phase(dev, K, OPS, SC):
         "dq": lambda: K.packed_bwd_dq(q, k, v, do, lse, delta, psched),
         "dkv": lambda: K.packed_bwd_dkv(q, k, v, do, lse, delta, psched),
         "sdpa": sdpa_bwd}, 10)
-    ms = {"fwd": _median_ms(lambda: K.packed_fwd(q, k, v, psched), 5),
-          "dq": bturns["dq"][0], "dkv": bturns["dkv"][0]}
+    fturns = _in_turns({"fwd": lambda: K.packed_fwd(q, k, v, psched),
+                        "sdpa": sdpa}, 10)
+    ms = {"fwd": fturns["fwd"][0], "dq": bturns["dq"][0],
+          "dkv": bturns["dkv"][0]}
     plain = {"fwd": _median_ms(lambda: SC.packed_fwd_torch(q, k, v, psched,
                                                            scale), 3, 1),
              "dq": _median_ms(lambda: SC.packed_dq_torch(
                  q, k, v, do, lse, delta, psched, scale), 3, 1),
              "dkv": _median_ms(lambda: SC.packed_dkv_torch(
                  q, k, v, do, lse, delta, psched, scale), 3, 1)}
-    lib_fwd, lib_bwd = _median_ms(sdpa, 10), bturns["sdpa"][0]
+    lib_fwd, lib_bwd = fturns["sdpa"][0], bturns["sdpa"][0]
     # the kernels' own time on the device (the wrappers' host work, which
     # the event timings above include once it outlasts the kernel, left out)
     device = {
+        "fwd": _device_ms(lambda: [K.packed_fwd(q, k, v, psched)
+                                   for _ in range(20)], 20, "packed_fwd"),
         "dq": _device_ms(lambda: [K.packed_bwd_dq(q, k, v, do, lse, delta,
                                                   psched)
                                   for _ in range(20)], 20, "packed_bwd_dq"),
@@ -1146,6 +1201,7 @@ def packed_train_kernel_phase(dev, K, OPS, SC):
                                             h if key == "dq" else hkv, 1,
                                             dt))}
             for key, err in zip(("dq", "dkv"), errs[1:])]
+    fwd_path = K.tile_body(dt, blk, BODY_DIR["packed_fwd_tc_kernel"][1])
     print("packed train kernels: " + "; ".join(
         f"{r['name']} {r['ms']:.4f} ms ({r['path']}, grid {r['grid']}) in "
         f"turns {r['ms_turns']}, on the device {r['device_ms']:.4f} ms, "
@@ -1155,12 +1211,19 @@ def packed_train_kernel_phase(dev, K, OPS, SC):
         f"ms in turns {bturns['sdpa'][1]}, err vs plain dq "
         f"{lib_err['dq']:.3g}, dk/dv {lib_err['dkv']:.3g}; dq + dk/dv "
         f"{ms['dq'] + ms['dkv']:.4f} ms; packed_fwd {ms['fwd']:.4f} ms "
-        f"(SDPA {lib_fwd:.4f})", flush=True)
+        f"({fwd_path}) in turns {fturns['fwd'][1]}, on "
+        f"the device {device['fwd']:.4f} ms, bound {bounds['fwd'][0]:.6f} ms "
+        f"({100 * bounds['fwd'][0] / device['fwd']:.1f}% on the device), "
+        f"SDPA with the block mask {lib_fwd:.4f} ms in turns "
+        f"{fturns['sdpa'][1]}", flush=True)
     fwd_reading = {"max_abs_err": errs[0], "ms": ms["fwd"],
                    "plain_ms": plain["fwd"], "bound_ms": bounds["fwd"][0],
                    "bound_by": bounds["fwd"][1], "library_ms": lib_fwd,
                    "library": "SDPA forward with the block-diagonal causal "
-                              "mask", "shape": shape}
+                              "mask", "shape": shape,
+                   "path": fwd_path,
+                   "device_ms": device["fwd"], "ms_turns": fturns["fwd"][1],
+                   "library_ms_turns": fturns["sdpa"][1]}
     return rows, fwd_reading
 
 
@@ -1837,20 +1900,55 @@ def _logit_tol(want) -> dict:
     return dict(RWKV_LOGIT_TOL, atol=RWKV_LOGIT_TOL["atol"] * scale)
 
 
-def _device_ms(fn, count: int, kernel: str) -> float:
-    """Device time a call of the kernels whose name holds ``kernel``, from
-    a torch.profiler window over ``fn()`` (``count`` calls): the
-    wrapper's host time stays out."""
+# idle host time at each end of a profiler window: launches near its ends
+# went missing from the trace
+PROFILE_PAD_S = 0.2
+
+
+def _device_ms(fn, count: int, kernel: str, windows: int = 3) -> float:
+    """Device time of one launch of the kernel whose name holds ``kernel``,
+    from torch.profiler windows over ``fn()`` (``count`` calls of its
+    wrapper, one launch each), so the wrapper's host time stays out.
+    Inside this script's runs on the H100 a window has recorded 0, 17 or
+    18 of its launches (a lone window, all of them), and the sum over
+    ``count`` then read low. So each window is padded with PROFILE_PAD_S
+    of idle host time at both ends, and up to ``windows`` windows are
+    opened until one records all ``count``; failing that, the device time is the mean
+    over the launches of the fullest window (each recorded launch carries
+    its own duration), and a line says so. Fails when no window recorded
+    a launch, or one recorded more than ``count``."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    best = (0, 0.0)  # (launches, device us) of the fullest window
+    for _ in range(windows):
         torch.cuda.synchronize()
-    us = sum(getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0))
-             for ev in prof.key_averages() if kernel in ev.key)
-    return us / 1e3 / count
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+        rows = [ev for ev in prof.key_averages()
+                if kernel in ev.key and str(ev.device_type).endswith("CUDA")]
+        launches = sum(ev.count for ev in rows)
+        if launches > count:
+            _fail(f"profiler: {launches} launches of {kernel} in a window "
+                  f"of {count} calls: " + "; ".join(
+                      f"{ev.key[:80]} x{ev.count}" for ev in rows))
+        if launches > best[0]:
+            best = (launches, sum(getattr(ev, "self_device_time_total",
+                                          getattr(ev, "self_cuda_time_total",
+                                                  0)) for ev in rows))
+        if launches == count:
+            break
+    launches, us = best
+    if launches == 0:
+        _fail(f"profiler: {windows} windows of {count} calls recorded no "
+              f"launch of {kernel}")
+    if launches < count:
+        print(f"profiler: the fullest of {windows} windows recorded "
+              f"{launches} of {count} launches of {kernel}; its device time "
+              f"is their mean", flush=True)
+    return us / 1e3 / launches
 
 
 def _wkv_close(name, got, want, rel=WKV_REL):
@@ -2845,6 +2943,8 @@ def main():
     ctx, kernels = kernel_phase(dev, K, OPS, SC)
     kernels.append(fused_kernel_phase(dev, K, OPS, SC, D, ctx))
     del ctx
+    kernels[0]["ptxas"] = tc_build[("packed_fwd_tc_kernel", 64, 128)]
+    kernels[-1]["ptxas"] = tc_build[("fused_step_kernel f32 cache", 64, 128)]
     kernels += train_kernel_phase(dev, K, OPS, SC)
     for row, kern in zip(kernels[-3:], ("tri_fwd_tc_kernel",
                                         "tri_bwd_dq_tc_kernel",

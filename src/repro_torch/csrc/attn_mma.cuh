@@ -1,5 +1,7 @@
-// The tensor-core tile body of the bf16 triangular forward (tri_fwd.cu)
-// and of its bounding-box baseline (fwd_bb.cu), for Hopper (sm_90a).
+// The tensor-core tile body of the bf16 triangular forward (tri_fwd.cu),
+// of the packed forward (packed_fwd.cu) and the fused step's prefill half
+// (fused_step.cu), and of tri_fwd's bounding-box baseline (fwd_bb.cu), for
+// Hopper (sm_90a).
 // attn_tiles.cuh includes it after its cp.async helpers, which it uses.
 // The backward (tri_bwd.cu) builds its four products on these fragments,
 // descriptors, TMA tiles and mbarriers in attn_mma_bwd.cuh: S = Q K^T and
@@ -66,14 +68,14 @@ struct Shape {
   static constexpr int NT = 2 * BLK;        // one warp per 16 rows
   static constexpr int TILE = BLK * D * 2;  // bytes of a bf16 tile
   static constexpr int OS = D + 8;          // bf16 row stride of out's staging
-  static constexpr int STAGES = 2;          // tri_fwd's K/V ring
+  static constexpr int STAGES = 2;          // row_tile's K/V ring
   // wgmma path: a tile is 2 D / SW atoms of BLK rows x SW bytes, swizzled
   // over SW bytes (128, or the whole row where it is shorter)
   static constexpr int SW = 2 * D < 128 ? 2 * D : 128;
   static constexpr int ATOMS = 2 * D / SW;
   // descriptor layout type of that swizzle: 1 = 128 B, 2 = 64 B, 3 = 32 B
   static constexpr int SWIZZLE = SW == 128 ? 1 : (SW == 64 ? 2 : 3);
-  // tri_fwd: Q, the K/V ring, then an mbarrier for Q and one a stage;
+  // row_tile: Q, the K/V ring, then an mbarrier for Q and one a stage;
   // fwd_bb: Q, K, V, its arrival flag and one mbarrier; both with 1 KB to
   // align the start (a swizzle pattern repeats every 8 SW bytes)
   static constexpr size_t ROW_BYTES =
@@ -537,7 +539,8 @@ __device__ __forceinline__ void copy_out(const bf16* so, bf16* __restrict__ oh,
   }
 }
 
-// out = O / l in bf16 through the staging at stage, lse = m + log(l).
+// out = O / l in bf16 through the staging at stage, and, where lh is not
+// null, lse = m + log(l).
 template <int BLK, int D>
 __device__ __forceinline__ void store_out(const float (&o)[D / 2], Rows st,
                                           unsigned char* stage,
@@ -556,7 +559,7 @@ __device__ __forceinline__ void store_out(const float (&o)[D / 2], Rows st,
                                          2 * t) =
           __floats2bfloat162_rn(o[4 * c + 2 * r] / st.l[r],
                                 o[4 * c + 2 * r + 1] / st.l[r]);
-  if (t == 0)
+  if (t == 0 && lh != nullptr)
 #pragma unroll
     for (int r = 0; r < 2; ++r)
       lh[q0 + row + 8 * r] = st.m[r] + logf(st.l[r]);
@@ -573,17 +576,21 @@ struct Src {
   const bf16 *qh, *kh, *vh;
 };
 
-// One accumulator owner of tri_fwd: q-row tile i walks the lambdas of its
-// row through member_map_params in the reference's order. Q stays in
-// shared memory (and, on the mma.sync path, in registers); K/V go through
-// a ring of STAGES stages, the copies of the next STAGES - 1 tiles in
-// flight while this tile's products run. oh points at this head's (S, D)
-// out plane, lh at its (S,) log-sum-exp row.
+// One forward accumulator owner, a block of NT threads: q-row tile i of a
+// member whose tiles start at tile row row0 (0 for tri_fwd's one request)
+// walks the member-local lambdas of its row through member_map_params in
+// the reference's order. Q is read at tile row row0 + i, K and V at
+// row0 + tj; the token mask is member-local, (ti, tj), the reference's
+// _packed_token_mask. Q stays in shared memory (and, on the mma.sync path,
+// in registers); K/V go through a ring of STAGES stages, the copies of the
+// next STAGES - 1 tiles in flight while this tile's products run. oh
+// points at this head's (S, D) out plane, lh at its (S,) log-sum-exp row
+// or is null (the fused step writes no lse).
 template <int BLK, int D>
 __device__ __forceinline__ void row_tile(const Src& src, bf16* __restrict__ oh,
-                                         float* __restrict__ lh, int i,
-                                         int n_r, int w_r, int p_r, int win,
-                                         int pre, float scale,
+                                         float* __restrict__ lh, int row0,
+                                         int i, int n_r, int w_r, int p_r,
+                                         int win, int pre, float scale,
                                          unsigned char* smem) {
   using Sh = Shape<BLK, D>;
   constexpr int NT = Sh::NT, TILE = Sh::TILE, ST = Sh::STAGES;
@@ -606,14 +613,14 @@ __device__ __forceinline__ void row_tile(const Src& src, bf16* __restrict__ oh,
       int ti, tj;
       member_map_params(lam0 + s, n_r, w_r, p_r, &ti, &tj);
       unsigned char* dst = ring + (s % ST) * 2 * TILE;
+      const int row = (row0 + tj) * BLK;
       if constexpr (Sh::WGMMA) {
         mbar_expect(full + s % ST, 2 * TILE);
-        tma_tile<BLK, D>(dst, src.tk, src.kv_row + tj * BLK, full + s % ST);
-        tma_tile<BLK, D>(dst + TILE, src.tv, src.kv_row + tj * BLK,
-                         full + s % ST);
+        tma_tile<BLK, D>(dst, src.tk, src.kv_row + row, full + s % ST);
+        tma_tile<BLK, D>(dst + TILE, src.tv, src.kv_row + row, full + s % ST);
       } else {
-        load_rows_async<BLK, D, NT>(dst, src.kh, tj * BLK);
-        load_rows_async<BLK, D, NT>(dst + TILE, src.vh, tj * BLK);
+        load_rows_async<BLK, D, NT>(dst, src.kh, row);
+        load_rows_async<BLK, D, NT>(dst + TILE, src.vh, row);
       }
     }
     if constexpr (!Sh::WGMMA) cp_async_commit();
@@ -628,10 +635,10 @@ __device__ __forceinline__ void row_tile(const Src& src, bf16* __restrict__ oh,
     __syncthreads();
     if (threadIdx.x == 0) {
       mbar_expect(bar_q, TILE);
-      tma_tile<BLK, D>(sq, src.tq, src.q_row + i * BLK, bar_q);
+      tma_tile<BLK, D>(sq, src.tq, src.q_row + (row0 + i) * BLK, bar_q);
     }
   } else {
-    load_rows_async<BLK, D, NT>(sq, src.qh, i * BLK);
+    load_rows_async<BLK, D, NT>(sq, src.qh, (row0 + i) * BLK);
   }
 #pragma unroll
   for (int s = 0; s < ST - 1; ++s) load_kv(s);
@@ -664,7 +671,7 @@ __device__ __forceinline__ void row_tile(const Src& src, bf16* __restrict__ oh,
     accumulate_pv<BLK, D>(o, p, sk + TILE);
     __syncthreads();  // this stage is refilled at step s + 1
   }
-  store_out<BLK, D>(o, st, ring, oh, lh, i * BLK);
+  store_out<BLK, D>(o, st, ring, oh, lh, (row0 + i) * BLK);
 }
 
 // One live tile (i, j) of fwd_bb: its softmax partial (O, m, l in f32, the

@@ -18,18 +18,20 @@
 // of the two split kernels.
 //
 // These bodies do their products on the f32 CUDA cores, scalar FMAs from
-// f32 copies in shared memory, though every kernel here is bound by the
-// bf16 tensor-core rate (4 blk^2 D flops a tile over 2 blk D loaded
-// values). tri_fwd.cu and fwd_bb.cu (replacing the reference's fwd and
-// fwd_bb, repro/kernels/tri_attn/kernel.py) run them for f32 inputs only,
-// and tri_bwd.cu (bwd) for f32 inputs and for bf16 at blk 16 and 32, which
-// no bf16 main path reaches: the reference computes in f32 and TF32 would
-// compute something else. Their bf16 paths are the tensor-core bodies of
+// f32 copies in shared memory, though every prefill and backward kernel
+// here is bound by the bf16 tensor-core rate (4 blk^2 D flops a tile over
+// 2 blk D loaded values). tri_fwd.cu, fwd_bb.cu, packed_fwd.cu and the
+// fused step's prefill half (replacing the reference's fwd, fwd_bb,
+// packed_fwd and fused_step_fwd, repro/kernels/tri_attn/kernel.py) run
+// them for f32 inputs only, and tri_bwd.cu and packed_bwd.cu (bwd,
+// packed_bwd) for f32 inputs and for bf16 at blk 16 and 32, which no bf16
+// main path reaches: the reference computes in f32 and TF32 would compute
+// something else. Their bf16 paths are the tensor-core bodies of
 // attn_mma.cuh (included at the end of this file: wgmma or mma.sync,
 // S / O / P in registers, bf16 tiles in shared memory) and
-// attn_mma_bwd.cuh (wgmma on 64 x 64 sub-tiles). packed_fwd.cu,
-// packed_decode.cu, fused_step.cu and packed_bwd.cu still run the bodies
-// here in every dtype; they move to the tensor cores next.
+// attn_mma_bwd.cuh (wgmma on 64 x 64 sub-tiles). The decode body
+// (packed_decode.cu and the fused step's decode half) is bound by HBM
+// bandwidth and stays here in every dtype.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -41,8 +43,18 @@
 
 namespace tri {
 
-// Threads of a prefill block (packed_fwd and the fused kernel).
+// Threads of a CUDA-core prefill block (prefill_row_tile: the f32 paths of
+// packed_fwd, the fused kernel and tri_fwd).
 constexpr int PREFILL_NT = 256;
+
+// The owner (packed q-row tile, head) at position flat of a prefill launch
+// over tiles x heads: packed_fwd and the fused step's prefill half issue
+// their owners in the pack's order, heads numbered fastest (on the H100 it
+// beat the last rows first at the packed training and serving shapes;
+// PERF.md section 6).
+__device__ __forceinline__ int2 prefill_owner(int flat, int heads) {
+  return make_int2(flat / heads, flat % heads);
+}
 
 template <int BLK, int D>
 struct FwdShape {

@@ -20,22 +20,25 @@
 //     pad member (slot == B, DECODE_NO_EMIT) return before any load: they
 //     never write o_dec, and a round without a live slot writes nothing
 //     there.
-//   - prefill blocks, one per (pack q-row tile, q head): each finds its
-//     member by binary search over the prefill columns' q_off row and walks
-//     its row's member-local lambdas through member_map_params (the body of
-//     packed_fwd.cu).
-// Both bodies live in attn_tiles.cuh, so the prefill half runs the code of
-// packed_fwd at the same 256 threads and is bitwise equal to it. The
-// decode body runs at 256 threads here and 512 in packed_decode; each of
-// its output elements is computed by the same sequence of operations at
-// either count. 256 threads keep the prefill body's registers (~198 a
-// thread) unspilled: a 512-thread block would cap them at 128.
+//   - prefill blocks, one per (pack q-row tile, q head), in the order
+//     tri::prefill_owner names: each finds its member by binary search over
+//     the prefill columns' q_off row and walks its row's member-local
+//     lambdas through member_map_params with packed_fwd.cu's body.
+// Both bodies live in attn_tiles.cuh / attn_mma.cuh, so the prefill half is
+// bitwise equal to packed_fwd. bf16 q runs packed_fwd's tensor-core body
+// (tri::tc::row_tile over tensor maps of the pack's (1, H, S_pack, D)
+// q/k/v, wgmma at blk 64 and 128, mma.sync at 16 and 32) at its 2 blk
+// threads; f32 q keeps the CUDA-core body at 256 threads. The grid has one
+// blockDim, FusedShape::NT: 2 blk threads with bf16 q (128 at blk 64), 256
+// with f32 q, and the decode body runs at that count (512 in
+// packed_decode; each of its output elements is computed by the same
+// sequence of operations at any count).
 //
 // Bound on this card. The prefill half sits above the bf16 ridge (tensor
 // core rate), the decode half far below it (HBM bandwidth); at the serving
-// shapes the prefill blocks outnumber the decode blocks ~60 to 1, so the
-// kernel's time is the prefill half's: f32 CUDA-core FMAs, far from the
-// tensor-core bound, as in packed_fwd.
+// shapes the prefill blocks outnumber the decode blocks ~27 to 1, but a
+// decode block walks up to 32 tiles serially on the CUDA cores, so with
+// the prefill on the tensor cores the decode half sets the launch's time.
 //
 // Dynamic shared memory is the larger of the two halves' needs; the decode
 // half double-buffers where two K/V tiles fit and single-buffers otherwise
@@ -44,43 +47,73 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+#include <type_traits>
+
 #include "attn_tiles.cuh"
 
 namespace {
 
-constexpr int NT = tri::PREFILL_NT;
+// The fused grid's geometry for q's dtype TQ: NT threads a block (the
+// prefill body's own count) and PREFILL_BYTES of shared memory for it.
+template <typename TQ, int BLK, int D>
+struct FusedShape {
+  using Sh = tri::tc::Shape<BLK, D>;
+  static constexpr bool TC = std::is_same_v<TQ, __nv_bfloat16>;
+  static constexpr int NT = TC ? Sh::NT : tri::PREFILL_NT;
+  static constexpr size_t PREFILL_BYTES =
+      TC ? Sh::ROW_BYTES : tri::FwdShape<BLK, D>::BYTES;
+};
 
+// One block an SM is all the launch bounds promise: with the thread count
+// alone, ptxas capped the 64-thread (blk 32) instantiations' registers at
+// 64 to 168 and spilled (H100 build, sm_90a).
 template <typename TQ, typename TC, int BLK, int D>
-__global__ void __launch_bounds__(NT)
-fused_step_kernel(const TQ* __restrict__ qp, const TQ* __restrict__ kp,
+__global__ void __launch_bounds__(FusedShape<TQ, BLK, D>::NT, 1)
+fused_step_kernel(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  const TQ* __restrict__ qp, const TQ* __restrict__ kp,
                   const TQ* __restrict__ vp, TQ* __restrict__ op,
                   const TQ* __restrict__ qd, const TC* __restrict__ kc,
                   const TC* __restrict__ vc, TQ* __restrict__ od,
                   const int* __restrict__ tbl, int n_members, int r_p,
                   int pack_tiles, int H, int Hkv, int S_pack, int B,
                   int S_cache, float scale, int stages) {
-  extern __shared__ __align__(16) unsigned char smem[];
+  using Fs = FusedShape<TQ, BLK, D>;
+  extern __shared__ __align__(128) unsigned char smem[];
   const int R = n_members;
   const int dec_blocks = (R - r_p) * Hkv;
-  int bid = blockIdx.x;
+  const int bid = blockIdx.x;
   if (bid < dec_blocks) {
     const int c = r_p + bid / Hkv, hk = bid % Hkv;
-    tri::decode_member<TQ, TC, D, NT>(
+    tri::decode_member<TQ, TC, D, Fs::NT>(
         qd, kc, vc, od, tbl[5 * R + c], tbl[2 * R + c], tbl[3 * R + c],
         tbl[4 * R + c], hk, B, H, Hkv, S_cache, BLK, scale, stages, smem);
     return;
   }
-  bid -= dec_blocks;
-  const int tile = bid % pack_tiles, h = bid / pack_tiles;
-  const int hk = h / (H / Hkv);
   const int* q_off = tbl + 5 * R;
+  const int2 th = tri::prefill_owner(bid - dec_blocks, H);
+  const int tile = th.x, h = th.y;
+  const int hk = h / (H / Hkv);
   const int r = tri::request_from_starts(tile, q_off, r_p);
-  const size_t head_elems = static_cast<size_t>(S_pack) * D;
-  tri::prefill_row_tile<TQ, BLK, D>(
-      qp + h * head_elems, kp + hk * head_elems, vp + hk * head_elems,
-      op + h * head_elems, nullptr, q_off[r], tile - q_off[r], tbl[2 * R + r],
-      tbl[3 * R + r], tbl[4 * R + r], tbl[6 * R + r], tbl[7 * R + r], scale,
-      reinterpret_cast<float*>(smem));
+  if constexpr (Fs::TC) {
+    const tri::tc::Src src{&tq, &tk, &tv, h * S_pack, hk * S_pack,
+                           qp + static_cast<size_t>(h) * S_pack * D,
+                           kp + static_cast<size_t>(hk) * S_pack * D,
+                           vp + static_cast<size_t>(hk) * S_pack * D};
+    tri::tc::row_tile<BLK, D>(
+        src, op + static_cast<size_t>(h) * S_pack * D, nullptr, q_off[r],
+        tile - q_off[r], tbl[2 * R + r], tbl[3 * R + r], tbl[4 * R + r],
+        tbl[6 * R + r], tbl[7 * R + r], scale, tri::tc::align_1k(smem));
+  } else {
+    const size_t head_elems = static_cast<size_t>(S_pack) * D;
+    tri::prefill_row_tile<TQ, BLK, D>(
+        qp + h * head_elems, kp + hk * head_elems, vp + hk * head_elems,
+        op + h * head_elems, nullptr, q_off[r], tile - q_off[r],
+        tbl[2 * R + r], tbl[3 * R + r], tbl[4 * R + r], tbl[6 * R + r],
+        tbl[7 * R + r], scale, reinterpret_cast<float*>(smem));
+  }
 }
 
 struct Args {
@@ -97,21 +130,33 @@ struct Args {
 
 template <typename TQ, typename TC, int BLK, int D>
 int launch_fused(const Args& a) {
+  using Fs = FusedShape<TQ, BLK, D>;
   auto kern = fused_step_kernel<TQ, TC, BLK, D>;
   const int g = a.H / a.Hkv;
   const int stages = tri::decode_stages(g, D, BLK, sizeof(TC));
   size_t bytes = tri::decode_smem_bytes(stages, g, D, BLK, sizeof(TC));
-  if (tri::FwdShape<BLK, D>::BYTES > bytes) bytes = tri::FwdShape<BLK, D>::BYTES;
+  if (Fs::PREFILL_BYTES > bytes) bytes = Fs::PREFILL_BYTES;
   if (bytes > tri::SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap maps[3] = {};
+  if constexpr (Fs::TC) {
+    if ((reinterpret_cast<uintptr_t>(a.qp) | reinterpret_cast<uintptr_t>(a.kp) |
+         reinterpret_cast<uintptr_t>(a.vp) | reinterpret_cast<uintptr_t>(a.op)) &
+        15)
+      return static_cast<int>(cudaErrorMisalignedAddress);
+    if (int err = tri::tc::make_tmaps<BLK, D>(maps, a.qp, a.kp, a.vp, 1, a.H,
+                                              a.Hkv, a.S_pack))
+      return err;
+  }
   if (int err = tri::set_smem(kern, bytes)) return err;
   const int blocks = (a.n_members - a.r_p) * a.Hkv + a.pack_tiles * a.H;
-  kern<<<blocks, NT, bytes, a.stream>>>(
-      static_cast<const TQ*>(a.qp), static_cast<const TQ*>(a.kp),
-      static_cast<const TQ*>(a.vp), static_cast<TQ*>(a.op),
-      static_cast<const TQ*>(a.qd), static_cast<const TC*>(a.kc),
-      static_cast<const TC*>(a.vc), static_cast<TQ*>(a.od),
-      static_cast<const int*>(a.tbl), a.n_members, a.r_p, a.pack_tiles, a.H,
-      a.Hkv, a.S_pack, a.B, a.S_cache, a.scale, stages);
+  kern<<<blocks, Fs::NT, bytes, a.stream>>>(
+      maps[0], maps[1], maps[2], static_cast<const TQ*>(a.qp),
+      static_cast<const TQ*>(a.kp), static_cast<const TQ*>(a.vp),
+      static_cast<TQ*>(a.op), static_cast<const TQ*>(a.qd),
+      static_cast<const TC*>(a.kc), static_cast<const TC*>(a.vc),
+      static_cast<TQ*>(a.od), static_cast<const int*>(a.tbl), a.n_members,
+      a.r_p, a.pack_tiles, a.H, a.Hkv, a.S_pack, a.B, a.S_cache, a.scale,
+      stages);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -142,7 +187,9 @@ int dispatch_blk(int blk, int D, const Args& a) {
 // q_dtype (the pack's q/k/v, the decode queries and both outputs) and
 // cache_dtype: 0 = float32, 1 = bfloat16. o_pack is (1, H, S_pack, D),
 // every row written; o_dec has B + 1 rows, those of slots without a live
-// decode member left unwritten. The caches must be 16-byte aligned.
+// decode member left unwritten. The caches must be 16-byte aligned, and so
+// must the pack's q, k, v and o_pack in bf16 (cudaErrorMisalignedAddress
+// otherwise).
 extern "C" int fused_step_launch(const void* qp, const void* kp,
                                  const void* vp, void* op, const void* qd,
                                  const void* kc, const void* vc, void* od,

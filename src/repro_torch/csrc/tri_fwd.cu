@@ -69,8 +69,8 @@ tri_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
                          k + static_cast<size_t>(kv_row) * D,
                          v + static_cast<size_t>(kv_row) * D};
   tri::tc::row_tile<BLK, D>(src, out + (static_cast<size_t>(b) * H + h) * plane,
-                            lse + (static_cast<size_t>(b) * H + h) * S, i, n,
-                            w, p, win, pre, scale, smem);
+                            lse + (static_cast<size_t>(b) * H + h) * S, 0, i,
+                            n, w, p, win, pre, scale, smem);
 }
 
 constexpr int NT_F32 = tri::PREFILL_NT;

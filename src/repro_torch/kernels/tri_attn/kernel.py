@@ -204,8 +204,10 @@ def packed_fwd(q, k, v, psched: PackedTriSched, *, sm_scale=None):
     """Ragged batched prefill attention in ONE launch.
 
     q: (B, H, S_total, D); k, v: (B, Hkv, S_total, D), one dtype (f32 or
-    bf16), contiguous. Returns (out (B, H, S_total, D) in q's dtype,
-    lse (B, H, S_total) f32)."""
+    bf16), contiguous; bf16 runs the tensor-core body (``tile_body``) and
+    needs q, k, v 16-byte aligned (the launch raises cudaError 716
+    otherwise). Returns (out (B, H, S_total, D) in q's dtype, lse
+    (B, H, S_total) f32)."""
     b, h, s_len, d = q.shape
     scale = float(sm_scale if sm_scale is not None else 1.0 / (d ** 0.5))
     check_prefix_bound("packed_fwd", psched)
@@ -340,6 +342,8 @@ def fused_step_fwd(q_pack, k_pack, v_pack, q_dec, k_cache, v_cache, tbl, *,
     cache with the decode tokens written; tbl: the (8, R) int32 fused table
     on q's device, prefill columns first. ``tiles`` is the round's live
     tile count (psched.steps + live decode tiles), what the grid walks.
+    bf16 q runs ``packed_fwd``'s tensor-core body on the pack and needs
+    q_pack, k_pack, v_pack 16-byte aligned (cudaError 716 otherwise).
     Returns (o_pack (1, H, S_pack, D), o_dec (B + 1, H, D)), both in q's
     dtype; rows of o_dec whose slot has no live decode member (and the pad
     row B) are left unwritten, so callers mask by the table's coverage
@@ -490,11 +494,12 @@ fwd.launches = 0
 
 def tile_body(dtype, blk: int, op: str = "fwd") -> str:
     """The tile body a kernel runs on the card for q's dtype and the tile
-    edge: op "fwd" for ``fwd`` and ``fwd_bb`` (csrc/tri_fwd.cu,
-    csrc/fwd_bb.cu), "bwd" for ``bwd_dq`` and ``bwd_dkv``
-    (csrc/tri_bwd.cu) and for ``packed_bwd_dq`` and ``packed_bwd_dkv``
-    (csrc/packed_bwd.cu). bf16 at blk 64 and 128 runs on the tensor cores by
-    wgmma (csrc/attn_mma.cuh, attn_mma_bwd.cuh); bf16 at blk 16 and 32 by
+    edge: op "fwd" for ``fwd``, ``fwd_bb``, ``packed_fwd`` and the prefill
+    half of ``fused_step_fwd`` (csrc/tri_fwd.cu, csrc/fwd_bb.cu,
+    csrc/packed_fwd.cu, csrc/fused_step.cu), "bwd" for ``bwd_dq`` and
+    ``bwd_dkv`` (csrc/tri_bwd.cu) and for ``packed_bwd_dq`` and
+    ``packed_bwd_dkv`` (csrc/packed_bwd.cu). bf16 at blk 64 and 128 runs
+    on the tensor cores by wgmma (csrc/attn_mma.cuh, attn_mma_bwd.cuh); bf16 at blk 16 and 32 by
     mma.sync in the forward and on the CUDA cores in the backward, which
     no bf16 main path runs at those edges; f32 on the CUDA cores (scalar
     FMAs, attn_tiles.cuh), since TF32 would compute something else."""

@@ -72,6 +72,52 @@ def test_packed_fwd_matches_plain(dev, dtype, blk, d, h, hkv):
            else torch.bfloat16, "lse")
 
 
+def _packed_fwd_case(dev, blk, d, g, hkv):
+    rng = np.random.default_rng(blk + d + g)
+    psched = OPS.make_packed_sched([5 * blk, 2 * blk, 3 * blk, blk],
+                                   block=blk,
+                                   window=[None, None, blk + 3, 3],
+                                   prefix=[0, blk + 1, 0, 0])
+    s = psched.s_total
+    return psched, [_rand(rng, shape, torch.bfloat16, dev) for shape in
+                    ((1, g * hkv, s, d), (1, hkv, s, d), (1, hkv, s, d))]
+
+
+@pytest.mark.parametrize("blk,d", [(64, 128), (128, 64), (128, 128)])
+def test_packed_fwd_is_deterministic(dev, blk, d):
+    """One block per accumulator owner on the bf16 wgmma body, no atomics:
+    two runs are bitwise equal, and finite."""
+    psched, (q, k, v) = _packed_fwd_case(dev, blk, d, 8, 1)
+    first = K.packed_fwd(q, k, v, psched)
+    again = K.packed_fwd(q, k, v, psched)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    assert all(bool(torch.isfinite(x.float()).all()) for x in first)
+
+
+def _misaligned(x):
+    """x's values in a contiguous tensor 2 bytes off a 16-byte boundary."""
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype,
+                          device=x.device)[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    return shifted
+
+
+@pytest.mark.parametrize("blk", [16, 64])  # mma.sync (cp.async) and wgmma
+@pytest.mark.parametrize("arg", range(3))
+def test_packed_fwd_misaligned_bf16_raises(dev, blk, arg):
+    """The bf16 tensor-core body copies q, k, v 16 bytes at a time (TMA or
+    cp.async): a contiguous operand 2 bytes off a 16-byte boundary is
+    refused with cudaErrorMisalignedAddress and not counted; nothing falls
+    back to the CUDA-core body."""
+    psched, ops = _packed_fwd_case(dev, blk, 64, 2, 2)
+    ops[arg] = _misaligned(ops[arg])
+    before = K.packed_fwd.launches
+    with pytest.raises(RuntimeError, match="cudaError 716"):
+        K.packed_fwd(*ops, psched)
+    assert K.packed_fwd.launches == before
+
+
 @pytest.mark.parametrize("q_dtype,c_dtype", [
     (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
     (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16)])
@@ -198,7 +244,8 @@ def _fused_case(rng, dev, *, blk, d, g, hkv, q_dtype, c_dtype, b=5,
     (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
     (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16)])
 @pytest.mark.parametrize("g,hkv", [(1, 2), (8, 1)])
-@pytest.mark.parametrize("blk", [16, 64, 128])
+# bf16 q: the decode half at the prefill body's 2 blk threads, 32 to 256
+@pytest.mark.parametrize("blk", [16, 32, 64, 128])
 @pytest.mark.parametrize("d", [64, 128])
 def test_fused_step_matches_plain(dev, d, blk, g, hkv, q_dtype, c_dtype):
     rng = np.random.default_rng(blk + d + g)
@@ -262,8 +309,9 @@ def test_fused_step_empty_columns_do_not_touch_slot_zero(dev):
 @pytest.mark.parametrize("q_dtype,c_dtype", [
     (torch.float32, torch.float32), (torch.bfloat16, torch.float32)])
 def test_fused_halves_equal_the_split_kernels(dev, q_dtype, c_dtype):
-    """The prefill half runs packed_fwd's body at its thread count: bitwise
-    equal. The decode half runs packed_decode's body at 256 threads
+    """The prefill half runs packed_fwd's body at packed_fwd's thread count
+    (2 blk on the bf16 tensor-core body, 256 on the f32 CUDA-core body):
+    bitwise equal. The decode half runs packed_decode's body at that count
     against 512: equal within the tolerance."""
     blk, d, g, hkv, b = 64, 128, 8, 2, 5
     rng = np.random.default_rng(13)
@@ -284,6 +332,25 @@ def test_fused_halves_equal_the_split_kernels(dev, q_dtype, c_dtype):
         capacity=dneeded, blk=blk, tiles=dneeded)
     torch.cuda.synchronize()
     _close(o_dec[slots], split_dec[slots], q_dtype)
+
+
+@pytest.mark.parametrize("blk", [16, 64])
+@pytest.mark.parametrize("arg", range(3))
+def test_fused_step_misaligned_bf16_raises(dev, blk, arg):
+    """A bf16 pack's q, k or v 2 bytes off a 16-byte boundary is refused
+    by the fused launch (cudaErrorMisalignedAddress), not counted; nothing
+    falls back to the CUDA-core prefill."""
+    rng = np.random.default_rng(14)
+    psched, ins, spec = _fused_case(rng, dev, blk=blk, d=64, g=2, hkv=2,
+                                    q_dtype=torch.bfloat16,
+                                    c_dtype=torch.float32)
+    ins = list(ins)
+    ins[arg] = _misaligned(ins[arg])
+    before = K.fused_step_fwd.launches
+    with pytest.raises(RuntimeError, match="cudaError 716"):
+        K.fused_step_fwd(*ins, psched=psched, capacity=spec.capacity,
+                         tiles=spec.tiles)
+    assert K.fused_step_fwd.launches == before
 
 
 def test_fused_engine_raises_when_the_fused_kernel_fails(dev, monkeypatch):
