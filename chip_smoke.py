@@ -14,6 +14,8 @@ Phases (any failure exits non-zero; nothing is caught):
      the body kernel.tile_body names for its direction, HGMMA at BLK 64
      and 128, HMMA in the forward at 16 and 32, neither in the backward at
      16 and 32, and no other; no tensor-core instantiation may spill);
+     and of all 64 instantiations of packed_decode.cu's kernel (the decode
+     body of attn_decode.cuh, f32 FMAs: no spill, no HGMMA or HMMA);
   3. kernels: each kernel of the serving path at full yi-9b width (H=32,
      Hkv=4, D=128, blk=64, bf16 q/k/v, f32 decode cache) against its
      plain PyTorch version on the card (outputs within atol 4e-3 + rtol
@@ -21,10 +23,13 @@ Phases (any failure exits non-zero; nothing is caught):
      the plain version, one library call (scaled_dot_product_attention
      with the equivalent mask; used nowhere in the port; packed_fwd in
      turns with it, and on the device through the profiler, its two runs
-     bitwise equal) and the bound max(bytes / 3.35 TB/s, flops / peak),
-     both counted from what this run's masks and kv lengths need; the
-     fused step against the split kernels on the same round (its prefill
-     half bitwise equal to packed_fwd) at its block's thread count;
+     bitwise equal; packed_decode_fwd likewise, in turns with SDPA and on
+     the device with L2 cold, the launches rotated over DECODE_PAIRS cache
+     pairs, as a serving round's 48 layers find it, and its share of the
+     bound) and the bound max(bytes / 3.35 TB/s, flops / peak), both
+     counted from what this run's masks and kv lengths need; the fused
+     step against the split kernels on the same round (both halves
+     bitwise equal to them) at its block's thread count;
   4. serving: yi-9b at full width (48 layers unless --layers cuts it) with
      random seeded bf16 weights, an Engine with both kernels serving 8
      skewed requests; asserts every request done, no degrade, no failure,
@@ -188,6 +193,8 @@ TRAIN_DOCS = (1500, 1000, 600, 370, 250, 100, 60, 40)
 # shapes, other tile edges): each token's logits move by ~1e-2, their
 # mean cross entropy over 3920 tokens by far less than 0.5%
 PAD_LOSS_RTOL = 5e-3
+# cache pairs packed_decode_fwd's L2-cold timing rotates over (8 x 33.5 MB)
+DECODE_PAIRS = 8
 
 
 def _fail(msg: str):
@@ -358,6 +365,68 @@ def tensor_core_build(BUILD, K) -> dict:
     return info
 
 
+# the decode kernels' instantiations: packed_decode_kernel<TQ, TC, BLK, D>
+# (float "f" or bf16 "13__nv_bfloat16", a repeated bf16 a substitution)
+DECODE_KEY = re.compile(r"packed_decode_kernelI(13__nv_bfloat16|f)"
+                        r"(13__nv_bfloat16|f|S\d*_)Li(\d+)ELi(\d+)E")
+
+
+def decode_build(BUILD) -> dict:
+    """What ptxas said of every instantiation of packed_decode.cu's kernel
+    (the decode body of attn_decode.cuh, which the fused kernels' decode
+    half runs too: their bf16-q instantiations are in tensor_core_build's
+    report), and the tensor-core instructions cuobjdump finds there. Fails
+    unless all 64 (q x cache dtype x BLK x D) are found, none spills and
+    none holds an HGMMA or HMMA: the decode body is f32 FMAs on the CUDA
+    cores. Returns {(q, cache, BLK, D): {"registers": r, ...}}."""
+    def key(line):
+        m = DECODE_KEY.search(line)
+        if m is None:
+            return None
+        q = "bf16" if m.group(1).startswith("13") else "f32"
+        c = "f32" if m.group(2) == "f" else "bf16"
+        return (q, c, int(m.group(3)), int(m.group(4)))
+
+    info = {}
+    lines = (BUILD.build_dir() / "packed_decode.log").read_text().splitlines()
+    for at, line in enumerate(lines):
+        k = key(line)
+        if "Compiling entry" not in line or k is None:
+            continue
+        text = " ".join(lines[at + 1:at + 4])
+        regs = re.search(r"Used (\d+) registers", text)
+        spill = re.search(r"(\d+) bytes spill stores", text)
+        info[k] = {"registers": int(regs.group(1)) if regs else None,
+                   "spill_bytes": int(spill.group(1)) if spill else None,
+                   "ptxas": text}
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "--dump-sass",
+                           str(BUILD.build_dir() / "libpacked_decode.so")],
+                          capture_output=True, text=True, check=True).stdout
+    k = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            k = key(line)
+        elif k is not None and ("HGMMA." in line or "HMMA." in line):
+            info[k]["tensor_core_ops"] = info[k].get("tensor_core_ops", 0) + 1
+    if len(info) != 64:
+        _fail(f"decode: {len(info)} instantiations of packed_decode_kernel "
+              f"in ptxas's report, not 64")
+    for k, row in sorted(info.items()):
+        if row["spill_bytes"] != 0 or row.get("tensor_core_ops"):
+            _fail(f"decode: packed_decode_kernel {k}: "
+                  f"{row.get('tensor_core_ops', 0)} HGMMA/HMMA, ptxas: "
+                  f"{row['ptxas']}")
+    regs = [row["registers"] for row in info.values()]
+    print(f"decode: 64 instantiations of packed_decode_kernel (q x cache "
+          f"dtype x BLK x D), {min(regs)}-{max(regs)} registers, no spills, "
+          f"no HGMMA or HMMA; bf16 q, f32 cache, 64 x 128: "
+          f"{info[('bf16', 'f32', 64, 128)]['registers']} registers",
+          flush=True)
+    return {k: {"registers": r["registers"], "spill_bytes": r["spill_bytes"]}
+            for k, r in info.items()}
+
+
 def kernel_phase(dev, K, OPS, SC):
     """Both kernels at full yi-9b width vs plain version and SDPA."""
     import torch.nn.functional as F
@@ -441,18 +510,65 @@ def kernel_phase(dev, K, OPS, SC):
     dec_lib = lambda: F.scaled_dot_product_attention(
         q32, kt, vt, attn_mask=valid[:, None, None], enable_gqa=True)
     _close("packed_decode vs SDPA", got, dec_lib()[:, :, 0])
+    again = K.packed_decode_fwd(qd, kc, vc, tbl, capacity=needed, blk=blk,
+                                tiles=needed)
+    if not torch.equal(got, OPS.packed_decode_attention(qd, kc, vc, tbl,
+                                                        spec)) or \
+            not torch.equal(got, again[:b]):
+        _fail("packed_decode: two runs on the same inputs differ")
     dec_ms = _median_ms(lambda: K.packed_decode_fwd(
         qd, kc, vc, tbl, capacity=needed, blk=blk, tiles=needed), 50)
     dec_plain = _median_ms(lambda: SC.packed_decode_torch(
         qd, kc, vc, tbl, capacity=needed, blk=blk, tiles=needed,
         scale=d ** -0.5), 3, 1)
-    dec_lib_ms = _median_ms(dec_lib, 50)
+    # L2 cold, as the 48 layers of a serving round find it: the launches
+    # rotate over DECODE_PAIRS cache pairs of 33.5 MB, 268 MB against the
+    # 50 MB L2, for the kernel and SDPA alike
+    caches = [(kc, vc)] + [(rand(b, s_cache, hkv, d, dtype=torch.float32),
+                            rand(b, s_cache, hkv, d, dtype=torch.float32))
+                           for _ in range(DECODE_PAIRS - 1)]
+    turn = [0]
+
+    def next_pair():
+        turn[0] += 1
+        return caches[turn[0] % len(caches)]
+
+    def dec_cold():
+        kc_, vc_ = next_pair()
+        return K.packed_decode_fwd(qd, kc_, vc_, tbl, capacity=needed,
+                                   blk=blk, tiles=needed)
+
+    def lib_cold():
+        kc_, vc_ = next_pair()
+        return F.scaled_dot_product_attention(
+            q32, kc_.transpose(1, 2), vc_.transpose(1, 2),
+            attn_mask=valid[:, None, None], enable_gqa=True)
+
+    dec_turns = _in_turns({"decode": dec_cold, "sdpa": lib_cold}, 48)
+    dec_lib_ms = dec_turns["sdpa"][0]
+    dec_device = _device_ms(lambda: [dec_cold() for _ in range(24)], 24,
+                            "packed_decode")
+    dec_warm = _device_ms(lambda: [K.packed_decode_fwd(
+        qd, kc, vc, tbl, capacity=needed, blk=blk, tiles=needed)
+        for _ in range(24)], 24, "packed_decode")
+    del caches
     # each slot reads its [kv_first, kv_len) rows of K and V once
     kv_tokens = int((tbl_np[3] - tbl_np[4]).sum())
     dec_bytes = (qd.numel() + b * h * d) * qd.element_size() \
         + tbl.numel() * 4 + kv_tokens * hkv * d * kc.element_size() * 2
     dec_flops = 4 * h * d * kv_tokens
     dec_bound, dec_by = _bound(dec_bytes, dec_flops, torch.float32)
+    dec_grid = K.decode_grid(needed, b + 1, blk, hkv, h // hkv)
+    dec_path = (f"fma_f32, chunks of {K.DECODE_CHUNK} tokens split over "
+                f"the SMs, merged in the launch")
+    print(f"kernels: packed_decode_fwd at the kernel phase's shape "
+          f"({dec_path}; grid {dec_grid}) {dec_ms:.4f} ms through the "
+          f"wrapper, L2 cold in turns {dec_turns['decode'][1]}, on the "
+          f"device L2 cold {dec_device:.4f} ms ({100 * dec_bound / dec_device:.1f}% "
+          f"of the bound {dec_bound:.6f} ms), L2 warm {dec_warm:.4f} ms; "
+          f"SDPA with the kv mask, L2 cold, {dec_lib_ms:.4f} ms in turns "
+          f"{dec_turns['sdpa'][1]}; err vs plain {err_dec:.3g}; two runs "
+          f"bitwise equal", flush=True)
     ctx = dict(psched=psched, qkv=(q, k, v), out=out, pairs=pairs,
                fwd_lib=lib, kv_lens=kv_lens, dec=(qd, kc, vc), dec_out=got,
                kv_tokens=kv_tokens, dec_lib=dec_lib)
@@ -477,10 +593,14 @@ def kernel_phase(dev, K, OPS, SC):
         {"name": "tri_attn.packed_decode_fwd", "route": "cuda",
          "source": "src/repro_torch/csrc/packed_decode.cu",
          "replaces": "src/repro/kernels/tri_attn/kernel.py:742",
-         "path": "fma_f32",
+         "path": dec_path,
          "max_abs_err": err_dec, "ms": dec_ms, "plain_ms": dec_plain,
          "bound_ms": dec_bound, "bound_by": dec_by,
          "library_ms": dec_lib_ms,
+         "library": "SDPA with the kv mask, f32, L2 cold, in turns",
+         "device_ms": dec_device, "device_ms_l2_warm": dec_warm,
+         "ms_turns_l2_cold": dec_turns["decode"][1],
+         "library_ms_turns": dec_turns["sdpa"][1], "grid": dec_grid,
          "shape": {"kv_lens": kv_lens, "H": h, "Hkv": hkv, "D": d,
                    "blk": blk, "S_cache": s_cache, "tiles": needed,
                    "kv_tokens": kv_tokens}},
@@ -491,10 +611,10 @@ def fused_kernel_phase(dev, K, OPS, SC, D, ctx):
     """tri_attn.fused_step_fwd at full yi-9b width: the prefill members of
     the packed_fwd row admitted into slots 4-7 of B = 8 while slots 0-3
     decode the packed_decode row's kv_lens, on the same tensors. Held
-    against the plain version, and against the split kernels: bitwise on
-    the prefill half (packed_fwd's tensor-core body at its 2 blk threads);
-    the decode half runs its body at that count where packed_decode runs
-    512, so it is held at OUT_TOL and its bitwise equality is reported."""
+    against the plain version, and against the split kernels, bitwise:
+    the prefill half runs packed_fwd's tensor-core body at its 2 blk
+    threads, the decode half packed_decode's chunks and body at that count
+    (256 in packed_decode), each output element by the same operations."""
     rng = np.random.default_rng(1)
     psched = ctx["psched"]
     qp, kp, vp = ctx["qkv"]
@@ -530,6 +650,9 @@ def fused_kernel_phase(dev, K, OPS, SC, D, ctx):
     _close("fused_step decode vs packed_decode_fwd", o_dec[live],
            ctx["dec_out"])
     dec_bitwise = torch.equal(o_dec[live], ctx["dec_out"])
+    if not dec_bitwise:
+        _fail("fused_step: the decode half is not bitwise equal to "
+              "packed_decode_fwd on the same tensors")
     if torch.count_nonzero(o_dec[len(live):]):
         _fail("fused_step: slots without a live decode member are not 0")
     raw = lambda: K.fused_step_fwd(*ins, psched=psched, capacity=capacity,
@@ -577,6 +700,9 @@ def fused_kernel_phase(dev, K, OPS, SC, D, ctx):
     bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else \
         (t_ops, "operations")
     path = K.tile_body(qp.dtype, blk, BODY_DIR["fused_step_kernel"][1])
+    grid = K.decode_grid(needed - psched.steps, n_members - len(psched.members),
+                         blk, hkv, h // hkv)
+    dec_blocks = grid[0] * grid[1]
     # csrc/fused_step.cu's FusedShape::NT: the prefill body's threads
     threads = 256 if path == "fma_f32" else 2 * blk
     print(f"fused: fused_step_fwd at {threads} threads a block ({path} "
@@ -584,9 +710,8 @@ def fused_kernel_phase(dev, K, OPS, SC, D, ctx):
           f"the device {device_ms:.4f} ms; split kernels summed "
           f"{times['split']} ms, packed_fwd {times['fwd']} ms, "
           f"packed_decode_fwd {times['dec']} ms (re-read in turns); prefill "
-          f"half bitwise equal to packed_fwd; decode half bitwise equal to "
-          f"packed_decode_fwd: {dec_bitwise}; {nbytes} bytes, grid "
-          f"{(n_members - len(psched.members)) * hkv} decode + "
+          f"half bitwise equal to packed_fwd, decode half bitwise equal to "
+          f"packed_decode_fwd; {nbytes} bytes, grid {dec_blocks} decode + "
           f"{psched.total_tiles * h} prefill blocks", flush=True)
     return {"name": "tri_attn.fused_step_fwd", "route": "cuda",
             "source": "src/repro_torch/csrc/fused_step.cu",
@@ -2940,7 +3065,9 @@ def main():
     print(f"build: {build_s:.1f} s (nvcc, sm_90a) into {BUILD.build_dir()}",
           flush=True)
     tc_build = tensor_core_build(BUILD, K)
+    dec_build = decode_build(BUILD)
     ctx, kernels = kernel_phase(dev, K, OPS, SC)
+    kernels[1]["ptxas"] = dec_build[("bf16", "f32", 64, 128)]
     kernels.append(fused_kernel_phase(dev, K, OPS, SC, D, ctx))
     del ctx
     kernels[0]["ptxas"] = tc_build[("packed_fwd_tc_kernel", 64, 128)]

@@ -1,6 +1,6 @@
 // Tile bodies shared by the attention kernels (packed_fwd.cu,
-// packed_decode.cu, fused_step.cu, tri_fwd.cu, tri_bwd.cu, packed_bwd.cu,
-// fwd_bb.cu).
+// fused_step.cu, tri_fwd.cu, tri_bwd.cu, packed_bwd.cu, fwd_bb.cu; the
+// decode body of packed_decode.cu and fused_step.cu is attn_decode.cuh).
 //
 // prefill_row_tile is one prefill accumulator owner: one q-row tile of one
 // packed member (or of the one request of tri_fwd) for one query head,
@@ -10,12 +10,10 @@
 // dq_row_tile and dkv_col_tile are the backward's owners: a q-row tile's
 // dq, and a key-column tile's dk/dv over every query head of its kv head
 // (tri_bwd.cu with row0 = 0, packed_bwd.cu with a member's first tile
-// row). decode_member is one decode accumulator owner: one live slot's
-// single query for all g query heads of one kv head, streaming the slot's
-// cache tiles with cp.async. Each kernel reads its own member table and
-// hands these bodies plain integers, so the (7, R), (5, R) and (8, R) row
-// layouts stay with their kernels, and a fused launch runs exactly the code
-// of the two split kernels.
+// row). Each kernel reads its own member table and hands these bodies
+// plain integers, so the (7, R) and (8, R) row layouts stay with their
+// kernels, and a fused launch runs exactly the code of the two split
+// kernels.
 //
 // These bodies do their products on the f32 CUDA cores, scalar FMAs from
 // f32 copies in shared memory, though every prefill and backward kernel
@@ -30,8 +28,8 @@
 // attn_mma.cuh (included at the end of this file: wgmma or mma.sync,
 // S / O / P in registers, bf16 tiles in shared memory) and
 // attn_mma_bwd.cuh (wgmma on 64 x 64 sub-tiles). The decode body
-// (packed_decode.cu and the fused step's decode half) is bound by HBM
-// bandwidth and stays here in every dtype.
+// (attn_decode.cuh) is bound by HBM bandwidth and keeps f32 FMAs on the
+// CUDA cores in every dtype.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -466,171 +464,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Stream one cache tile (blk tokens of this kv head) of K and V into shared
-// memory, 16 bytes per cp.async; one commit group per tile.
-template <typename TC, int D, int NT>
-__device__ __forceinline__ void load_tile(TC* dk, TC* dv, const TC* ks,
-                                          const TC* vs, int tok0, int blk,
-                                          size_t tok_stride) {
-  constexpr int V = 16 / sizeof(TC);
-  constexpr int PER_ROW = D / V;
-  for (int c = threadIdx.x; c < blk * PER_ROW; c += NT) {
-    const int row = c / PER_ROW, off = (c - row * PER_ROW) * V;
-    const size_t src = static_cast<size_t>(tok0 + row) * tok_stride + off;
-    cp_async16(dk + row * D + off, ks + src);
-    cp_async16(dv + row * D + off, vs + src);
-  }
-  cp_async_commit();
-}
-
-// Dynamic shared memory of decode_member: `stages` tiles of K and V, then
-// the g queries, scores, accumulators and softmax state in f32.
-inline size_t decode_smem_bytes(int stages, int g, int D, int blk,
-                                size_t tc_size) {
-  return static_cast<size_t>(stages) * 2 * blk * D * tc_size +
-         sizeof(float) * (static_cast<size_t>(g) * D * 2 +
-                          static_cast<size_t>(g) * blk + 3 * g);
-}
-
-// Two stages (double buffering) where they fit, else one.
-inline int decode_stages(int g, int D, int blk, size_t tc_size) {
-  return decode_smem_bytes(2, g, D, blk, tc_size) > SMEM_LIMIT ? 1 : 2;
-}
-
-constexpr int DECODE_GC = 8;  // query heads per register chunk
-
-// One decode member: the block attends slot `slot`'s query heads of kv head
-// hk over cache tokens [kv_first, kv_len), walking kv_tiles tiles from
-// kv_first / blk in the reference's order. Columns that own no tiles (the
-// empty columns with slot 0, the pad member with slot == B) return before
-// touching memory, so they never write a live slot's output row. The
-// arithmetic of every output element is independent of NT.
-template <typename TQ, typename TC, int D, int NT>
-__device__ __forceinline__ void decode_member(
-    const TQ* __restrict__ q, const TC* __restrict__ kc,
-    const TC* __restrict__ vc, TQ* __restrict__ out, int slot, int kv_tiles,
-    int kv_len, int kv_first, int hk, int B, int H, int Hkv, int S_cache,
-    int blk, float scale, int stages, unsigned char* smem_raw) {
-  constexpr int NW = NT / 32;
-  constexpr int GC = DECODE_GC;
-  constexpr int DPL = (D + 31) / 32;  // head-dim elements per lane
-  if (slot < 0 || slot >= B || kv_tiles <= 0 || kv_tiles == DECODE_NO_EMIT ||
-      kv_len <= 0)
-    return;
-  const int g = H / Hkv;
-  TC* kv = reinterpret_cast<TC*>(smem_raw);  // stages x {K, V} x blk x D
-  float* sq = reinterpret_cast<float*>(kv + stages * 2 * blk * D);
-  float* ss = sq + g * D;
-  float* sacc = ss + g * blk;
-  float* sm = sacc + g * D;
-  float* sl = sm + g;
-  float* sa = sl + g;
-
-  const int cache_tiles = S_cache / blk;
-  const size_t tok_stride = static_cast<size_t>(Hkv) * D;
-  const TC* ks = kc + static_cast<size_t>(slot) * S_cache * tok_stride + hk * D;
-  const TC* vs = vc + static_cast<size_t>(slot) * S_cache * tok_stride + hk * D;
-  const int tile0 = kv_first / blk;
-  load_tile<TC, D, NT>(kv, kv + blk * D, ks, vs,
-                       min(tile0, cache_tiles - 1) * blk, blk, tok_stride);
-
-  const TQ* qs = q + (static_cast<size_t>(slot) * H + hk * g) * D;
-  for (int e = threadIdx.x; e < g * D; e += NT) {
-    sq[e] = to_f32(qs[e]);
-    sacc[e] = 0.f;
-  }
-  for (int gi = threadIdx.x; gi < g; gi += NT) {
-    sm[gi] = MASK_VALUE;
-    sl[gi] = 0.f;
-  }
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int t = 0; t < kv_tiles; ++t) {
-    const int cur = stages == 2 ? (t & 1) : 0;
-    if (stages == 2 && t + 1 < kv_tiles) {
-      TC* nk = kv + ((t + 1) & 1) * 2 * blk * D;
-      load_tile<TC, D, NT>(nk, nk + blk * D, ks, vs,
-                           min(tile0 + t + 1, cache_tiles - 1) * blk, blk,
-                           tok_stride);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const TC* sk = kv + cur * 2 * blk * D;
-    const TC* sv = sk + blk * D;
-    const int tile = tile0 + t;
-
-    // scores: one warp per key, lanes over D, queries in registers
-    for (int g0 = 0; g0 < g; g0 += GC) {
-      float qr[GC][DPL];
-#pragma unroll
-      for (int j = 0; j < GC; ++j)
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) {
-          const int d = lane + 32 * i;
-          qr[j][i] = (g0 + j < g && d < D) ? sq[(g0 + j) * D + d] : 0.f;
-        }
-      for (int cc = warp; cc < blk; cc += NW) {
-        float kr[DPL];
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) {
-          const int d = lane + 32 * i;
-          kr[i] = d < D ? to_f32(sk[cc * D + d]) : 0.f;
-        }
-        const int kp = tile * blk + cc;
-        const bool keep = kp >= kv_first && kp < kv_len;
-#pragma unroll
-        for (int j = 0; j < GC; ++j) {
-          float part = 0.f;
-#pragma unroll
-          for (int i = 0; i < DPL; ++i) part = fmaf(qr[j][i], kr[i], part);
-          part = warp_sum(part);
-          if (lane == j && g0 + j < g)
-            ss[(g0 + j) * blk + cc] = keep ? part * scale : MASK_VALUE;
-        }
-      }
-    }
-    __syncthreads();
-    for (int gi = warp; gi < g; gi += NW) {
-      float mx = -INFINITY;
-      for (int cc = lane; cc < blk; cc += 32) mx = fmaxf(mx, ss[gi * blk + cc]);
-      const float m_prev = sm[gi];
-      const float m_new = fmaxf(m_prev, warp_max(mx));
-      float psum = 0.f;
-      for (int cc = lane; cc < blk; cc += 32) {
-        const float p = expf(ss[gi * blk + cc] - m_new);
-        ss[gi * blk + cc] = p;
-        psum += p;
-      }
-      psum = warp_sum(psum);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        sa[gi] = alpha;
-        sl[gi] = sl[gi] * alpha + psum;
-        sm[gi] = m_new;
-      }
-    }
-    __syncthreads();
-    for (int e = threadIdx.x; e < g * D; e += NT) {
-      const int gi = e / D, d = e % D;
-      float o = sacc[e] * sa[gi];
-      for (int cc = 0; cc < blk; ++cc)
-        o = fmaf(ss[gi * blk + cc], to_f32(sv[cc * D + d]), o);
-      sacc[e] = o;
-    }
-    __syncthreads();
-    if (stages == 1 && t + 1 < kv_tiles)
-      load_tile<TC, D, NT>(kv, kv + blk * D, ks, vs,
-                           min(tile0 + t + 1, cache_tiles - 1) * blk, blk,
-                           tok_stride);
-  }
-
-  TQ* os = out + (static_cast<size_t>(slot) * H + hk * g) * D;
-  for (int e = threadIdx.x; e < g * D; e += NT)
-    os[e] = from_f32<TQ>(sacc[e] / sl[e / D]);
 }
 
 }  // namespace tri

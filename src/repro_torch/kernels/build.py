@@ -45,13 +45,16 @@ SIGNATURES = {
                               _I, _I, _F, _I, _P],
         "member_map_probe": [_P, _P, _P, _P, _I, _P],
     },
+    # (q, k, v, out, tbl, ws, arrivals, R, tiles, B, H, Hkv, S_cache, D,
+    #  blk, scale, q dtype, cache dtype, stream)
     "packed_decode": {
-        "packed_decode_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                 _I, _F, _I, _I, _P],
+        "packed_decode_launch": [_P] * 7 + [_I] * 8 + [_F, _I, _I, _P],
     },
+    # (q/k/v/o of the pack, q_dec, caches, o_dec, tbl, ws, arrivals, R, r_p,
+    #  pack tiles, decode tiles, B, H, Hkv, S_pack, S_cache, D, blk, scale,
+    #  q dtype, cache dtype, stream)
     "fused_step": {
-        "fused_step_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                              _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+        "fused_step_launch": [_P] * 11 + [_I] * 11 + [_F, _I, _I, _P],
     },
     # (B, H, Hkv, S, D, blk, n, w, p, win, pre, scale, dtype, stream)
     "tri_fwd": {

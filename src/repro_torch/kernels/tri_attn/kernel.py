@@ -15,7 +15,8 @@ composes) wrap ``csrc/tri_fwd.cu`` and ``csrc/tri_bwd.cu``; ``fwd_bb``
 which ``packed_bwd`` composes) wrap ``csrc/packed_bwd.cu``. The notes at
 the top of each source say what bounds it on the H100 and why its grid
 is one block per accumulator owner (fwd_bb's, one block per tile of the
-n x n grid, says why it is not). On a CUDA tensor a wrapper launches
+n x n grid, and packed_decode's, one block per chunk of a member's cache
+walk, say why theirs is not). On a CUDA tensor a wrapper launches
 its kernel, through ``obs.launch.instrumented_launch``, or raises; it
 runs the plain PyTorch version (scan_impl.py) only when its inputs lie
 on the CPU. Each wrapper counts its launches in a plain integer
@@ -44,6 +45,10 @@ MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 
 # pad-member kv_tiles sentinel of the (5, R) decode table: emit never fires
 DECODE_NO_EMIT = 2 ** 30
+# cache tokens of one decode chunk, and query heads a decode block serves
+# (csrc/attn_decode.cuh's DECODE_CHUNK and DECODE_HEADS)
+DECODE_CHUNK = 128
+DECODE_HEADS = 8
 
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
 SUPPORTED_BLOCKS = (16, 32, 64, 128)
@@ -253,6 +258,75 @@ def packed_fwd(q, k, v, psched: PackedTriSched, *, sm_scale=None):
 packed_fwd.launches = 0
 
 
+def decode_grid(tiles: int, n_members: int, blk: int, hkv: int,
+                g: int = 1) -> tuple:
+    """The CUDA grid of packed_decode_fwd, and of the fused step's decode
+    half: (chunk blocks, head slices). A member's walk is cut into chunks
+    of DECODE_CHUNK / blk tiles from its first tile, so a round of
+    ``tiles`` live tiles over ``n_members`` columns has at most
+    ceil(tiles / CT) + n_members chunks; each kv head's g query heads take
+    ceil(g / DECODE_HEADS) slices."""
+    ct = DECODE_CHUNK // blk
+    return (-(-max(tiles, 0) // ct) + n_members,
+            hkv * -(-g // DECODE_HEADS))
+
+
+def decode_chunks(slot: int, kv_tiles: int, kv_len: int, kv_first: int, *,
+                  b: int, s_cache: int, blk: int) -> int:
+    """Chunks of one decode table column (csrc/attn_decode.cuh's
+    decode_chunks): none for a column owning no tiles (an empty column, the
+    pad member), else ceil(kv_tiles / CT), the tiles counted up to the
+    cache's last. It reads the column alone, so a slot's chunking is the
+    same in any round."""
+    if not 0 <= slot < b or kv_tiles <= 0 or kv_tiles == DECODE_NO_EMIT \
+            or kv_len <= 0:
+        return 0
+    tiles = min(kv_tiles, s_cache // blk - kv_first // blk)
+    return max(0, -(-tiles // (DECODE_CHUNK // blk)))
+
+
+def decode_owner(x: int, cols, *, b: int, s_cache: int, blk: int):
+    """The owner of chunk block x (csrc/attn_decode.cuh's scan over the
+    columns): (column, chunk, the column's chunks, its first tile, its
+    tiles) for cols = [(slot, kv_tiles, kv_len, kv_first), ...] in table
+    order, or None past the round's last chunk (a surplus block)."""
+    base, ct = 0, DECODE_CHUNK // blk
+    for r, (slot, kv_tiles, kv_len, kv_first) in enumerate(cols):
+        n = decode_chunks(slot, kv_tiles, kv_len, kv_first, b=b,
+                          s_cache=s_cache, blk=blk)
+        if x < base + n:
+            c = x - base
+            tiles = min(kv_tiles, s_cache // blk - kv_first // blk)
+            return (r, c, n, kv_first // blk + c * ct,
+                    min(ct, tiles - c * ct))
+        base += n
+    return None
+
+
+def decode_workspace(n_members: int, s_cache: int, h: int, d: int) -> int:
+    """f32 elements of the decode kernels' partials: acc and (m, l) of
+    every (column, chunk, head), ceil(S_cache / DECODE_CHUNK) chunks a
+    column at most."""
+    return n_members * -(-s_cache // DECODE_CHUNK) * h * (d + 2)
+
+
+_ARRIVALS: dict = {}
+
+
+def arrival_counters(t: torch.Tensor, n: int) -> torch.Tensor:
+    """At least n int32 arrival counters for a decode launch on t's device
+    and current stream: made zeroed at first use (again, larger, when a
+    launch needs more), and zero between launches, since the block that
+    merges a member's chunks resets its counter (csrc/attn_decode.cuh).
+    Launches on one stream run in order, so they share one buffer."""
+    key = (t.device, _stream_ptr(t))
+    buf = _ARRIVALS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 256), dtype=torch.int32, device=t.device)
+        _ARRIVALS[key] = buf
+    return buf
+
+
 def packed_decode_fwd(q, k, v, tbl, *, capacity: int, blk: int, tiles: int,
                       sm_scale=None):
     """One launch for a whole mixed-position decode round.
@@ -260,7 +334,9 @@ def packed_decode_fwd(q, k, v, tbl, *, capacity: int, blk: int, tiles: int,
     q: (B, H, D); k, v: (B, S_cache, Hkv, D), the native cache layout with
     the new token written; tbl: (5, R) int32 member table on q's device.
     ``tiles`` is the round's live tile count (sum of member kv_tiles),
-    what the grid walks. Returns (B + 1, H, D) in q's dtype; rows of
+    which sizes the grid (``decode_grid``): each member's walk in chunks
+    of DECODE_CHUNK cache tokens, merged in the launch in chunk order
+    (csrc/attn_decode.cuh). Returns (B + 1, H, D) in q's dtype; rows of
     slots without a live member (and the pad row B) are left unwritten,
     so callers mask by the table's coverage (ops._covered_slots)."""
     b, h, d = q.shape
@@ -299,17 +375,21 @@ def packed_decode_fwd(q, k, v, tbl, *, capacity: int, blk: int, tiles: int,
            f"{SUPPORTED_HEAD_DIMS}")
     lib = BUILD.load("packed_decode")
     out = torch.empty((b + 1, h, d), dtype=q.dtype, device=q.device)
+    ws = torch.empty(decode_workspace(n_members, s_cache, h, d),
+                     dtype=torch.float32, device=q.device)
+    grid = decode_grid(tiles, n_members, blk, hkv, h // hkv)
+    arrivals = arrival_counters(q, n_members * grid[1])
     meta = OBS.meta_exact("tri_attn.packed_decode_fwd", "tri_attn",
                           impl="cuda", kind="decode_round", steps=tiles,
                           block_shape=(1, blk),
                           bb_bound=b * (s_cache // blk), cells=hkv,
-                          grid=(n_members, hkv),
-                          extra=(("capacity", capacity),))
+                          grid=grid, extra=(("capacity", capacity),))
     OBS.instrumented_launch(
         meta, lib.packed_decode_launch, (q, k, v),
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        tbl.data_ptr(), n_members, b, h, hkv, s_cache, d, blk, scale,
-        _DTYPE_CODES[q.dtype], _DTYPE_CODES[k.dtype], _stream_ptr(q))
+        tbl.data_ptr(), ws.data_ptr(), arrivals.data_ptr(), n_members,
+        tiles, b, h, hkv, s_cache, d, blk, scale, _DTYPE_CODES[q.dtype],
+        _DTYPE_CODES[k.dtype], _stream_ptr(q))
     packed_decode_fwd.launches += 1
     return out
 
@@ -399,16 +479,23 @@ def fused_step_fwd(q_pack, k_pack, v_pack, q_dec, k_cache, v_cache, tbl, *,
     o_pack = torch.empty_like(q_pack)
     o_dec = torch.empty((b + 1, h, d), dtype=q_dec.dtype,
                         device=q_dec.device)
+    n_dec = n_members - r_p
+    dec_tiles = tiles - psched.steps
+    ws = torch.empty(decode_workspace(n_dec, s_cache, h, d),
+                     dtype=torch.float32, device=q_dec.device)
+    dec = decode_grid(dec_tiles, n_dec, blk, hkv, h // hkv)
+    arrivals = arrival_counters(q_dec, n_dec * dec[1])
     meta = fused_step_meta(
         "cuda", b=b, h=h, s_pack=s_pack, s_cache=s_cache, blk=blk,
         tiles=tiles, capacity=capacity, n_members=n_members,
-        grid=((n_members - r_p) * hkv + psched.total_tiles * h,))
+        grid=(dec[0] * dec[1] + psched.total_tiles * h,))
     OBS.instrumented_launch(
         meta, lib.fused_step_launch, ins[:6],
         q_pack.data_ptr(), k_pack.data_ptr(), v_pack.data_ptr(),
         o_pack.data_ptr(), q_dec.data_ptr(), k_cache.data_ptr(),
-        v_cache.data_ptr(), o_dec.data_ptr(), tbl.data_ptr(), n_members, r_p,
-        psched.total_tiles, b, h, hkv, s_pack, s_cache, d, blk, scale,
+        v_cache.data_ptr(), o_dec.data_ptr(), tbl.data_ptr(), ws.data_ptr(),
+        arrivals.data_ptr(), n_members, r_p, psched.total_tiles, dec_tiles,
+        b, h, hkv, s_pack, s_cache, d, blk, scale,
         _DTYPE_CODES[q_pack.dtype], _DTYPE_CODES[k_cache.dtype],
         _stream_ptr(q_pack))
     fused_step_fwd.launches += 1

@@ -121,16 +121,22 @@ def test_packed_fwd_misaligned_bf16_raises(dev, blk, arg):
 @pytest.mark.parametrize("q_dtype,c_dtype", [
     (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
     (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16)])
-# (128, 128) with an f32 cache takes the single-buffered path (two tiles
-# of K and V would exceed shared memory)
+# (64, 64, 16, 1): g = 16 query heads a kv head, two head slices of 8
 @pytest.mark.parametrize("blk,d,h,hkv", [(16, 16, 4, 2), (32, 32, 8, 2),
                                          (64, 128, 32, 4), (128, 64, 8, 1),
-                                         (128, 128, 8, 2)])
+                                         (128, 128, 8, 2), (64, 64, 16, 1)])
 def test_packed_decode_matches_plain(dev, q_dtype, c_dtype, blk, d, h, hkv):
+    """Members across the chunk edges at every blk: a whole cache, one
+    chunk exactly and one token past it, a band-limited slot whose
+    kv_first is not tile-aligned and whose tiles span two chunks, short
+    slots of one chunk."""
     rng = np.random.default_rng(7)
-    b, s_cache = 5, 8 * blk
-    kv_lens, slots = [8 * blk, 3, 2 * blk + 5, blk], [0, 2, 3, 4]
-    window = [None, None, blk + 2, None]  # slot 3 band-limited, kv_first > 0
+    ch = K.DECODE_CHUNK
+    b, s_cache = 7, max(8 * blk, 4 * ch)
+    kv_lens = [s_cache, 3, 2 * ch + 5, blk, ch, ch + 1]
+    slots = [0, 2, 3, 4, 5, 6]
+    # slot 3 band-limited: kv_first = ch + 2 > 0, not on a tile edge
+    window = [None, None, ch + 3, None, None, None]
     tbl_np, needed = OPS.make_decode_table(kv_lens, slots, blk=blk,
                                            n_members=b + 2, n_slots=b,
                                            s_cache=s_cache, window=window)
@@ -148,6 +154,71 @@ def test_packed_decode_matches_plain(dev, q_dtype, c_dtype, blk, d, h, hkv):
     _close(got, want, q_dtype if q_dtype == torch.bfloat16
            else c_dtype)
     assert torch.count_nonzero(got[1]) == 0  # retired slot: zeros
+
+
+def _decode_case(rng, dev, kv_lens, slots, *, blk=64, d=128, h=32, hkv=4,
+                 b=6, s_cache=1024, q_dtype=torch.bfloat16,
+                 c_dtype=torch.float32, q=None, caches=None):
+    """One decode round's inputs and its table (b + 1 columns); the
+    queries and caches drawn from rng unless given."""
+    tbl_np, needed = OPS.make_decode_table(kv_lens, slots, blk=blk,
+                                           n_members=b + 1, n_slots=b,
+                                           s_cache=s_cache)
+    q = _rand(rng, (b, h, d), q_dtype, dev) if q is None else q
+    kc, vc = caches if caches is not None else (
+        _rand(rng, (b, s_cache, hkv, d), c_dtype, dev),
+        _rand(rng, (b, s_cache, hkv, d), c_dtype, dev))
+    return q, kc, vc, torch.as_tensor(tbl_np, device=dev), needed
+
+
+def _decode_plain(q, kc, vc, tbl, blk, needed):
+    from repro_torch.kernels.tri_attn import scan_impl as SC
+
+    return SC.packed_decode_torch(q, kc, vc, tbl, capacity=needed, blk=blk,
+                                  tiles=needed, scale=q.shape[-1] ** -0.5)
+
+
+def test_packed_decode_is_deterministic_and_leaves_no_count(dev):
+    """Two runs on the same inputs give the same bits, whichever block
+    merges; three launches back to back on other tables (other chunk
+    counts a member) each match the plain version, which a counter left
+    nonzero by a merge would break."""
+    rng = np.random.default_rng(21)
+    blk = 64
+    q, kc, vc, tbl, needed = _decode_case(rng, dev, [1000, 37, 900, 300],
+                                          [0, 1, 2, 3])
+    kw = dict(capacity=needed, blk=blk, tiles=needed)
+    first = K.packed_decode_fwd(q, kc, vc, tbl, **kw)
+    again = K.packed_decode_fwd(q, kc, vc, tbl, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first[:4], again[:4])
+    for kv_lens, slots in (([1024, 129], [2, 5]), ([128, 600, 7], [0, 3, 4]),
+                           ([513, 1000, 64, 255, 256], [1, 2, 3, 4, 5])):
+        q, kc, vc, tbl, needed = _decode_case(rng, dev, kv_lens, slots)
+        got = K.packed_decode_fwd(q, kc, vc, tbl, capacity=needed, blk=blk,
+                                  tiles=needed)
+        want = _decode_plain(q, kc, vc, tbl, blk, needed)
+        _close(got[slots], want[slots], torch.bfloat16, str(kv_lens))
+
+
+@pytest.mark.parametrize("blk", [16, 64, 128])
+def test_packed_decode_slot_is_the_same_in_any_round(dev, blk):
+    """A slot's chunking reads its own table column alone: its output is
+    bitwise the same alone and among a full round, at another table
+    width and column position."""
+    rng = np.random.default_rng(22)
+    q, kc, vc, tbl, needed = _decode_case(
+        rng, dev, [1000, 37, 900, 300, 1024, 129], list(range(6)), blk=blk)
+    full = K.packed_decode_fwd(q, kc, vc, tbl, capacity=needed, blk=blk,
+                               tiles=needed)
+    for slot, kv_len in ((0, 1000), (2, 900), (5, 129)):
+        _, _, _, alone_tbl, alone_needed = _decode_case(
+            rng, dev, [kv_len], [slot], blk=blk, q=q, caches=(kc, vc))
+        alone = K.packed_decode_fwd(q, kc, vc, alone_tbl,
+                                    capacity=alone_needed, blk=blk,
+                                    tiles=alone_needed)
+        torch.cuda.synchronize()
+        assert torch.equal(alone[slot], full[slot]), (blk, slot)
 
 
 def test_decode_empty_columns_do_not_touch_slot_zero(dev):
@@ -311,8 +382,9 @@ def test_fused_step_empty_columns_do_not_touch_slot_zero(dev):
 def test_fused_halves_equal_the_split_kernels(dev, q_dtype, c_dtype):
     """The prefill half runs packed_fwd's body at packed_fwd's thread count
     (2 blk on the bf16 tensor-core body, 256 on the f32 CUDA-core body):
-    bitwise equal. The decode half runs packed_decode's body at that count
-    against 512: equal within the tolerance."""
+    bitwise equal. The decode half runs packed_decode's body, in the same
+    chunks, at that count against 256: each output element by the same
+    operations, so bitwise equal too."""
     blk, d, g, hkv, b = 64, 128, 8, 2, 5
     rng = np.random.default_rng(13)
     kv_lens, slots = [4 * blk, 3, 2 * blk + 5], [0, 2, 3]
@@ -331,7 +403,7 @@ def test_fused_halves_equal_the_split_kernels(dev, q_dtype, c_dtype):
         ins[3], ins[4], ins[5], torch.as_tensor(dtbl, device=dev),
         capacity=dneeded, blk=blk, tiles=dneeded)
     torch.cuda.synchronize()
-    _close(o_dec[slots], split_dec[slots], q_dtype)
+    assert torch.equal(o_dec[slots], split_dec[slots])
 
 
 @pytest.mark.parametrize("blk", [16, 64])
