@@ -15,7 +15,8 @@ Phases (any failure exits non-zero; nothing is caught):
      and 128, HMMA in the forward at 16 and 32, neither in the backward at
      16 and 32, and no other; no tensor-core instantiation may spill);
      and of all 64 instantiations of packed_decode.cu's kernel (the decode
-     body of attn_decode.cuh, f32 FMAs: no spill, no HGMMA or HMMA);
+     body of attn_decode.cuh, f32 FMAs: no spill, no HGMMA or HMMA); and
+     of all 8 of wkv_scan.cu's and 16 of ssm_scan.cu's (no spill);
   3. kernels: each kernel of the serving path at full yi-9b width (H=32,
      Hkv=4, D=128, blk=64, bf16 q/k/v, f32 decode cache) against its
      plain PyTorch version on the card (outputs within atol 4e-3 + rtol
@@ -82,7 +83,9 @@ Phases (any failure exits non-zero; nothing is caught):
      structural n^2 / tri(n) of kernel_summary and the paper's Kepler
      1.12-1.15), dummy_ltm at n = 1024, 4096 and 23169, and
      triangular_attention bb against cuda (I_attn, and I_attn less the
-     partials' round trip at 3.35 TB/s);
+     partials' round trip at 3.35 TB/s); beside dummy_ltm, empty one-warp
+     blocks on its grid (tri_edm.cu's empty_blocks_launch, a yardstick
+     no path of the port runs): the card's block dispatch, its bound;
   7b. the 3-body workload on the tetrahedron: dummy_tet over the whole
      certified tet_map envelope (n = 1624, 715,169,000 blocks) equal to
      i + j + k (int64 closed form on the card); three_body_tet and
@@ -94,14 +97,17 @@ Phases (any failure exits non-zero; nothing is caught):
      versions and the library einsum timed; then the workload through
      ops.three_body / three_body_total and dummy_tet with every count at
      0 before and asserted after (I_3body = t_bb3 / t_tet beside
-     n^3 / tet(n), ns a dummy_tet block); then a prefix past its sequence
+     n^3 / tet(n), ns a dummy_tet block, the block dispatch of its grid
+     by empty blocks); then a prefix past its sequence
      (dense and packed) through tri_fwd/tri_bwd and packed_fwd/packed_bwd,
      forward and grads, against the plain versions and the oracle;
   7c. rwkv6: wkv_scan.wkv at full rwkv6-1.6b width (B 4, L 2048, H 32,
      hd 64, f32) against its plain version (within 1e-4 of its scale),
-     two halves chained equal to the whole, an L = 1 step whose state
+     two runs bitwise equal with every chain counter back at 0, two
+     halves chained equal to the whole, an L = 1 step whose state
      aliases its cache (s0 = s_L), bf16 inputs; timed beside the plain
-     version (no library call computes WKV6) and the byte bound; then
+     version (no library call computes WKV6) and the byte bound, and on
+     the device with L2 cold (its inputs stream through L2); then
      rwkv6-1.6b at its published widths (all 24 layers, random seeded
      bf16 weights): make_prefill_step on 4 x 2048 tokens and generate 32
      tokens, with exactly 24 wkv launches a prefill and a token and no
@@ -116,10 +122,11 @@ Phases (any failure exits non-zero; nothing is caught):
   7d. jamba: ssm_scan.selective_scan at the model's prefill shape (B 4,
      L 2048, D 16384, N 16) against its plain version (within 1e-4 of its
      scale) in f32 and with bf16 inputs (5e-2), at the reference test's
-     shapes, two halves chained equal to the whole, an L = 1 step at B 4
-     whose state aliases its cache; timed beside the plain version (no
-     library call computes a selective scan) and the bound (bytes against
-     the exponentials on the SFUs); then jamba-1.5-large-398b at its
+     shapes, two runs bitwise equal, two halves chained equal to the
+     whole, an L = 1 step at B 4 whose state aliases its cache; timed
+     beside the plain version (no library call computes a selective
+     scan) and the bound (bytes against the exponentials on the SFUs),
+     and on the device with L2 cold; then jamba-1.5-large-398b at its
      published widths cut to one superlayer (7 Mamba + 1 attention
      layers) and 4 of 16 experts, random seeded bf16 weights (32.26 GB):
      make_prefill_step on 4 x 2048 tokens with exactly 7 ssm launches and
@@ -422,6 +429,53 @@ def decode_build(BUILD) -> dict:
           f"dtype x BLK x D), {min(regs)}-{max(regs)} registers, no spills, "
           f"no HGMMA or HMMA; bf16 q, f32 cache, 64 x 128: "
           f"{info[('bf16', 'f32', 64, 128)]['registers']} registers",
+          flush=True)
+    return {k: {"registers": r["registers"], "spill_bytes": r["spill_bytes"]}
+            for k, r in info.items()}
+
+
+SCAN_KEY = re.compile(r"(wkv_kernel|ssm_kernel)I(13__nv_bfloat16|f)Li(\d+)E"
+                      r"(?:Lb([01])E)?")
+
+
+def scan_build(BUILD) -> dict:
+    """What ptxas said of every instantiation of the recurrent scans'
+    kernels (wkv_scan.cu: dtype x hd; ssm_scan.cu: dtype x N x staging by
+    cp.async or by plain loads). Fails unless all 8 and 16 are found and
+    none spills. Returns {(kernel, dtype, hd or N, cp.async): {...}}."""
+    info = {}
+    for src in ("wkv_scan", "ssm_scan"):
+        lines = (BUILD.build_dir() / f"{src}.log").read_text().splitlines()
+        for at, line in enumerate(lines):
+            m = SCAN_KEY.search(line)
+            if "Compiling entry" not in line or m is None:
+                continue
+            text = " ".join(lines[at + 1:at + 4])
+            regs = re.search(r"Used (\d+) registers", text)
+            spill = re.search(r"(\d+) bytes spill stores", text)
+            key = (m.group(1), "f32" if m.group(2) == "f" else "bf16",
+                   int(m.group(3)), m.group(4) != "0")
+            info[key] = {"registers": int(regs.group(1)) if regs else None,
+                         "spill_bytes": int(spill.group(1)) if spill
+                         else None, "ptxas": text}
+    counts = {kern: sum(k[0] == kern for k in info)
+              for kern in ("wkv_kernel", "ssm_kernel")}
+    if counts != {"wkv_kernel": 8, "ssm_kernel": 16}:
+        _fail(f"scans: instantiations in ptxas's report {counts}, not "
+              f"8 wkv_kernel and 16 ssm_kernel")
+    for k, row in sorted(info.items()):
+        if row["spill_bytes"] != 0:
+            _fail(f"scans: {k} spills: {row['ptxas']}")
+    wkv = info[("wkv_kernel", "f32", 64, True)]
+    ssm = info[("ssm_kernel", "f32", 16, True)]
+    print(f"scans: 8 instantiations of wkv_kernel (dtype x hd), "
+          f"{min(r['registers'] for k, r in info.items() if k[0] == 'wkv_kernel')}"
+          f"-{max(r['registers'] for k, r in info.items() if k[0] == 'wkv_kernel')}"
+          f" registers, f32 hd 64: {wkv['registers']}; 16 of ssm_kernel "
+          f"(dtype x N x cp.async or plain staging), "
+          f"{min(r['registers'] for k, r in info.items() if k[0] == 'ssm_kernel')}"
+          f"-{max(r['registers'] for k, r in info.items() if k[0] == 'ssm_kernel')}"
+          f" registers, f32 N 16 by cp.async: {ssm['registers']}; no spills",
           flush=True)
     return {k: {"registers": r["registers"], "spill_bytes": r["spill_bytes"]}
             for k, r in info.items()}
@@ -1466,6 +1520,24 @@ def _check_edm(EK, ER, x, blk, squared, sample: int, rng):
     return err, len(lams)
 
 
+def _empty_blocks_ms(blocks: int) -> float:
+    """CUDA-event median of tri_edm.cu's empty_blocks_launch: ``blocks``
+    empty one-warp blocks on a 1-D grid, the dummy kernels' geometry
+    without their work, so the floor of a kernel of one block a lambda
+    (a yardstick that no path of the port runs)."""
+    from repro_torch.kernels import build as BUILD
+
+    lib = BUILD.load("tri_edm")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        err = lib.empty_blocks_launch(blocks, stream)
+        if err:
+            _fail(f"empty_blocks_launch({blocks}): cudaError {err}")
+
+    return _median_ms(launch, PAPER_REPS, PAPER_WARMUP)
+
+
 def paper_phase(dev, K, OPS, SC):
     """The paper's experiment on the card: dummy_ltm (the mapping alone),
     the EDM by g(lambda) (edm_ltm) against the bounding box (edm_bb), and
@@ -1626,6 +1698,7 @@ def paper_phase(dev, K, OPS, SC):
         dummy_ms = {n: _median_ms(lambda: EK.dummy_ltm(n, device=dev),
                                   PAPER_REPS, PAPER_WARMUP)
                     for n in DUMMY_NS + (n_env,)}
+        dispatch_ms = _empty_blocks_ms(M.tri(n_env))
         attn_ms = {impl: _median_ms(
             lambda: OPS.triangular_attention(q, k, v, impl=impl, block=blk),
             PAPER_REPS, PAPER_WARMUP) for impl in ("bb", "cuda")}
@@ -1654,6 +1727,10 @@ def paper_phase(dev, K, OPS, SC):
     for n, ms in dummy_ms.items():
         print(f"paper: dummy_ltm n={n}: {ms:.4f} ms, "
               f"{ms * 1e6 / M.tri(n):.4f} ns a block", flush=True)
+    print(f"paper: block dispatch (empty one-warp blocks on dummy_ltm's grid "
+          f"of {M.tri(n_env)}): {dispatch_ms:.4f} ms, "
+          f"{dispatch_ms * 1e6 / M.tri(n_env):.4f} ns a block; dummy_ltm at "
+          f"{dispatch_ms / dummy_ms[n_env]:.1%} of it", flush=True)
     print(f"paper: attention at B {b} H {h} S {s} blk {blk}: fwd_bb "
           f"{attn_ms['bb']:.4f} ms, tri_fwd {attn_ms['cuda']:.4f} ms, I_attn "
           f"{i_attn:.4f} (structural "
@@ -1694,7 +1771,8 @@ def paper_phase(dev, K, OPS, SC):
          "max_abs_err": 0.0, "ms": dummy_ms[n_env],
          "library": None, "shape": {"n": n_env, "blocks": M.tri(n_env)},
          "ms_by_n": {str(n): ms for n, ms in dummy_ms.items()},
-         "ns_per_block": dummy_ms[n_env] * 1e6 / M.tri(n_env)},
+         "ns_per_block": dummy_ms[n_env] * 1e6 / M.tri(n_env),
+         "bound_dispatch_ms": dispatch_ms},
         {"name": "tri_attn.fwd_bb", "source": "src/repro_torch/csrc/fwd_bb.cu",
          "replaces": "src/repro/kernels/tri_attn/kernel.py:1205",
          "max_abs_err": attn_err, "ms": attn_ms["bb"],
@@ -1894,6 +1972,7 @@ def three_body_phase(dev):
         dummy_ms = {n: _median_ms(lambda: TK.dummy_tet(n, device=dev),
                                   PAPER_REPS, PAPER_WARMUP)
                     for n in (TB_DUMMY_N, n_env)}
+        dispatch_ms = _empty_blocks_ms(M.tet(n_env))
     _check_launches("3body", TK, reg, {
         "tri_3body.tet": per * (len(TB_SHAPES) + 1),
         "tri_3body.bb3": per * (len(TB_SHAPES) + 1),
@@ -1911,6 +1990,10 @@ def three_body_phase(dev):
     for n, ms in dummy_ms.items():
         print(f"3body: dummy_tet n={n}: {ms:.4f} ms, "
               f"{ms * 1e6 / M.tet(n):.4f} ns a block", flush=True)
+    print(f"3body: block dispatch (empty one-warp blocks on dummy_tet's grid "
+          f"of {M.tet(n_env)}): {dispatch_ms:.4f} ms, "
+          f"{dispatch_ms * 1e6 / M.tet(n_env):.4f} ns a block; dummy_tet at "
+          f"{dispatch_ms / dummy_ms[n_env]:.1%} of it", flush=True)
     print(f"3body: three_body_total at N={n_rows} d={d_h} blk={blk_h}: "
           f"cuda {totals['cuda']:.4f} ms, bb3 {totals['bb3']:.4f} ms; "
           f"library einsum over the N^3 ordered triples {einsum:.4f} ms",
@@ -1947,7 +2030,8 @@ def three_body_phase(dev):
          "max_abs_err": 0.0, "ms": dummy_ms[n_env], "library_ms": None,
          "library": None, "shape": {"n": n_env, "blocks": M.tet(n_env)},
          "ms_by_n": {str(n): ms for n, ms in dummy_ms.items()},
-         "ns_per_block": dummy_ms[n_env] * 1e6 / M.tet(n_env)}]
+         "ns_per_block": dummy_ms[n_env] * 1e6 / M.tet(n_env),
+         "bound_dispatch_ms": dispatch_ms}]
     for row in rows:
         name = row["name"]
         row.update(route="cuda", plain_ms=plain[name],
@@ -2093,6 +2177,7 @@ def wkv_kernel_phase(dev):
     (ref.py) on the card: f32, halves chained equal to the whole, an L = 1
     step with its state aliased (s0 = s_L), bf16 inputs; timed beside the
     plain version. No PyTorch call computes WKV6 (library: none)."""
+    from repro_torch.kernels import build as BUILD
     from repro_torch.kernels.wkv_scan import kernel as WK
     from repro_torch.kernels.wkv_scan import ref as WR
 
@@ -2111,6 +2196,14 @@ def wkv_kernel_phase(dev):
         want_o, want_s = WR.wkv_ref(r, k, v, lw, u, s0)
         err = max(_wkv_close("wkv f32 out", out, want_o),
                   _wkv_close("wkv f32 state", s_l, want_s))
+        again = WK.wkv(r, k, v, lw, u, s0)
+        counters = BUILD.arrival_counters(r, 1 + b * h)
+        torch.cuda.synchronize()
+        if not (torch.equal(again[0], out) and torch.equal(again[1], s_l)):
+            _fail("wkv: two runs of the chunked walk differ")
+        if int(counters.abs().sum()):
+            _fail("wkv: a chain counter is left nonzero")
+        del again, want_o
         m = l // 2
         o1, s1 = WK.wkv(r[:, :m].contiguous(), k[:, :m].contiguous(),
                         v[:, :m].contiguous(), lw[:, :m].contiguous(), u, s0)
@@ -2146,13 +2239,17 @@ def wkv_kernel_phase(dev):
     n = b * l * h * hd
     nbytes = 5 * 4 * n + 4 * h * hd + 2 * 4 * b * h * hd * hd
     bound = _bound(nbytes, 4 * hd * hd * b * l * h, torch.float32)
+    blocks = b * h * -(-l // WK.WKV_CHUNK)
     print(f"wkv: B={b} L={l} H={h} hd={hd} f32 {ms:.4f} ms (bound "
           f"{bound[0]:.4f} by {bound[1]}, plain {plain_ms:.2f}), bf16 inputs "
-          f"{ms_bf16:.4f} ms (device time by the profiler {dev_ms:.4f} "
-          f"f32), one L=1 step at B={b} {ms_step:.4f} ms through the "
-          f"wrapper, {dev_step:.4f} ms on the device; "
-          f"max abs err {err:.3g} (f32), {err_bf:.3g} (bf16); halves "
-          f"chained and the aliased L=1 state agree", flush=True)
+          f"{ms_bf16:.4f} ms; on the device (profiler, L2 cold: each launch "
+          f"streams {4 * 4 * n / 1e6:.0f} MB of inputs through the 50 MB "
+          f"L2) {dev_ms:.4f} ms, {bound[0] / dev_ms:.1%} of the bound, "
+          f"{blocks} blocks of {WK.WKV_CHUNK} steps; one L=1 step at B={b} "
+          f"{ms_step:.4f} ms through the wrapper, {dev_step:.4f} ms on the "
+          f"device; max abs err {err:.3g} (f32), {err_bf:.3g} (bf16); two "
+          f"runs bitwise equal, no counter left; halves chained and the "
+          f"aliased L=1 state agree", flush=True)
     return {"name": "wkv_scan.wkv", "route": "cuda",
             "source": "src/repro_torch/csrc/wkv_scan.cu",
             "replaces": "src/repro/kernels/wkv_scan/kernel.py:61",
@@ -2160,7 +2257,7 @@ def wkv_kernel_phase(dev):
             "ms_bf16": ms_bf16, "ms_device": dev_ms, "ms_step_l1": ms_step,
             "ms_step_l1_device": dev_step, "plain_ms": plain_ms,
             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
-            "library": None,
+            "library": None, "blocks": blocks, "chunk": WK.WKV_CHUNK,
             "shape": {"B": b, "L": l, "H": h, "hd": hd, "dtype": "float32"}}
 
 
@@ -2448,6 +2545,10 @@ def ssm_kernel_phase(dev):
         err = max(_wkv_close("ssm f32 y", y, want_y, SSM_REL),
                   _wkv_close("ssm f32 state", h_l, want_h, SSM_REL))
         del want_y
+        again = SK.selective_scan(x, dt, a, bt, ct, h0)
+        if not (torch.equal(again[0], y) and torch.equal(again[1], h_l)):
+            _fail("ssm: two runs differ")
+        del again
         m = l // 2
         half = lambda t, s: t[:, s].contiguous()
         y1, h1 = SK.selective_scan(half(x, slice(0, m)), half(dt, slice(0, m)),
@@ -2503,12 +2604,14 @@ def ssm_kernel_phase(dev):
           f"{bound:.4f} by {bound_by}: bytes {bound_bytes:.4f}, f32 flops "
           f"{bound_flops:.4f}, exponentials on the SFUs at "
           f"{clock / 1e6:.0f} MHz {bound_exp:.4f}; plain {plain_ms:.2f}), "
-          f"bf16 inputs {ms_bf16:.4f} ms (device time by the profiler "
-          f"{dev_ms:.4f} f32), one L=1 step at B={b} {ms_step:.4f} ms "
+          f"bf16 inputs {ms_bf16:.4f} ms; on the device (profiler, L2 "
+          f"cold: each launch streams {8 * b * l * d / 1e9:.2f} GB of x and "
+          f"dt through the 50 MB L2) {dev_ms:.4f} ms, {bound / dev_ms:.1%} "
+          f"of the bound; one L=1 step at B={b} {ms_step:.4f} ms "
           f"through the wrapper, {dev_step:.4f} ms on the device; max abs "
-          f"err {err:.3g} (f32), {err_bf:.3g} (bf16); the reference test's "
-          f"shapes, halves chained and the aliased L=1 state agree",
-          flush=True)
+          f"err {err:.3g} (f32), {err_bf:.3g} (bf16); two runs bitwise "
+          f"equal; the reference test's shapes, halves chained and the "
+          f"aliased L=1 state agree", flush=True)
     return {"name": "ssm_scan.selective_scan", "route": "cuda",
             "source": "src/repro_torch/csrc/ssm_scan.cu",
             "replaces": "src/repro/kernels/ssm_scan/kernel.py:67",
@@ -3066,6 +3169,7 @@ def main():
           flush=True)
     tc_build = tensor_core_build(BUILD, K)
     dec_build = decode_build(BUILD)
+    scans = scan_build(BUILD)
     ctx, kernels = kernel_phase(dev, K, OPS, SC)
     kernels[1]["ptxas"] = dec_build[("bf16", "f32", 64, 128)]
     kernels.append(fused_kernel_phase(dev, K, OPS, SC, D, ctx))
@@ -3090,12 +3194,14 @@ def main():
     kernels += three_body_phase(dev)
     torch.cuda.empty_cache()
     wkv_row = wkv_kernel_phase(dev)
+    wkv_row["ptxas"] = scans[("wkv_kernel", "f32", 64, True)]
     kernels.append(wkv_row)
     wkv_row["launches"], wkv_row["launches_offline"] = rwkv_serving_phase(
         dev, card)
     rwkv_cli_phase()
     torch.cuda.empty_cache()
     ssm_row = ssm_kernel_phase(dev)
+    ssm_row["ptxas"] = scans[("ssm_kernel", "f32", 16, True)]
     kernels.append(ssm_row)
     torch.cuda.empty_cache()
     ssm_row["launches"], ssm_row["launches_offline"] = jamba_serving_phase(

@@ -452,20 +452,6 @@ inline int dispatch_tile(int dtype, int blk, int D, F&& f) {
   return dispatch_dtype(dtype, by_blk);
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 }  // namespace tri
 
 // The bf16 tensor-core body of tri_fwd.cu and fwd_bb.cu (uses cp_async16).

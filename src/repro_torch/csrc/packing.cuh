@@ -12,6 +12,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace tri {
 
 constexpr int ISQRT_MAX_R = 46340;          // floor(sqrt(INT32_MAX))
@@ -168,6 +170,29 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// 16 bytes global -> shared by cp.async, completing in the thread's
+// current group; cp_async_wait<N> waits until at most N of the thread's
+// groups are still in flight.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// True when every pointer lies on a 16-byte boundary (cp.async's).
+template <typename... P>
+inline bool aligned16(const P*... p) {
+  return ((reinterpret_cast<uintptr_t>(p) % 16 == 0) && ...);
 }
 
 // Shared memory a block may take on sm_90 (SMEM_LIMIT in kernels/build.py).

@@ -17,6 +17,11 @@
 //             block; lane 0 maps lambda -> (i, j) and writes i + j. It
 //             measures the card's cost of the mapping alone (the paper's
 //             tau / beta).
+// Beside them a yardstick that replaces no TPU kernel and that no path of
+// the port runs: empty_blocks_launch starts `blocks` empty blocks of one
+// warp on a 1-D grid, the dummy kernels' geometry without their work, so
+// chip_smoke.py can time how fast the card dispatches blocks (the floor of
+// a kernel of one block a lambda).
 //
 // Tile body. The block loads X_i and X_j (b x d, cast to f32) feature-major
 // into shared memory and takes the row norms; each thread then keeps one
@@ -212,5 +217,14 @@ extern "C" int dummy_ltm_launch(void* out, int n, void* stream) {
   const long long tiles = static_cast<long long>(n) * (n + 1) / 2;
   dummy_ltm_kernel<<<static_cast<unsigned>(tiles), 32, 0,
                      static_cast<cudaStream_t>(stream)>>>(static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+__global__ void empty_blocks_kernel() {}
+
+extern "C" int empty_blocks_launch(int blocks, void* stream) {
+  if (blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  empty_blocks_kernel<<<static_cast<unsigned>(blocks), 32, 0,
+                        static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }

@@ -76,11 +76,13 @@ SIGNATURES = {
     "fwd_bb": {
         "fwd_bb_launch": [_P] * 7 + [_I] * 8 + [_F, _I, _P],
     },
-    # (x, out, N, d, blk, squared, dtype, stream); (out, n, stream)
+    # (x, out, N, d, blk, squared, dtype, stream); (out, n, stream);
+    # (blocks, stream)
     "tri_edm": {
         "edm_ltm_launch": [_P, _P] + [_I] * 5 + [_P],
         "edm_bb_launch": [_P, _P] + [_I] * 5 + [_P],
         "dummy_ltm_launch": [_P, _I, _P],
+        "empty_blocks_launch": [_I, _P],
     },
     # (x, out, N, d, blk, strict, dtype, stream); (out, n, stream)
     "tri_3body": {
@@ -88,9 +90,10 @@ SIGNATURES = {
         "three_body_bb3_launch": [_P, _P] + [_I] * 5 + [_P],
         "dummy_tet_launch": [_P, _I, _P],
     },
-    # (r, k, v, lw, u, s0, out, s_L, B, L, H, hd, block_l, dtype, stream)
+    # (r, k, v, lw, u, s0, out, s_L, slot, counters, B, L, H, hd, dtype,
+    #  stream)
     "wkv_scan": {
-        "wkv_launch": [_P] * 8 + [_I] * 6 + [_P],
+        "wkv_launch": [_P] * 10 + [_I] * 5 + [_P],
     },
     # (x, dt, A, Bt, Ct, h0, y, h_L, B, L, D, N, dtype, stream)
     "ssm_scan": {
@@ -175,3 +178,21 @@ def check(cond: bool, msg: str):
 def stream_ptr(t: torch.Tensor) -> int:
     """The current CUDA stream of ``t``'s device, as a C entry takes it."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+_ARRIVALS: Dict[tuple, torch.Tensor] = {}
+
+
+def arrival_counters(t: torch.Tensor, n: int) -> torch.Tensor:
+    """At least n int32 counters for a launch on t's device and current
+    stream whose blocks meet through counters (the decode kernels' merge,
+    csrc/attn_decode.cuh; the WKV chain, csrc/wkv_scan.cu): made zeroed at
+    first use (again, larger, when a launch needs more), and zero between
+    launches, since each kernel sets the counters it used back to 0.
+    Launches on one stream run in order, so they share one buffer."""
+    key = (t.device, stream_ptr(t))
+    buf = _ARRIVALS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 256), dtype=torch.int32, device=t.device)
+        _ARRIVALS[key] = buf
+    return buf

@@ -37,6 +37,7 @@ from repro_torch.core import mapping as M
 from repro_torch.core import packing as PK
 from repro_torch.kernels import build as BUILD
 from repro_torch.kernels.build import DTYPE_CODES as _DTYPE_CODES
+from repro_torch.kernels.build import arrival_counters
 from repro_torch.kernels.build import check as _check
 from repro_torch.kernels.build import stream_ptr as _stream_ptr
 from repro_torch.obs import launch as OBS
@@ -308,23 +309,6 @@ def decode_workspace(n_members: int, s_cache: int, h: int, d: int) -> int:
     every (column, chunk, head), ceil(S_cache / DECODE_CHUNK) chunks a
     column at most."""
     return n_members * -(-s_cache // DECODE_CHUNK) * h * (d + 2)
-
-
-_ARRIVALS: dict = {}
-
-
-def arrival_counters(t: torch.Tensor, n: int) -> torch.Tensor:
-    """At least n int32 arrival counters for a decode launch on t's device
-    and current stream: made zeroed at first use (again, larger, when a
-    launch needs more), and zero between launches, since the block that
-    merges a member's chunks resets its counter (csrc/attn_decode.cuh).
-    Launches on one stream run in order, so they share one buffer."""
-    key = (t.device, _stream_ptr(t))
-    buf = _ARRIVALS.get(key)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 256), dtype=torch.int32, device=t.device)
-        _ARRIVALS[key] = buf
-    return buf
 
 
 def packed_decode_fwd(q, k, v, tbl, *, capacity: int, blk: int, tiles: int,

@@ -1,21 +1,31 @@
 """The WKV6 kernel (csrc/wkv_scan.cu) and its plain version.
 
-``wkv`` wraps ``wkv_launch``: one block per (batch, head) stream walks
-its time steps in order, the state in registers (see the source); the
-kernel takes head sizes 8, 16, 32 and 64. On a
-CUDA tensor it launches the kernel through
-``obs.launch.instrumented_launch`` or raises; only for tensors on the
-CPU does it run the plain version, ``wkv_torch`` (the sequential oracle
-of ref.py, the same launch recorded with impl "torch"). Launches are
-counted in ``wkv.launches`` (``WRAPPERS``).
+``wkv`` wraps ``wkv_launch``: each (batch, head) stream is split over
+time into chunks of WKV_CHUNK steps, a block a (stream, chunk), chained
+in the same launch (see the source). Chunk 0 walks from s0; every other
+chunk walks from a zero state, waits for its predecessor's state S_{c-1},
+publishes S_c = diag(prod e^{lw}) S_{c-1} + its own, and adds
+(r_t * prod_{tau < t} e^{lw_tau}) S_{c-1} to its outputs. The chunked
+sums round otherwise than the sequential walk (the card holds them to
+WKV_REL of the plain version); a call of L <= WKV_CHUNK is one chunk, the
+sequential walk itself. The kernel takes head sizes 8, 16, 32 and 64 and
+16-byte aligned r, k, v, lw. On a CUDA tensor it launches the kernel
+through ``obs.launch.instrumented_launch`` or raises; only for tensors
+on the CPU does it run the plain version, ``wkv_torch`` (the sequential
+oracle of ref.py, the same launch recorded with impl "torch"). Launches
+are counted in ``wkv.launches`` (``WRAPPERS``).
 
 The launch record is the reference's Pallas one: grid (L / block_l,)
 chunks of block_l time steps, B * H cells. The reference asserts that
 block_l divides L; the model's prompts are ragged, so here block_l is
 halved until it divides L (``chunk_len``), the rule of the model's
-chunk loop. The kernel stages one chunk of block_l steps in shared
-memory at a time. s0 and the returned state may be the same tensor
-(``state_out=s0``): the decode step updates its cache in place.
+chunk loop. block_l names the record only: the kernel's chunk is
+WKV_CHUNK. s0 and the returned state may be the same tensor
+(``state_out=s0``): the decode step updates its cache in place. The
+wrapper gives a call of more than one chunk a (B, H, hd, hd) f32 slot
+for the published states and 1 + B * H counters (``arrival_counters``:
+the ticket counter and each stream's published chunks, 0 between
+launches).
 """
 
 from __future__ import annotations
@@ -24,12 +34,14 @@ import torch
 
 from repro_torch.kernels import build as BUILD
 from repro_torch.kernels.build import DTYPE_CODES as _DTYPE_CODES
+from repro_torch.kernels.build import arrival_counters as _counters
 from repro_torch.kernels.build import check as _check
 from repro_torch.kernels.build import stream_ptr as _stream_ptr
 from repro_torch.kernels.wkv_scan import ref as R
 from repro_torch.obs import launch as OBS
 
 HEAD_SIZES = (8, 16, 32, 64)  # the kernel's register tilings of a column
+WKV_CHUNK = 64  # steps a block takes of its stream (csrc/wkv_scan.cu)
 
 
 def chunk_len(l: int, block_l: int = 64) -> int:
@@ -87,6 +99,9 @@ def _check_kernel_input(r, k, v, lw, u, s0, state_out):
     tensors = (r, k, v, lw, u, s0, state_out)
     _check(all(t.is_contiguous() and t.device == r.device for t in tensors),
            "wkv: every tensor must be contiguous on one device")
+    _check(all(t.data_ptr() % 16 == 0 for t in (r, k, v, lw)),
+           "wkv: r, k, v, lw must start on 16-byte boundaries (the kernel "
+           "stages them by cp.async)")
     _check(not any(t.requires_grad for t in tensors),
            "wkv: the kernel has no backward; differentiate through the "
            "plain version (impl='torch')")
@@ -109,12 +124,16 @@ def wkv(r, k, v, lw, u, s0=None, *, block_l: int = 64, state_out=None):
     bl = chunk_len(l, block_l)
     lib = BUILD.load("wkv_scan")
     out = torch.empty_like(r)
+    slot = counters = 0  # pointers; a lone chunk needs neither
+    if l > WKV_CHUNK:  # kept referenced until the launch is enqueued
+        scratch = (torch.empty_like(s0), _counters(r, 1 + b * h))
+        slot, counters = (x.data_ptr() for x in scratch)
     OBS.instrumented_launch(
         wkv_meta("cuda", b, l, h, hd, bl), lib.wkv_launch,
         (r, k, v, lw, u, s0), r.data_ptr(), k.data_ptr(), v.data_ptr(),
         lw.data_ptr(), u.data_ptr(), s0.data_ptr(), out.data_ptr(),
-        state_out.data_ptr(), b, l, h, hd, bl, _DTYPE_CODES[r.dtype],
-        _stream_ptr(r))
+        state_out.data_ptr(), slot, counters, b, l, h, hd,
+        _DTYPE_CODES[r.dtype], _stream_ptr(r))
     wkv.launches += 1
     return out, state_out
 

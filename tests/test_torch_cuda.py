@@ -1296,6 +1296,75 @@ def test_wkv_refuses_instead_of_falling_back(dev, monkeypatch):
     assert WK.wkv.launches == before
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("l", [1, 63, 64, 65, 127, 2048])
+def test_wkv_chunks_match_plain(dev, l, dtype):
+    """The chunked walk (WKV_CHUNK = 64 steps a block, chained in the
+    launch) at L = 1, C - 1, C, C + 1, 127 and 2048 against the plain
+    version, f32 held to 1e-4 of the output's scale (chip_smoke.py's
+    WKV_REL: the chunks' sums round otherwise than the walk)."""
+    from repro_torch.kernels.wkv_scan import kernel as WK
+    from repro_torch.kernels.wkv_scan import ref as WR
+
+    assert WK.WKV_CHUNK == 64
+    xs, s0 = _wkv_case(dev, 2, l, 3, 64, dtype, seed=5)
+    out, s_l = WK.wkv(*xs, s0)
+    torch.cuda.synchronize()
+    want_o, want_s = WR.wkv_ref(*xs, s0)
+    scale = float(want_o.abs().max())
+    tol = (dict(atol=1e-4 * scale, rtol=1e-4) if dtype == torch.float32
+           else WKV_TOL[dtype])
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               want_o.to(dtype).float().cpu().numpy(), **tol)
+    np.testing.assert_allclose(
+        s_l.cpu().numpy(), want_s.cpu().numpy(), rtol=1e-4,
+        atol=1e-4 * float(want_s.abs().max()))
+
+
+def test_wkv_is_deterministic_and_leaves_no_count(dev):
+    """Two launches of a many-chunk call give the same bits, and every
+    counter (the ticket and each stream's published chunks) is 0 after
+    each; a many-chunk call between two one-chunk calls changes neither."""
+    from repro_torch.kernels.build import arrival_counters
+    from repro_torch.kernels.wkv_scan import kernel as WK
+
+    xs, s0 = _wkv_case(dev, 4, 2048, 32, 64, seed=6)
+    first = WK.wkv(*xs, s0)
+    counters = arrival_counters(xs[0], 1 + 4 * 32)
+    torch.cuda.synchronize()
+    assert int(counters.abs().sum()) == 0
+    for _ in range(2):
+        again = WK.wkv(*xs, s0)
+        torch.cuda.synchronize()
+        assert int(counters.abs().sum()) == 0
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+    one = [t[:, :1].contiguous() for t in xs[:4]] + [xs[4]]
+    assert all(torch.equal(a, b) for a, b in
+               zip(WK.wkv(*one, s0), WK.wkv(*one, s0)))
+
+
+@pytest.mark.parametrize("hd", [8, 16, 32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv_one_chunk_is_the_sequential_walk(dev, hd, dtype):
+    """A call of L <= WKV_CHUNK is the sequential walk: bitwise equal to
+    L one-step calls on an aliased cache (each the walk's one step), in
+    outputs and state."""
+    from repro_torch.kernels.wkv_scan import kernel as WK
+
+    (r, k, v, lw, u), s0 = _wkv_case(dev, 2, WK.WKV_CHUNK, 3, hd, dtype,
+                                     seed=7)
+    whole_o, whole_s = WK.wkv(r, k, v, lw, u, s0)
+    cache = s0.clone()
+    outs = []
+    for t in range(WK.WKV_CHUNK):
+        step = [x[:, t:t + 1].contiguous() for x in (r, k, v, lw)]
+        o, _ = WK.wkv(*step, u, cache, state_out=cache)
+        outs.append(o)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(outs, 1), whole_o)
+    assert torch.equal(cache, whole_s)
+
+
 def test_rwkv_serving_on_the_card(dev):
     """Smoke-size float32 rwkv6 on the card: the engine (2 slots, 5
     requests: reused slots, a 1-token prompt) through the WKV kernel
@@ -1405,6 +1474,23 @@ def test_ssm_aliased_decode_state_and_chaining(dev):
     _, plain_h = SK.selective_scan_torch(x, dt, a, bt, ct, h0)
     np.testing.assert_allclose(whole_h.cpu().numpy(), plain_h.cpu().numpy(),
                                **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,l,d,n", [(1, 8, 16, 4), (3, 16, 32, 32),
+                                     (2, 128, 256, 16), (1, 300, 130, 4),
+                                     (4, 2048, 1024, 16)])
+def test_ssm_is_deterministic(dev, b, l, d, n, dtype):
+    """Two launches give the same bits at the reference test's shapes, a
+    D whose rows are no whole number of 16-byte pieces (plain-load
+    staging), and a long L (many ring turns)."""
+    from repro_torch.kernels.ssm_scan import kernel as SK
+
+    xs, h0 = _ssm_case(dev, b, l, d, n, dtype, seed=2)
+    first = SK.selective_scan(*xs, h0)
+    again = SK.selective_scan(*xs, h0)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
 
 
 def test_ssm_refuses_instead_of_falling_back(dev, monkeypatch):
