@@ -16,7 +16,8 @@ Phases (any failure exits non-zero; nothing is caught):
      16 and 32, and no other; no tensor-core instantiation may spill);
      and of all 64 instantiations of packed_decode.cu's kernel (the decode
      body of attn_decode.cuh, f32 FMAs: no spill, no HGMMA or HMMA); and
-     of all 8 of wkv_scan.cu's and 16 of ssm_scan.cu's (no spill);
+     of all 16 of wkv_scan.cu's (the chunked kernel and the one-chunk
+     walk, dtype x hd) and 8 of ssm_scan.cu's (no spill);
   3. kernels: each kernel of the serving path at full yi-9b width (H=32,
      Hkv=4, D=128, blk=64, bf16 q/k/v, f32 decode cache) against its
      plain PyTorch version on the card (outputs within atol 4e-3 + rtol
@@ -434,15 +435,15 @@ def decode_build(BUILD) -> dict:
             for k, r in info.items()}
 
 
-SCAN_KEY = re.compile(r"(wkv_kernel|ssm_kernel)I(13__nv_bfloat16|f)Li(\d+)E"
-                      r"(?:Lb([01])E)?")
+SCAN_KERNELS = ("wkv_kernel", "wkv_walk_kernel", "ssm_kernel")
+SCAN_KEY = re.compile(rf"({'|'.join(SCAN_KERNELS)})I(13__nv_bfloat16|f)Li(\d+)E")
 
 
 def scan_build(BUILD) -> dict:
     """What ptxas said of every instantiation of the recurrent scans'
-    kernels (wkv_scan.cu: dtype x hd; ssm_scan.cu: dtype x N x staging by
-    cp.async or by plain loads). Fails unless all 8 and 16 are found and
-    none spills. Returns {(kernel, dtype, hd or N, cp.async): {...}}."""
+    kernels (wkv_scan.cu: the chunked kernel and the one-chunk walk, each
+    dtype x hd; ssm_scan.cu: dtype x N). Fails unless all 8 of each are
+    found and none spills. Returns {(kernel, dtype, hd or N): {...}}."""
     info = {}
     for src in ("wkv_scan", "ssm_scan"):
         lines = (BUILD.build_dir() / f"{src}.log").read_text().splitlines()
@@ -454,29 +455,26 @@ def scan_build(BUILD) -> dict:
             regs = re.search(r"Used (\d+) registers", text)
             spill = re.search(r"(\d+) bytes spill stores", text)
             key = (m.group(1), "f32" if m.group(2) == "f" else "bf16",
-                   int(m.group(3)), m.group(4) != "0")
+                   int(m.group(3)))
             info[key] = {"registers": int(regs.group(1)) if regs else None,
                          "spill_bytes": int(spill.group(1)) if spill
                          else None, "ptxas": text}
-    counts = {kern: sum(k[0] == kern for k in info)
-              for kern in ("wkv_kernel", "ssm_kernel")}
-    if counts != {"wkv_kernel": 8, "ssm_kernel": 16}:
-        _fail(f"scans: instantiations in ptxas's report {counts}, not "
-              f"8 wkv_kernel and 16 ssm_kernel")
+    counts = {kern: sum(k[0] == kern for k in info) for kern in SCAN_KERNELS}
+    if counts != dict.fromkeys(SCAN_KERNELS, 8):
+        _fail(f"scans: instantiations in ptxas's report {counts}, not 8 "
+              f"of each of {SCAN_KERNELS}")
     for k, row in sorted(info.items()):
         if row["spill_bytes"] != 0:
             _fail(f"scans: {k} spills: {row['ptxas']}")
-    wkv = info[("wkv_kernel", "f32", 64, True)]
-    ssm = info[("ssm_kernel", "f32", 16, True)]
-    print(f"scans: 8 instantiations of wkv_kernel (dtype x hd), "
-          f"{min(r['registers'] for k, r in info.items() if k[0] == 'wkv_kernel')}"
-          f"-{max(r['registers'] for k, r in info.items() if k[0] == 'wkv_kernel')}"
-          f" registers, f32 hd 64: {wkv['registers']}; 16 of ssm_kernel "
-          f"(dtype x N x cp.async or plain staging), "
-          f"{min(r['registers'] for k, r in info.items() if k[0] == 'ssm_kernel')}"
-          f"-{max(r['registers'] for k, r in info.items() if k[0] == 'ssm_kernel')}"
-          f" registers, f32 N 16 by cp.async: {ssm['registers']}; no spills",
-          flush=True)
+    regs = {kern: [r["registers"] for k, r in info.items() if k[0] == kern]
+            for kern in SCAN_KERNELS}
+    print("scans: 8 instantiations each of " + ", ".join(
+        f"{kern} {min(r)}-{max(r)} registers" for kern, r in regs.items())
+        + f"; f32 wkv_kernel hd 64: "
+        f"{info[('wkv_kernel', 'f32', 64)]['registers']}, wkv_walk_kernel "
+        f"hd 64: {info[('wkv_walk_kernel', 'f32', 64)]['registers']}, "
+        f"ssm_kernel N 16: {info[('ssm_kernel', 'f32', 16)]['registers']}; "
+        f"no spills", flush=True)
     return {k: {"registers": r["registers"], "spill_bytes": r["spill_bytes"]}
             for k, r in info.items()}
 
@@ -2232,7 +2230,8 @@ def wkv_kernel_phase(dev):
         ms_step = _median_ms(lambda: WK.wkv(*one, u, cache, state_out=cache),
                              50)
         dev_step = _device_ms(lambda: [WK.wkv(*one, u, cache, state_out=cache)
-                                       for _ in range(50)], 50, "wkv_kernel")
+                                       for _ in range(50)], 50,
+                              "wkv_walk_kernel")
         dev_ms = _device_ms(lambda: [WK.wkv(r, k, v, lw, u, s0)
                                      for _ in range(5)], 5, "wkv_kernel")
         plain_ms = _median_ms(lambda: WK.wkv_torch(r, k, v, lw, u, s0), 3, 1)
@@ -2246,8 +2245,8 @@ def wkv_kernel_phase(dev):
           f"streams {4 * 4 * n / 1e6:.0f} MB of inputs through the 50 MB "
           f"L2) {dev_ms:.4f} ms, {bound[0] / dev_ms:.1%} of the bound, "
           f"{blocks} blocks of {WK.WKV_CHUNK} steps; one L=1 step at B={b} "
-          f"{ms_step:.4f} ms through the wrapper, {dev_step:.4f} ms on the "
-          f"device; max abs err {err:.3g} (f32), {err_bf:.3g} (bf16); two "
+          f"(the one-chunk walk) {ms_step:.4f} ms through the wrapper, "
+          f"{dev_step:.4f} ms on the device; max abs err {err:.3g} (f32), {err_bf:.3g} (bf16); two "
           f"runs bitwise equal, no counter left; halves chained and the "
           f"aliased L=1 state agree", flush=True)
     return {"name": "wkv_scan.wkv", "route": "cuda",
@@ -3194,14 +3193,15 @@ def main():
     kernels += three_body_phase(dev)
     torch.cuda.empty_cache()
     wkv_row = wkv_kernel_phase(dev)
-    wkv_row["ptxas"] = scans[("wkv_kernel", "f32", 64, True)]
+    wkv_row["ptxas"] = scans[("wkv_kernel", "f32", 64)]
+    wkv_row["ptxas_step"] = scans[("wkv_walk_kernel", "f32", 64)]
     kernels.append(wkv_row)
     wkv_row["launches"], wkv_row["launches_offline"] = rwkv_serving_phase(
         dev, card)
     rwkv_cli_phase()
     torch.cuda.empty_cache()
     ssm_row = ssm_kernel_phase(dev)
-    ssm_row["ptxas"] = scans[("ssm_kernel", "f32", 16, True)]
+    ssm_row["ptxas"] = scans[("ssm_kernel", "f32", 16)]
     kernels.append(ssm_row)
     torch.cuda.empty_cache()
     ssm_row["launches"], ssm_row["launches_offline"] = jamba_serving_phase(

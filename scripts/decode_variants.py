@@ -30,17 +30,17 @@ nvcc; exits 1 without them.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
-import shutil
-import subprocess
 import sys
 from pathlib import Path
 
 import numpy as np
 import torch
 
-ROOT = Path(__file__).resolve().parents[1]
+import _variants as V
+
+ROOT = V.ROOT
+
 CHUNK = "constexpr int DECODE_CHUNK = 128;"
 STAGES = "static constexpr int STAGES = CT < FIT ? CT : FIT;"
 THREADS = "constexpr int NT = 256;"
@@ -83,90 +83,34 @@ __device__ __forceinline__ void decode_bar_init(uint64_t* bar) {
 """
 
 
-def _swap(old, new):
-    def edit(text):
-        if text.count(old) != 1:
-            sys.exit(f"decode_variants: the source no longer holds {old!r}")
-        return text.replace(old, new)
-    return edit
-
-
-def _between(start, end, new):
-    def edit(text):
-        if text.count(start) != 1 or text.count(end) != 1:
-            sys.exit(f"decode_variants: the source no longer holds {start!r}"
-                     f" ... {end!r}")
-        a, b = text.index(start), text.index(end)
-        return text[:a] + new + text[b:]
-    return edit
-
-
 # name -> (chunk tokens, {file: [edit]})
 VARIANTS = {
     "chunk 256, 3 stages": (256, {"attn_decode.cuh": [
-        _swap(CHUNK, "constexpr int DECODE_CHUNK = 256;")]}),
+        V.swap(CHUNK, "constexpr int DECODE_CHUNK = 256;")]}),
     "chunk 256, 2 stages": (256, {"attn_decode.cuh": [
-        _swap(CHUNK, "constexpr int DECODE_CHUNK = 256;"),
-        _swap(STAGES, "static constexpr int STAGES = "
+        V.swap(CHUNK, "constexpr int DECODE_CHUNK = 256;"),
+        V.swap(STAGES, "static constexpr int STAGES = "
                       "(CT < FIT ? CT : FIT) < 2 ? (CT < FIT ? CT : FIT) : 2;")]}),
     "chunk 128, 128 threads": (128, {"packed_decode.cu": [
-        _swap(THREADS, "constexpr int NT = 128;")]}),
+        V.swap(THREADS, "constexpr int NT = 128;")]}),
     # PV: 4 head groups of 2 heads, so each V row is read from shared
     # memory 4 times a tile, not 8; the other threads idle in PV
     "chunk 128, PV in 4 head groups": (128, {"attn_decode.cuh": [
-        _swap(GROUPS, "constexpr int NHG = NT / NC < 4 ? NT / NC : 4;"),
-        _swap(COLUMN, "const int cc = tid % NC, hg = tid / NC < NHG ? "
+        V.swap(GROUPS, "constexpr int NHG = NT / NC < 4 ? NT / NC : 4;"),
+        V.swap(COLUMN, "const int cc = tid % NC, hg = tid / NC < NHG ? "
                       "tid / NC : DECODE_HEADS;")]}),
     "chunk 128, cp.async.bulk a row": (128, {"attn_decode.cuh": [
-        _between(*LOADER, BULK_ROWS)]}),
+        V.between(*LOADER, BULK_ROWS)]}),
 }
 # diagnostics, timed but not held to the plain version: every chunk writes
 # its own acc / l, no partials, no counter and no merge (a split member's
 # output is then its last chunk's), to show what the merge costs
 DIAGNOSTICS = {
     "diagnostic: no merge": (128, {"attn_decode.cuh": [
-        _swap(DIRECT, "    if (true) {")]}),
+        V.swap(DIRECT, "    if (true) {")]}),
 }
 SHAPES = {"kernel phase": [2000, 37, 900, 300],
           "serving round": [902, 42, 602, 202]}
-
-
-def _patched(csrc: Path, name: str, edits) -> Path:
-    out = ROOT / "build" / "decode_variants" / name.replace(" ", "_").replace(
-        ",", "")
-    shutil.rmtree(out, ignore_errors=True)
-    shutil.copytree(csrc, out)
-    for fname, fns in edits.items():
-        text = (out / fname).read_text()
-        for edit in fns:
-            text = edit(text)
-        (out / fname).write_text(text)
-    return out
-
-
-def _build(BUILD, dirs):
-    """Compile packed_decode.cu of each source directory in parallel; name
-    -> loaded library."""
-    procs = {}
-    for name, csrc in dirs.items():
-        so = csrc / "libpacked_decode.so"
-        cmd = [BUILD._nvcc(), *BUILD.NVCC_FLAGS, "-I", str(csrc), "-o",
-               str(so), str(csrc / "packed_decode.cu")]
-        procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.STDOUT,
-                                            text=True))
-    libs = {}
-    for name, (so, proc) in procs.items():
-        log, _ = proc.communicate()
-        (so.parent / "packed_decode.log").write_text(log)
-        if proc.returncode != 0:
-            sys.exit(f"decode_variants: nvcc failed for {name}:\n{log}")
-        lib = ctypes.CDLL(str(so))
-        for fn, argtypes in BUILD.SIGNATURES["packed_decode"].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        libs[name] = lib
-    return libs
 
 
 def main():
@@ -182,16 +126,16 @@ def main():
     from repro_torch.kernels.tri_attn import ops as OPS
     from repro_torch.kernels.tri_attn import scan_impl as SC
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
+    card = V.card()
     BUILD.build_all()
     libs = {"tree: chunk 128, 256 threads": BUILD.load("packed_decode")}
     chunks = {"tree: chunk 128, 256 threads": K.DECODE_CHUNK}
     every = {**VARIANTS, **DIAGNOSTICS}
-    dirs = {name: _patched(BUILD.CSRC, name, edits)
+    dirs = {name: V.patched(BUILD.CSRC, "decode_variants", name, edits)
             for name, (_, edits) in every.items()}
-    libs.update(_build(BUILD, dirs))
+    libs.update({name: lib for name, (lib, _) in V.build(BUILD, {
+        name: (csrc, "packed_decode", csrc)
+        for name, csrc in dirs.items()}).items()})
     chunks.update({name: ch for name, (ch, _) in every.items()})
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)

@@ -30,22 +30,22 @@ nvcc; exits 1 without them.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import os
-import shutil
 import statistics
-import subprocess
 import sys
 from pathlib import Path
 
 import numpy as np
 import torch
 
-ROOT = Path(__file__).resolve().parents[1]
+import _variants as V
+
+ROOT = V.ROOT
 ORDERS = ("pack order, heads fastest", "last rows first, heads fastest")
 
 # packed_fwd.cu's owner mapping, and the one the copy gets in its place
+# (its two calls given the table)
 OWNER = """__device__ __forceinline__ int2 block_owner() {
   return tri::prefill_owner(blockIdx.y * gridDim.x + blockIdx.x, gridDim.y);
 }"""
@@ -59,48 +59,6 @@ LAST_ROWS_FIRST = """__device__ __forceinline__ int2 block_owner(const int* tbl,
       if (n[r] > i && left-- == 0) return make_int2(rows[r] + i, flat % heads);
   return make_int2(0, flat % heads);
 }"""
-
-
-def _last_rows_first_csrc(csrc: Path) -> Path:
-    """A copy of csrc whose packed_fwd.cu issues the last rows first."""
-    out = ROOT / "build" / "prefill_variants" / "csrc_last_rows_first"
-    shutil.rmtree(out, ignore_errors=True)
-    shutil.copytree(csrc, out)
-    text = (out / "packed_fwd.cu").read_text()
-    if text.count(OWNER) != 1 or text.count("block_owner()") != 3:
-        sys.exit("prefill_variants: packed_fwd.cu's block_owner is not the "
-                 "one this script replaces")
-    text = text.replace(OWNER, LAST_ROWS_FIRST)
-    (out / "packed_fwd.cu").write_text(
-        text.replace("block_owner()", "block_owner(tbl, R)"))
-    return out
-
-
-def _build(BUILD, variants):
-    """Compile each (name, source, source directory) into its own
-    directory, in parallel; returns name -> loaded library with the
-    source's signatures."""
-    out = ROOT / "build" / "prefill_variants"
-    procs = {}
-    for name, src, csrc in variants:
-        d = out / name
-        d.mkdir(parents=True, exist_ok=True)
-        cmd = [BUILD._nvcc(), *BUILD.NVCC_FLAGS, "-I", str(csrc),
-               "-o", str(d / f"lib{src}.so"), str(csrc / f"{src}.cu")]
-        procs[name] = (src, d, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (src, d, proc) in procs.items():
-        log, _ = proc.communicate()
-        (d / f"{src}.log").write_text(log)
-        if proc.returncode != 0:
-            sys.exit(f"prefill_variants: nvcc failed for {name}:\n{log}")
-        lib = ctypes.CDLL(str(d / f"lib{src}.so"))
-        for fn, argtypes in BUILD.SIGNATURES[src].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        libs[name] = lib
-    return libs
 
 
 def main():
@@ -118,18 +76,23 @@ def main():
     from repro_torch.kernels.tri_attn import kernel as K
     from repro_torch.kernels.tri_attn import ops as OPS
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
+    card = V.card()
     BUILD.build_all()
     default = {src: BUILD.load(src)
                for src in ("packed_fwd", "tri_fwd", "fwd_bb")}
     parent = Path(args.parent).resolve() / "src" / "repro_torch" / "csrc" \
         if args.parent else None
-    built = _build(BUILD, [("last_rows_first", "packed_fwd",
-                            _last_rows_first_csrc(BUILD.CSRC))]
-                   + ([(f"parent_{src}", src, parent)
-                       for src in ("tri_fwd", "fwd_bb")] if parent else []))
+    out = ROOT / "build" / "prefill_variants"
+    jobs = {"last_rows_first": (V.patched(
+        BUILD.CSRC, "prefill_variants", "csrc_last_rows_first",
+        {"packed_fwd.cu": [V.swap(OWNER, LAST_ROWS_FIRST),
+                           V.swap("block_owner()", "block_owner(tbl, R)",
+                                  2)]}),
+        "packed_fwd", out / "last_rows_first")}
+    if parent:
+        jobs.update({f"parent_{src}": (parent, src, out / f"parent_{src}")
+                     for src in ("tri_fwd", "fwd_bb")})
+    built = {name: lib for name, (lib, _) in V.build(BUILD, jobs).items()}
     libs = dict(zip(ORDERS, (default["packed_fwd"],
                              built["last_rows_first"])))
     dev = torch.device("cuda")

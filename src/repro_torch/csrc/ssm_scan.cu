@@ -11,36 +11,39 @@
 //
 // The Pallas grid (B, D / block_d, L / block_l) carries h in scratch from
 // one chunk to the next, which needs its steps in order. Here one block
-// owns one (b, channel block) stream (grid B * ceil(D / SSM_THREADS)) and
-// walks t in order itself, so no two blocks share state: no atomics, no
-// cross-block order. Thread j of the block owns channel
-// d = SSM_THREADS * blk + j and keeps its N state floats and its row of
-// A log2 e in registers. The block stages SSM_CHUNK steps at a time (the
-// block's x and dt rows and the Bt and Ct rows) through a ring of
-// SSM_STAGES stages filled by cp.async, SSM_STAGES - 1 chunks ahead of the
-// one it runs: one barrier a chunk, and no load waits in the steps. A call
-// of one chunk (every decode step: nothing to overlap), or one whose rows
-// are not whole 16-byte pieces (D or N too small or odd for the dtype),
-// fills its stage by plain loads instead; a call takes shared memory for
-// the stages it uses only. Each decay is
-// one ex2.approx.ftz of dt (A log2 e): within 2 ulp of exp(dt A), and 0
-// where that is below 2^-126 (the decay of a step that wipes the state).
-// The block reads its h0 before it writes h_L and touches no other (b, d),
-// so h0 and h_L may be the same buffer (the decode step updates the cache
-// in place). Any L >= 1 (a last chunk may be short) and any D (the
-// threads past D only stage).
+// owns one (b, channel block) stream (grid B * ceil(D / 128)) and walks t
+// in order itself, so no two blocks share state: no atomics, no
+// cross-block order. Thread j of the block owns channel d = 128 * blk + j
+// and keeps its N state floats and its row of A log2 e in registers. The
+// block's rows of h0 and A (and, at the end, of h_L) are each one
+// contiguous run, moved by coalesced loads and stores through shared
+// memory: a thread's N strided accesses took most of a decode step's
+// time. A chunk of SSM_CHUNK steps at a time: the block stages the
+// chunk's Bt and Ct rows in shared memory (every thread reads them, as
+// float4 broadcasts), and each thread loads its channel's x and dt of the
+// chunk into registers (one coalesced row of the block a step), then
+// runs the steps. The block reads its h0 before it writes h_L and touches
+// no other (b, d), so h0 and h_L may be the same buffer (the decode step
+// updates the cache in place). Any L >= 1 (a last chunk may be short)
+// and any D (the threads past D only stage). Each decay exp(dt A) is one
+// ex2.approx.ftz of dt (A log2 e): within 2 ulp of exp(dt A), and 0 where
+// that is below 2^-126 (the decay of a step that wipes the state). The
+// denormal-safe exp2f (the source is built without fast-math) wraps each
+// MUFU.EX2 in range fix-ups that share the issue slots with the element's
+// 4 FP32 instructions.
 //
 // Bound on this card. Each (b, t, d) moves x, dt and y (12 bytes in f32)
 // against N exponentials and ~7 N flops, so at N 16 the call is bound by
 // bytes (3.35 TB/s) and by the exponentials on the SFUs (16 a clock per
-// SM) about equally; chip_smoke.py reckons both. Only B * D threads run
-// (one a channel: 65,536 at the model's prefill, ~15.5 warps an SM), so
-// the ring is what keeps the loads in flight.
+// SM) about equally; chip_smoke.py reckons both. Only B * D / 128 blocks
+// run (512 at the model's prefill, four warps each), so a block's chunk
+// loads are hidden only by the other blocks of its SM; a cp.async ring
+// that staged the next chunks while these ran was measured slower
+// (scripts/scan_variants.py).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <climits>
 #include <type_traits>
 
 #include "packing.cuh"
@@ -48,17 +51,8 @@
 namespace {
 
 constexpr int SSM_THREADS = 128;  // channels a block
-constexpr int SSM_CHUNK = 16;     // steps a ring stage holds
-constexpr int SSM_STAGES = 3;     // ring stages
+constexpr int SSM_CHUNK = 16;     // steps staged at a time
 constexpr float LOG2E = 1.4426950408889634f;
-
-template <typename T, int N>
-struct Ssm {
-  static constexpr int VEC = 16 / sizeof(T);  // elements a cp.async
-  // a stage: x and dt (SSM_CHUNK x SSM_THREADS), Bt and Ct (SSM_CHUNK x N)
-  static constexpr int XS = SSM_CHUNK * SSM_THREADS, BS = SSM_CHUNK * N;
-  static constexpr int STAGE = 2 * XS + 2 * BS;
-};
 
 // 2^x by the SFU's ex2 with subnormal results flushed to 0: within 2 ulp
 // of 2^x, and 0 exactly where 2^x < 2^-126.
@@ -68,96 +62,72 @@ __device__ __forceinline__ float ex2_ftz(float x) {
   return y;
 }
 
-// Four consecutive staged elements as f32 (p 8- or 16-byte aligned).
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(p);
-  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(p + 2);
-  const float2 a = __bfloat1622float2(lo), b = __bfloat1622float2(hi);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-template <typename T, int N, bool VEC>
+template <typename T, int N>
 __global__ void __launch_bounds__(SSM_THREADS)
     ssm_kernel(const T* __restrict__ x, const T* __restrict__ dt,
                const float* __restrict__ A, const T* __restrict__ Bt,
                const T* __restrict__ Ct, const float* h0, T* __restrict__ y,
                float* h_l, int L, int D) {
-  using S = Ssm<T, N>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* ring = reinterpret_cast<T*>(smem);
+  __shared__ __align__(16) float sb[SSM_CHUNK * N];
+  __shared__ __align__(16) float sc[SSM_CHUNK * N];
+  __shared__ __align__(16) float sh[SSM_THREADS * N], sa[SSM_THREADS * N];
   const int nblk = (D + SSM_THREADS - 1) / SSM_THREADS;
-  const int b = blockIdx.x / nblk;
-  const int d0 = (blockIdx.x % nblk) * SSM_THREADS, tid = threadIdx.x;
-  const int d = d0 + tid;
+  const int b = blockIdx.x / nblk, tid = threadIdx.x;
+  const int d0 = (blockIdx.x % nblk) * SSM_THREADS, d = d0 + tid;
+  const int nlive = min(SSM_THREADS, D - d0);  // the block's channels
   const bool live = d < D;
   const size_t row0 = static_cast<size_t>(b) * L;  // row (b, t) = row0 + t
-  const size_t hbase = (static_cast<size_t>(b) * D + d) * N;
-  const int nchunks = (L + SSM_CHUNK - 1) / SSM_CHUNK;
+  const size_t sbase = (static_cast<size_t>(b) * D + d0) * N;
 
-  // Fills the stage of chunk kk (if there is one) and closes a group.
-  auto issue = [&](int kk) {
-    if (kk < nchunks) {
-      const int t0 = kk * SSM_CHUNK, steps = min(SSM_CHUNK, L - t0);
-      T* st = ring + (kk % SSM_STAGES) * S::STAGE;
-      if constexpr (VEC) {
-        constexpr int XP = SSM_THREADS / S::VEC, BP = N / S::VEC;  // pieces a row
-        for (int e = tid; e < 2 * steps * XP; e += SSM_THREADS) {
-          const int a = e / (steps * XP), rem = e % (steps * XP);
-          const int row = rem / XP, dd = (rem % XP) * S::VEC;
-          if (d0 + dd < D)
-            tri::cp_async16(st + a * S::XS + row * SSM_THREADS + dd,
-                             (a == 0 ? x : dt) + (row0 + t0 + row) * D + d0 + dd);
-        }
-        for (int e = tid; e < 2 * steps * BP; e += SSM_THREADS) {
-          const int a = e / (steps * BP), rem = e % (steps * BP);
-          tri::cp_async16(st + 2 * S::XS + a * S::BS + rem * S::VEC,
-                           (a == 0 ? Bt : Ct) + (row0 + t0) * N + rem * S::VEC);
-        }
-      } else {
-        for (int row = 0; row < steps && live; ++row) {
-          const size_t g = (row0 + t0 + row) * D + d;
-          st[row * SSM_THREADS + tid] = x[g];
-          st[S::XS + row * SSM_THREADS + tid] = dt[g];
-        }
-        for (int e = tid; e < steps * N; e += SSM_THREADS) {
-          st[2 * S::XS + e] = Bt[(row0 + t0) * N + e];
-          st[2 * S::XS + S::BS + e] = Ct[(row0 + t0) * N + e];
-        }
-      }
-    }
-    tri::cp_async_commit();
-  };
-#pragma unroll
-  for (int kk = 0; kk < SSM_STAGES - 1; ++kk) issue(kk);
-
+  // The block's rows of h0 and of A are each one run of nlive * N floats:
+  // read coalesced into shared memory, then a thread's N as float4s (N
+  // strided loads a thread were most of a decode step's time). Threads
+  // past D take what is there and store nothing.
+  for (int e = tid; e < nlive * N; e += SSM_THREADS) {
+    sh[e] = h0[sbase + e];
+    sa[e] = A[static_cast<size_t>(d0) * N + e] * LOG2E;
+  }
+  __syncthreads();
   float h[N], a2[N];
 #pragma unroll
-  for (int n = 0; n < N; ++n) {
-    h[n] = live ? h0[hbase + n] : 0.f;
-    a2[n] = live ? A[static_cast<size_t>(d) * N + n] * LOG2E : 0.f;
+  for (int n = 0; n < N; n += 4) {
+    const float4 h4 = *reinterpret_cast<const float4*>(sh + tid * N + n);
+    const float4 a4 = *reinterpret_cast<const float4*>(sa + tid * N + n);
+    h[n] = h4.x, h[n + 1] = h4.y, h[n + 2] = h4.z, h[n + 3] = h4.w;
+    a2[n] = a4.x, a2[n + 1] = a4.y, a2[n + 2] = a4.z, a2[n + 3] = a4.w;
   }
 
-  for (int kk = 0; kk < nchunks; ++kk) {
-    const int t0 = kk * SSM_CHUNK, steps = min(SSM_CHUNK, L - t0);
-    tri::cp_async_wait<SSM_STAGES - 2>();
-    __syncthreads();  // chunk kk landed; every thread is done with kk - 1
-    issue(kk + SSM_STAGES - 1);  // into the stage of chunk kk - 1
-    const T* st = ring + (kk % SSM_STAGES) * S::STAGE;
-    const T* sb = st + 2 * S::XS;
-    const T* sc = sb + S::BS;
+  for (int t0 = 0; t0 < L; t0 += SSM_CHUNK) {
+    const int steps = min(SSM_CHUNK, L - t0);
+    __syncthreads();  // the previous chunk's readers are done
+    for (int e = tid; e < steps * N; e += SSM_THREADS) {
+      const size_t g = (row0 + t0) * N + e;
+      sb[e] = tri::to_f32(Bt[g]);
+      sc[e] = tri::to_f32(Ct[g]);
+    }
+    float xs[SSM_CHUNK], ds[SSM_CHUNK];
+#pragma unroll
+    for (int r = 0; r < SSM_CHUNK; ++r) {
+      xs[r] = 0.f;
+      ds[r] = 0.f;
+      if (live && r < steps) {
+        const size_t g = (row0 + t0 + r) * D + d;
+        xs[r] = tri::to_f32(x[g]);
+        ds[r] = tri::to_f32(dt[g]);
+      }
+    }
+    __syncthreads();
 #pragma unroll
     for (int r = 0; r < SSM_CHUNK; ++r) {
       if (r < steps) {
-        const float dtr = tri::to_f32(st[S::XS + r * SSM_THREADS + tid]);
-        const float u = dtr * tri::to_f32(st[r * SSM_THREADS + tid]);
+        const float dtr = ds[r], u = dtr * xs[r];
+        const float* br = sb + r * N;
+        const float* cr = sc + r * N;
         float y0 = 0.f, y1 = 0.f;
 #pragma unroll
         for (int n = 0; n < N; n += 4) {
-          const float4 b4 = load4(sb + r * N + n);
-          const float4 c4 = load4(sc + r * N + n);
+          const float4 b4 = *reinterpret_cast<const float4*>(br + n);
+          const float4 c4 = *reinterpret_cast<const float4*>(cr + n);
           h[n] = fmaf(ex2_ftz(dtr * a2[n]), h[n], u * b4.x);
           h[n + 1] = fmaf(ex2_ftz(dtr * a2[n + 1]), h[n + 1], u * b4.y);
           h[n + 2] = fmaf(ex2_ftz(dtr * a2[n + 2]), h[n + 2], u * b4.z);
@@ -171,44 +141,33 @@ __global__ void __launch_bounds__(SSM_THREADS)
       }
     }
   }
-  if (live) {
+  // h_L the same way back (sh was last read before the chunks' barriers)
 #pragma unroll
-    for (int n = 0; n < N; ++n) h_l[hbase + n] = h[n];
-  }
+  for (int n = 0; n < N; n += 4)
+    *reinterpret_cast<float4*>(sh + tid * N + n) = make_float4(h[n], h[n + 1], h[n + 2], h[n + 3]);
+  __syncthreads();
+  for (int e = tid; e < nlive * N; e += SSM_THREADS) h_l[sbase + e] = sh[e];
 }
 
 template <typename T>
 int launch(const void* x, const void* dt, const void* A, const void* Bt, const void* Ct,
            const void* h0, void* y, void* h_l, int B, int L, int D, int N,
            cudaStream_t stream) {
-  // the ring only where there is a next chunk to overlap, and where every
-  // row of x, dt (D) and of Bt, Ct (N) is whole 16-byte pieces
-  const int nchunks = (L + SSM_CHUNK - 1) / SSM_CHUNK;
-  const bool vec = nchunks > 1 && tri::aligned16(x, dt, Bt, Ct) &&
-                   (D * sizeof(T)) % 16 == 0 && (N * sizeof(T)) % 16 == 0;
-  auto go = [&](auto n_c, auto vec_c) -> int {
+  auto go = [&](auto n_c) -> int {
     constexpr int NS = decltype(n_c)::value;
-    constexpr bool V = decltype(vec_c)::value;
     const long long blocks = static_cast<long long>(B) * ((D + SSM_THREADS - 1) / SSM_THREADS);
-    if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-    auto kern = ssm_kernel<T, NS, V>;
-    // the stages a call uses: chunk kk takes stage kk % SSM_STAGES
-    const size_t smem = sizeof(T) * Ssm<T, NS>::STAGE * min(SSM_STAGES, nchunks);
-    if (int err = tri::set_smem(kern, smem)) return err;
-    kern<<<static_cast<unsigned>(blocks), SSM_THREADS, smem, stream>>>(
+    if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    ssm_kernel<T, NS><<<static_cast<unsigned>(blocks), SSM_THREADS, 0, stream>>>(
         static_cast<const T*>(x), static_cast<const T*>(dt), static_cast<const float*>(A),
         static_cast<const T*>(Bt), static_cast<const T*>(Ct), static_cast<const float*>(h0),
         static_cast<T*>(y), static_cast<float*>(h_l), L, D);
     return static_cast<int>(cudaGetLastError());
   };
-  auto by_n = [&](auto n_c) -> int {
-    return vec ? go(n_c, std::true_type{}) : go(n_c, std::false_type{});
-  };
   switch (N) {
-    case 4: return by_n(std::integral_constant<int, 4>{});
-    case 8: return by_n(std::integral_constant<int, 8>{});
-    case 16: return by_n(std::integral_constant<int, 16>{});
-    case 32: return by_n(std::integral_constant<int, 32>{});
+    case 4: return go(std::integral_constant<int, 4>{});
+    case 8: return go(std::integral_constant<int, 8>{});
+    case 16: return go(std::integral_constant<int, 16>{});
+    case 32: return go(std::integral_constant<int, 32>{});
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

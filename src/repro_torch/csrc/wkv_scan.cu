@@ -29,15 +29,12 @@
 // the waits cannot deadlock (decoupled look-back). counters[0] is the
 // ticket counter, counters[1 + stream] the stream's published chunks; the
 // block that draws the last ticket and the last chunk of each stream set
-// theirs back to 0, so every counter is 0 between launches. A call of
-// L <= WKV_CHUNK is one chunk: the sequential walk from s0, step by step
-// the same operations as any other call's chunk 0 (one L = 1 call after
-// another gives its bits). Chunk 0 reads s0 before it publishes, and the
-// last chunk writes s_L after all others published, so s0 and s_L may be
-// the same buffer (the decode step updates the cache in place). No
-// atomics touch the data: two runs give the same bits.
+// theirs back to 0, so every counter is 0 between launches. Chunk 0 reads
+// s0 before it publishes, and the last chunk writes s_L after all others
+// published, so s0 and s_L may be the same buffer. No atomics touch the
+// data: two runs give the same bits.
 //
-// Inside the block thread (j, q) = (tid % hd, tid / hd) keeps rows
+// Inside a chunk's block thread (j, q) = (tid % hd, tid / hd) keeps rows
 // q hd/P .. (q+1) hd/P - 1 of column j of S in registers (P = 4 threads a
 // column, or 2 at hd 8). At hd >= 32 a warp holds one row block, so each
 // float4 of r, k, e^{lw} a step is one broadcast to the whole warp (with
@@ -47,6 +44,16 @@
 // are done. The correction reads S_{c-1} staged in shared memory, each
 // thread a column's rows 16 at a time against its steps q + P x. expf,
 // not __expf: built without fast-math like every source here.
+//
+// A call of L <= WKV_CHUNK (every decode step) has nothing to chain and
+// runs wkv_walk_kernel instead: one block a stream stages its L steps in
+// shared memory by plain loads and walks them from s0 (a ring and the
+// chunked kernel's extra barriers only add latency to one step; the walk
+// is the faster at L = 1, scripts/scan_variants.py). There the P threads
+// of a column are adjacent lanes and sum out_t[j] in shuffles, so its
+// bits are those of L one-step calls, not those of a longer call's chunk
+// 0. It reads s0 before it writes s_L: the decode step updates its cache
+// in place.
 //
 // Bound on this card. Each (b, t, h) moves 4 hd inputs and hd outputs
 // against about 4 hd^2 flops, so at hd 64 the call is bound by bytes
@@ -127,18 +134,14 @@ __global__ void __launch_bounds__(Wkv<T, HD>::NT, 1)
 
   // thread (j, q): column j, rows q R .. q R + R - 1 (one q a warp at hd >= 32)
   const int tid = threadIdx.x, j = tid % HD, q = tid / HD, i0 = q * R;
-  int bh = blockIdx.x, c = 0;
-  if (nchunks > 1) {
-    if (tid == 0) {
-      const int t = atomicAdd(counters, 1);
-      if (t == static_cast<int>(gridDim.x) - 1) atomicExch(counters, 0);
-      ticket = t;
-    }
-    __syncthreads();
-    const int nstreams = gridDim.x / nchunks;
-    bh = ticket % nstreams;
-    c = ticket / nstreams;
+  if (tid == 0) {
+    const int t = atomicAdd(counters, 1);
+    if (t == static_cast<int>(gridDim.x) - 1) atomicExch(counters, 0);
+    ticket = t;
   }
+  __syncthreads();
+  const int nstreams = gridDim.x / nchunks;
+  const int bh = ticket % nstreams, c = ticket / nstreams;
   const int b = bh / H, h = bh % H;
   const int t0 = c * WKV_CHUNK, n = min(WKV_CHUNK, L - t0);
   const int nsub = (n + WKV_SUB - 1) / WKV_SUB;
@@ -223,7 +226,7 @@ __global__ void __launch_bounds__(Wkv<T, HD>::NT, 1)
     }
     __syncthreads();  // work and the bonus are written; the stage is free
     issue(kk + WKV_STAGES);
-    if (tid < HD) {
+    if (c > 0 && tid < HD) {  // chunk 0 corrects nothing
 #pragma unroll
       for (int tt = 0; tt < WKV_SUB; ++tt) {
         if (tt < nk) {
@@ -261,11 +264,6 @@ __global__ void __launch_bounds__(Wkv<T, HD>::NT, 1)
   __syncthreads();  // the last steps' partials are written
   reduce(nsub - 1);
 
-  if (nchunks == 1) {  // the lone chunk: s_L is the walk's state
-#pragma unroll
-    for (int m = 0; m < R; ++m) s_l[sbase + static_cast<size_t>(i0 + m) * HD + j] = s[m];
-    return;
-  }
   int* flag = counters + 1 + bh;
   if (c == 0) {  // S_0 is the walk's state
 #pragma unroll
@@ -329,6 +327,77 @@ __global__ void __launch_bounds__(Wkv<T, HD>::NT, 1)
   }
 }
 
+// A call of one chunk (L <= WKV_CHUNK): one block a stream walks its L
+// steps from s0, staged in shared memory (r, k, e^{lw}, v; L x HD floats
+// each); thread (j, q) = (tid / P, tid % P), so a column's P partial sums
+// meet in shuffles.
+template <typename T, int HD>
+__global__ void __launch_bounds__(Wkv<T, HD>::NT)
+    wkv_walk_kernel(const T* __restrict__ r, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ lw,
+                    const float* __restrict__ u, const float* s0, T* __restrict__ out,
+                    float* s_l, int L, int H) {
+  using S = Wkv<T, HD>;
+  constexpr int P = S::P, R = S::R, NT = S::NT;
+  extern __shared__ __align__(16) float wsm[];
+  float* sr = wsm;
+  float* sk = sr + L * HD;
+  float* sw = sk + L * HD;
+  float* sv = sw + L * HD;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int tid = threadIdx.x, j = tid / P, q = tid % P, i0 = q * R;
+  const size_t step = static_cast<size_t>(H) * HD;  // between time steps
+  const size_t base = (static_cast<size_t>(b) * L * H + h) * HD;
+  const size_t sbase = static_cast<size_t>(bh) * HD * HD;
+
+  float s[R], uu[R];
+#pragma unroll
+  for (int m = 0; m < R; ++m) {
+    s[m] = s0[sbase + static_cast<size_t>(i0 + m) * HD + j];
+    uu[m] = u[static_cast<size_t>(h) * HD + i0 + m];
+  }
+#pragma unroll 4
+  for (int e = tid; e < L * HD; e += NT) {
+    const size_t g = base + static_cast<size_t>(e / HD) * step + e % HD;
+    sr[e] = tri::to_f32(r[g]);
+    sk[e] = tri::to_f32(k[g]);
+    sw[e] = expf(tri::to_f32(lw[g]));
+    sv[e] = tri::to_f32(v[g]);
+  }
+  __syncthreads();
+  for (int t = 0; t < L; ++t) {
+    const float* rt = sr + t * HD + i0;
+    const float* kt = sk + t * HD + i0;
+    const float* wt = sw + t * HD + i0;
+    const float vj = sv[t * HD + j];
+    float a0 = 0.f, a1 = 0.f, bonus = 0.f;
+#pragma unroll
+    for (int m = 0; m < R; m += 4) {
+      const float4 r4 = *reinterpret_cast<const float4*>(rt + m);
+      const float4 k4 = *reinterpret_cast<const float4*>(kt + m);
+      const float4 w4 = *reinterpret_cast<const float4*>(wt + m);
+      a0 = fmaf(r4.x, s[m], a0);
+      a1 = fmaf(r4.y, s[m + 1], a1);
+      a0 = fmaf(r4.z, s[m + 2], a0);
+      a1 = fmaf(r4.w, s[m + 3], a1);
+      bonus = fmaf(r4.x * uu[m], k4.x, bonus);
+      bonus = fmaf(r4.y * uu[m + 1], k4.y, bonus);
+      bonus = fmaf(r4.z * uu[m + 2], k4.z, bonus);
+      bonus = fmaf(r4.w * uu[m + 3], k4.w, bonus);
+      s[m] = fmaf(w4.x, s[m], k4.x * vj);
+      s[m + 1] = fmaf(w4.y, s[m + 1], k4.y * vj);
+      s[m + 2] = fmaf(w4.z, s[m + 2], k4.z * vj);
+      s[m + 3] = fmaf(w4.w, s[m + 3], k4.w * vj);
+    }
+    float part = fmaf(bonus, vj, a0 + a1);
+#pragma unroll
+    for (int o = 1; o < P; o <<= 1) part += __shfl_xor_sync(S::MASK, part, o);
+    if (q == 0) out[base + static_cast<size_t>(t) * step + j] = tri::from_f32<T>(part);
+  }
+#pragma unroll
+  for (int m = 0; m < R; ++m) s_l[sbase + static_cast<size_t>(i0 + m) * HD + j] = s[m];
+}
+
 template <typename T>
 int launch(const void* r, const void* k, const void* v, const void* lw, const void* u,
            const void* s0, void* out, void* s_l, void* slot, void* counters, int B, int L,
@@ -338,8 +407,18 @@ int launch(const void* r, const void* k, const void* v, const void* lw, const vo
     using S = Wkv<T, HD>;
     const int nchunks = (L + WKV_CHUNK - 1) / WKV_CHUNK;
     const long long blocks = static_cast<long long>(B) * H * nchunks;
-    if (blocks > INT_MAX || (nchunks > 1 && (slot == nullptr || counters == nullptr)))
-      return static_cast<int>(cudaErrorInvalidValue);
+    if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+    if (nchunks == 1) {
+      const size_t bytes = 4 * sizeof(float) * L * HD;
+      auto walk = wkv_walk_kernel<T, HD>;
+      if (int err = tri::set_smem(walk, bytes)) return err;
+      walk<<<static_cast<unsigned>(blocks), S::NT, bytes, stream>>>(
+          static_cast<const T*>(r), static_cast<const T*>(k), static_cast<const T*>(v),
+          static_cast<const T*>(lw), static_cast<const float*>(u),
+          static_cast<const float*>(s0), static_cast<T*>(out), static_cast<float*>(s_l), L, H);
+      return static_cast<int>(cudaGetLastError());
+    }
+    if (slot == nullptr || counters == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     auto kern = wkv_kernel<T, HD>;
     if (int err = tri::set_smem(kern, S::SMEM)) return err;
     kern<<<static_cast<unsigned>(blocks), S::NT, S::SMEM, stream>>>(

@@ -2,10 +2,11 @@
 
 ``selective_scan`` wraps ``ssm_scan_launch``: one block per (batch,
 channel block) stream walks its time steps in order, one thread a
-channel with that channel's N state floats in registers, the next steps
-staged through a cp.async ring while the current ones run, each decay
-one ex2.approx.ftz (within 2 ulp of exp, 0 below 2^-126; see the
-source); the kernel takes state sizes 4, 8, 16 and 32. On a CUDA tensor
+channel with that channel's N state floats in registers (the block's
+rows of h0, A and h_L moved by coalesced loads and stores through
+shared memory), 16 steps of Bt and Ct staged in shared memory at a time,
+each decay one ex2.approx.ftz (within 2 ulp of exp, 0 below 2^-126; see
+the source); the kernel takes state sizes 4, 8, 16 and 32. On a CUDA tensor
 it launches the kernel through ``obs.launch.instrumented_launch`` or
 raises; only for tensors on the CPU does it run the plain version,
 ``selective_scan_torch`` (the sequential oracle of ref.py, the same

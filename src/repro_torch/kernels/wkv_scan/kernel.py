@@ -7,8 +7,10 @@ chunk walks from a zero state, waits for its predecessor's state S_{c-1},
 publishes S_c = diag(prod e^{lw}) S_{c-1} + its own, and adds
 (r_t * prod_{tau < t} e^{lw_tau}) S_{c-1} to its outputs. The chunked
 sums round otherwise than the sequential walk (the card holds them to
-WKV_REL of the plain version); a call of L <= WKV_CHUNK is one chunk, the
-sequential walk itself. The kernel takes head sizes 8, 16, 32 and 64 and
+WKV_REL of the plain version). A call of L <= WKV_CHUNK (every decode
+step) is one chunk and launches the sequential walk instead, one block a
+stream, bitwise equal to L one-step calls. The kernel takes head sizes
+8, 16, 32 and 64 and
 16-byte aligned r, k, v, lw. On a CUDA tensor it launches the kernel
 through ``obs.launch.instrumented_launch`` or raises; only for tensors
 on the CPU does it run the plain version, ``wkv_torch`` (the sequential

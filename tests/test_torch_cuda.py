@@ -1482,8 +1482,8 @@ def test_ssm_aliased_decode_state_and_chaining(dev):
                                      (4, 2048, 1024, 16)])
 def test_ssm_is_deterministic(dev, b, l, d, n, dtype):
     """Two launches give the same bits at the reference test's shapes, a
-    D whose rows are no whole number of 16-byte pieces (plain-load
-    staging), and a long L (many ring turns)."""
+    D that is no whole number of blocks (threads past D only stage), and
+    a long L (many staged chunks)."""
     from repro_torch.kernels.ssm_scan import kernel as SK
 
     xs, h0 = _ssm_case(dev, b, l, d, n, dtype, seed=2)
