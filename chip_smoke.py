@@ -18,6 +18,24 @@ Phases (any failure exits non-zero; nothing is caught):
      body of attn_decode.cuh, f32 FMAs: no spill, no HGMMA or HMMA); and
      of all 16 of wkv_scan.cu's (the chunked kernel and the one-chunk
      walk, dtype x hd) and 8 of ssm_scan.cu's (no spill);
+  2b. the port's checker on the card: ``repro_torch.analysis.lint`` with
+     every pass on cuda, in a process of its own (its profiler windows
+     would leave this process's launches slower; see
+     scripts/profiler_overhead.py): the envelopes derived for the port's
+     arithmetic, the tensor maps at every seam on the card and the device
+     maps of csrc/packing.cuh through member_map_device; every schedule
+     kind's contract with its tensor index_map on the card; every public
+     op of the 17 kernel sites called once on the kernels (float32 at blk
+     16, bf16 at blk 64), its launches held to declared literals, no plain
+     launch; in a torch.profiler window around each op, the csrc kernels
+     the profiler sees equal to the rise in launches_total; the
+     resilience rules and faulted runs on the kernels. Then
+     ``repro_torch.resilience.smoke`` (3 random plans and
+     the fleet tier, the engines on the kernels at prefill_block 16), then
+     ``repro_torch.obs.validate`` over the metrics documents and traces
+     those runs wrote (under build/checker_artifacts/); prints the
+     {"checker": ...} line of per-pass checks and failures and the
+     phase's seconds;
   3. kernels: each kernel of the serving path at full yi-9b width (H=32,
      Hkv=4, D=128, blk=64, bf16 q/k/v, f32 decode cache) against its
      plain PyTorch version on the card (outputs within atol 4e-3 + rtol
@@ -160,7 +178,7 @@ Phases (any failure exits non-zero; nothing is caught):
      bitwise-equal states; 3 packed steps with the kernels and with the
      plain versions agree, and packed and padded losses agree (rtol
      1e-5).
-The last lines are the card line, the {"kernels": [...]} line and
+The last lines are the {"kernels": [...]} line, the card line and
 {"ok": true, "device": {...}}.
 """
 
@@ -170,6 +188,7 @@ import argparse
 import copy
 import dataclasses
 import json
+import os
 import re
 import shutil
 import statistics
@@ -995,6 +1014,53 @@ def profile_window(fn, count: int, unit: str, label: str, card):
           f"{top or 'no device time in the trace'}; card {card}", flush=True)
 
 
+def checker_phase() -> dict:
+    """The port's checker on the card: every lint pass on cuda, the
+    resilience smoke's engine and fleet tiers on the kernels, and the obs
+    validator over the artifacts they wrote. Fails on any failure."""
+    from repro_torch.obs import validate as VAL
+    from repro_torch.resilience import smoke as SMOKE
+
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    art = root / "build" / "checker_artifacts"
+    shutil.rmtree(art, ignore_errors=True)
+    # the lint opens torch.profiler windows, and a process that has opened
+    # one launches slower after it (scripts/profiler_overhead.py): it runs
+    # in a process of its own, so no later phase's time carries that
+    report = art / "lint_report.json"
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis.lint", "--device",
+         "cuda", "-q", "--json", str(report)], capture_output=True,
+        text=True, env=dict(os.environ, PYTHONPATH=str(root / "src")))
+    rep = json.loads(report.read_text()) if report.exists() else None
+    for r in (rep or {}).get("results", []):
+        if not r["ok"] or r["rule"].startswith("obs.counters."):
+            print(f"checker: {'ok' if r['ok'] else 'FAIL'} {r['rule']}: "
+                  f"{r['detail'][:300]}", flush=True)
+    if run.returncode or rep is None or rep["total_failures"]:
+        _fail(f"checker: the lint on cuda failed (rc {run.returncode}): "
+              f"{run.stdout[-2000:]}{run.stderr[-2000:]}")
+    lint_s = time.perf_counter() - t0
+    smoke = {}
+    for tier, extra in (("engine", ["--plans", "3"]), ("fleet", ["--fleet"])):
+        rc = SMOKE.main(["--device", "cuda", "--artifacts", str(art)]
+                        + extra)
+        if rc:
+            _fail(f"checker: the resilience smoke's {tier} tier failed")
+        smoke[tier] = "ok"
+    files = sorted(str(p) for p in art.glob("metrics_*.json")) + \
+        sorted(str(p) for p in (art / "trace").glob("*.jsonl"))
+    if len(files) < 4 or VAL.main(["-q"] + files):
+        _fail(f"checker: obs.validate refused the smoke's artifacts {files}")
+    out = {"passes": rep["passes"], "checks": rep["total_checks"],
+           "failures": rep["total_failures"], "lint_s": round(lint_s, 2),
+           "smoke": smoke, "validated_files": len(files),
+           "seconds": round(time.perf_counter() - t0, 2)}
+    print(json.dumps({"checker": out}), flush=True)
+    return out
+
+
 def smoke_identity(dev):
     """Smoke-size float32 engines on the card: split and fused with the
     kernels, fused with the plain versions, all emit identical greedy
@@ -1523,17 +1589,10 @@ def _empty_blocks_ms(blocks: int) -> float:
     empty one-warp blocks on a 1-D grid, the dummy kernels' geometry
     without their work, so the floor of a kernel of one block a lambda
     (a yardstick that no path of the port runs)."""
-    from repro_torch.kernels import build as BUILD
+    from repro_torch.kernels.tri_edm import kernel as EK
 
-    lib = BUILD.load("tri_edm")
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def launch():
-        err = lib.empty_blocks_launch(blocks, stream)
-        if err:
-            _fail(f"empty_blocks_launch({blocks}): cudaError {err}")
-
-    return _median_ms(launch, PAPER_REPS, PAPER_WARMUP)
+    return _median_ms(lambda: EK.empty_blocks(blocks, device="cuda"),
+                      PAPER_REPS, PAPER_WARMUP)
 
 
 def paper_phase(dev, K, OPS, SC):
@@ -3169,6 +3228,7 @@ def main():
     tc_build = tensor_core_build(BUILD, K)
     dec_build = decode_build(BUILD)
     scans = scan_build(BUILD)
+    checker_phase()
     ctx, kernels = kernel_phase(dev, K, OPS, SC)
     kernels[1]["ptxas"] = dec_build[("bf16", "f32", 64, 128)]
     kernels.append(fused_kernel_phase(dev, K, OPS, SC, D, ctx))

@@ -11,13 +11,18 @@ k <= j <= i < n, with its inverse and the BB-3D decode and guard). Each
 works on host ints (exact, python ``math.isqrt``) and on int32 torch
 tensors (float32 sqrt or cube root plus overflow-clamped integer probes,
 the same repair as the reference). The CUDA kernels carry the same
-arithmetic as ``__device__`` functions in ``csrc/packing.cuh``. The paper's competitor strategies (UTM, RB, REC
-and the bounding box) and the block counts of ``core/analysis.py`` are
-host integer forms only: no kernel walks them.
+arithmetic as ``__device__`` functions in ``csrc/packing.cuh``. The
+paper's strictly-lower map (``ltm_map_nodiag``) and its competitor
+strategies (UTM, RB) also take tensors, for ``core/schedule.py``'s
+``index_map``; REC, the bounding box and the block counts of
+``core/analysis.py`` are host integer forms only.
 
-The envelope constants are copies of the reference's declared values:
-the torch and device forms are exact for ``lam <= LTM_TRACED_MAX_LAM``
-(2-D) and ``lam <= TET_TRACED_MAX_LAM`` (3-D).
+The envelope constants are DECLARED here and CERTIFIED by
+``analysis/envelope.py``, which derives each one from this module's own
+arithmetic (torch ``sqrt`` / ``pow`` in float32) and the device's
+(``sqrtf`` / ``cbrtf``): the torch and device forms are exact for
+``lam <= LTM_TRACED_MAX_LAM`` (2-D) and ``lam <= TET_TRACED_MAX_LAM``
+(3-D).
 """
 
 from __future__ import annotations
@@ -32,6 +37,8 @@ INT32_MAX = 2**31 - 1
 ISQRT_MAX_R = 46340
 # correction probes in each direction after the float32 sqrt candidate
 ISQRT_PROBES = 1
+# _isqrt_tensor(x) == floor(sqrt(x)) for every 0 <= x <= ISQRT_TRACED_MAX_X
+ISQRT_TRACED_MAX_X = INT32_MAX
 # ltm_map computes 8*lam + 1 in int32, which caps lam here.
 LTM_TRACED_MAX_LAM = (INT32_MAX - 1) // 8  # 268,435,455
 LTM_TRACED_MAX_I = 23169  # row of LTM_TRACED_MAX_LAM
@@ -89,6 +96,17 @@ def ltm_map(lam):
     lam = _as_index(lam)
     i = (isqrt(8 * lam + 1) - 1) // 2
     return i, lam - tri(i)
+
+
+def ltm_map_nodiag(lam):
+    """The paper's eq. (10), the strictly-lower triangle: i =
+    floor((isqrt(8 lam + 1) + 1) / 2), j = lam - tri(i - 1), so j < i."""
+    if _is_host(lam):
+        i = (math.isqrt(8 * int(lam) + 1) + 1) // 2
+        return i, int(lam) - tri(i - 1)
+    lam = _as_index(lam)
+    i = (isqrt(8 * lam + 1) + 1) // 2
+    return i, lam - tri(i - 1)
 
 
 def band_blocks(n: int, w: int) -> int:
@@ -337,10 +355,18 @@ def wasted_blocks_ltm(n: int) -> int:
     return n
 
 
-def utm_map(k: int, n: int):
+def utm_map(k, n: int):
     """UTM (Avril et al.): thread index k -> 0-based (a, b), b > a, in the
     strictly-upper triangle of n x n, by an exact integer sqrt and the
-    two repairs of the original's float form."""
+    two repairs of the original's float form (one each way on tensors)."""
+    if not _is_host(k):
+        k = _as_index(k)
+        s = isqrt(4 * n * n - 4 * n - 8 * k + 1)
+        a = (2 * n + 1 - s) // 2
+        lo = lambda a: ((a - 1) * (2 * n - a)) // 2  # first k of row a
+        a = torch.where(lo(a) > k, a - 1, a)
+        a = torch.where(lo(a + 1) <= k, a + 1, a)
+        return a - 1, k - lo(a) + a
     k = int(k)
     s = math.isqrt(4 * n * n - 4 * n - 8 * k + 1)
     a = int(math.floor((-(2 * n + 1) + s) / -2.0))
@@ -364,19 +390,24 @@ def rb_grid_shape(n: int):
     return ((n + 1) // 2, n + 1)
 
 
-def rb_map(x: int, y: int, n: int):
+def rb_map(x, y, n: int):
     """Folded-rectangle cell (column x in [0, n], row y in [0, H)) ->
     lower-triangle (i, j), H = ceil(n/2): cells with x > y are the
     complete columns j < H, the others the residual triangle folded in."""
     h = (n + 1) // 2
-    return (x - 1, y) if x > y else (h + y, h + x)
+    if _is_host(x):
+        return (x - 1, y) if x > y else (h + y, h + x)
+    below = x > y
+    return torch.where(below, x - 1, h + y), torch.where(below, y, h + x)
 
 
-def rb_valid(x: int, y: int, n: int) -> bool:
+def rb_valid(x, y, n: int):
     """Whether a rectangle cell maps inside the triangle (the odd-n edge
     is filtered at run time)."""
     i, j = rb_map(x, y, n)
-    return 0 <= j <= i < n
+    if _is_host(x):
+        return 0 <= j <= i < n
+    return (j >= 0) & (j <= i) & (i < n)
 
 
 def rec_levels(n: int, m: int) -> int:

@@ -1,22 +1,73 @@
-"""Table-parameterized member maps of a packed (concatenated) schedule.
+"""PackedSchedule: one 1-D grid over the concatenation of simplex
+domains, and its table-parameterized member maps (port of
+``repro/core/packing.py``).
 
-Port of the traced primitives of ``repro/core/packing.py``. A packed
-launch concatenates R members (ltm, band and prefix domains) into one
-1-D grid; every member is normalized into (n, w, p) integers so ONE
-closed form covers all kinds (band family when p == 0, prefix family
-otherwise) and a member is found by a fixed-trip-count binary search
-over the cumulative ``starts`` table. ``starts`` and the parameters may be
-int32 tensors or anything indexable by a tensor.
+A packed launch concatenates R members (ltm, band, prefix and decode-row
+domains) into one 1-D grid of exactly sum_r num_blocks_r steps. Every
+member is normalized into (n, w, p) integers so ONE closed form covers
+all kinds (band family when p == 0, prefix family otherwise), and a
+member is found by a fixed-trip-count binary search over the cumulative
+``starts`` table (``offsets``). ``starts`` and the parameters may be int32
+tensors or anything indexable by a tensor.
 
-The CUDA kernels carry the same functions as ``__device__`` helpers in
-``csrc/packing.cuh``.
+  TriangularSchedule(n)     -> band family, w = n
+  BandSchedule(n, w)        -> band family, w = min(w, n)
+  PrefixSchedule(n, p > 0)  -> prefix family; p = 0 is the band family
+  RowSchedule(n)            -> prefix family, p = n (a member of n lambdas
+                               never leaves the flat head's row 0)
+
+``PackedSchedule.offsets`` / ``row_offsets`` are the tables the attention
+kernels' ``PackedTriSched.table()`` rows 0 and 1 carry. The CUDA kernels
+carry the member maps as ``__device__`` helpers in ``csrc/packing.cuh``.
 """
 
 from __future__ import annotations
 
+import bisect
+import dataclasses
+import functools
+from typing import Tuple
+
 import torch
 
 from repro_torch.core import mapping as M
+from repro_torch.core.schedule import (BandSchedule, BlockSchedule,
+                                       PrefixSchedule, RowSchedule,
+                                       TriangularSchedule)
+
+# Member kinds the one parametric map covers.
+SUPPORTED_MEMBERS = (TriangularSchedule, BandSchedule, PrefixSchedule,
+                     RowSchedule)
+
+
+def _member_params(m: BlockSchedule) -> Tuple[int, int, int]:
+    """A member's (n, w, p): w the band width in tiles (n for full
+    triangles), p the prefix width in tiles (0 selects the band family)."""
+    if isinstance(m, RowSchedule):
+        return m.n, m.n, m.n
+    if isinstance(m, BandSchedule):
+        return m.n, min(m.w, m.n), 0
+    if isinstance(m, PrefixSchedule):
+        return m.n, m.n, min(m.p, m.n)
+    if isinstance(m, TriangularSchedule):
+        if not m.include_diagonal:
+            raise ValueError(
+                "PackedSchedule members must include the diagonal "
+                "(attention tiles always have a causal diagonal)")
+        return m.n, m.n, 0
+    raise TypeError(
+        f"unsupported member schedule {type(m).__name__}; supported: "
+        + ", ".join(t.__name__ for t in SUPPORTED_MEMBERS))
+
+
+def _member_inverse(m: BlockSchedule, i: int, j: int) -> int:
+    """(i, j) -> member-local lambda (host ints)."""
+    n, w, p = _member_params(m)
+    if p:  # prefix family: rows < p are p wide, then the triangular tail
+        return i * p + j if i < p else p * p + M.tri(i) - M.tri(p) + j
+    if i < w - 1:
+        return M.tri(i) + j
+    return M.tri(w - 1) + (i - (w - 1)) * w + (j - (i - (w - 1)))
 
 
 def _maximum(a, b):
@@ -105,3 +156,148 @@ def segment_origin_params(i, w_r, p_r):
                        M.tri(w_r - 1) + (i - (w_r - 1)) * w_r)
     pre = torch.where(i < p_r, i * p_r, p_r * p_r + M.tri(i) - M.tri(p_r))
     return torch.where(p_r > 0, pre, band)
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedSchedule(BlockSchedule):
+    """Rank-2 member schedules concatenated into one 1-D grid. ``n`` is
+    the packed tile-axis size (the summed member n); index_map returns
+    (request, i, j) with (i, j) member-local."""
+
+    members: Tuple[BlockSchedule, ...] = ()
+
+    rank = 3  # (request, i, j)
+
+    def __post_init__(self):
+        if not self.members:
+            raise ValueError("PackedSchedule needs at least one member")
+        for m in self.members:
+            _member_params(m)  # raises on unsupported kinds
+        total_rows = sum(m.n for m in self.members)
+        if self.n != total_rows:
+            raise ValueError(
+                f"n={self.n} must equal the summed member rows {total_rows}")
+
+    @classmethod
+    def from_members(cls, members) -> "PackedSchedule":
+        members = tuple(members)
+        return cls(n=sum(m.n for m in members), members=members)
+
+    @classmethod
+    def decode_round(cls, kv_tiles) -> "PackedSchedule":
+        """One packed decode round: member r is the RowSchedule over live
+        slot r's kv_tiles[r] tiles, sum_r kv_tiles_r steps in all."""
+        return cls.from_members(RowSchedule(n=int(t)) for t in kv_tiles)
+
+    @classmethod
+    def mixed_step(cls, prefill_members, kv_tiles) -> "PackedSchedule":
+        """One fused continuous-batching step: the admitted prompts'
+        (triangular / band / prefix) members first, the live decode slots'
+        row members after, in one grid of sum_r prefill_blocks_r +
+        sum_s kv_tiles_s steps (the "mixed" registry kind)."""
+        prefill_members = tuple(prefill_members)
+        if any(isinstance(m, RowSchedule) for m in prefill_members):
+            raise ValueError(
+                "mixed_step prefill members must be triangular/band/"
+                "prefix (row members are the decode half)")
+        decode = tuple(RowSchedule(n=int(t)) for t in kv_tiles)
+        if not prefill_members and not decode:
+            raise ValueError("mixed_step needs at least one member")
+        return cls.from_members(prefill_members + decode)
+
+    # -- static tables -------------------------------------------------------
+    @property
+    def num_requests(self) -> int:
+        return len(self.members)
+
+    @functools.cached_property
+    def offsets(self) -> Tuple[int, ...]:
+        """Cumulative block offsets, length R + 1: member r owns lambdas
+        [offsets[r], offsets[r + 1])."""
+        offs = [0]
+        for m in self.members:
+            offs.append(offs[-1] + m.num_blocks)
+        return tuple(offs)
+
+    @functools.cached_property
+    def row_offsets(self) -> Tuple[int, ...]:
+        """Cumulative tile-row offsets, length R + 1: member r's row i is
+        packed row row_offsets[r] + i."""
+        offs = [0]
+        for m in self.members:
+            offs.append(offs[-1] + m.n)
+        return tuple(offs)
+
+    def _tables(self, device=None):
+        """(starts, n, w, p) int32 tensors indexed by request."""
+        prm = [_member_params(m) for m in self.members]
+        as_t = lambda v: torch.as_tensor(v, dtype=torch.int32, device=device)
+        return (as_t(self.offsets[:-1]), as_t([q[0] for q in prm]),
+                as_t([q[1] for q in prm]), as_t([q[2] for q in prm]))
+
+    # -- interface -----------------------------------------------------------
+    @property
+    def num_blocks(self) -> int:
+        return self.offsets[-1]
+
+    @property
+    def domain_blocks(self) -> int:
+        return sum(m.domain_blocks for m in self.members)
+
+    def host_request(self, lam: int) -> int:
+        """Largest r with offsets[r] <= lam (host ints)."""
+        return bisect.bisect_right(self.offsets, int(lam)) - 1
+
+    def _locate(self, lam):
+        """(request, member-local i and j, start, w, p) of int32 tensor
+        lambdas; the request by the O(log R) search over ``offsets``."""
+        lam = torch.as_tensor(lam)
+        starts, n_t, w_t, p_t = self._tables(lam.device)
+        r = request_from_starts(lam, starts, self.num_requests).long()
+        i, j = member_map_params(lam - starts[r], n_t[r], w_t[r], p_t[r])
+        return r, i, j, starts[r], w_t[r], p_t[r]
+
+    def index_map(self, lam):
+        """lambda -> (request, i, j), (i, j) member-local."""
+        r, i, j = self._locate(lam)[:3]
+        return r.to(torch.int32), i, j
+
+    def host_map(self, lam: int) -> Tuple[int, int, int]:
+        r = self.host_request(int(lam))
+        i, j = self.members[r].host_map(int(lam) - self.offsets[r])
+        return r, i, j
+
+    def pack_lambda(self, r: int, i: int, j: int) -> int:
+        """(request, i, j) -> packed lambda (the host inverse)."""
+        return self.offsets[r] + _member_inverse(self.members[r], i, j)
+
+    def host_first_col(self, r: int, i: int) -> int:
+        return max(0, i - _member_params(self.members[r])[1] + 1)
+
+    def host_last_col(self, r: int, i: int) -> int:
+        return max(i, _member_params(self.members[r])[2] - 1)
+
+    # -- segments: one row of one member -------------------------------------
+    def seg_start(self, lam):
+        if M._is_host(lam):
+            r, i, j = self.host_map(lam)
+            return j == self.host_first_col(r, i)
+        lam = torch.as_tensor(lam)
+        _, i, _, start, w, p = self._locate(lam)
+        return lam == start + segment_origin_params(i, w, p)
+
+    def seg_end(self, lam):
+        if M._is_host(lam):
+            r, i, j = self.host_map(lam)
+            return j == self.host_last_col(r, i)
+        lam = torch.as_tensor(lam)
+        _, i, _, start, w, p = self._locate(lam)
+        return lam == start + segment_origin_params(i + 1, w, p) - 1
+
+
+def padded_bb_blocks(members) -> int:
+    """Blocks a pad-to-max bounding-box launch issues for the same batch:
+    R * n_max^2."""
+    members = tuple(members)
+    n_max = max(m.n for m in members)
+    return len(members) * n_max * n_max

@@ -220,6 +220,24 @@ def dummy_ltm(n: int, device=DEV.DEFAULT_DEVICE) -> torch.Tensor:
 
 dummy_ltm.launches = 0
 
+
+def empty_blocks(blocks: int, device=DEV.DEFAULT_DEVICE) -> None:
+    """``blocks`` empty one-warp blocks on a 1-D grid (tri_edm.cu's
+    empty_blocks_launch): the dummy kernels' geometry without their work,
+    a yardstick of the card's block dispatch that no path of the port
+    runs. CUDA only; no plain version, no counter."""
+    dev = DEV.resolve(device)
+    _check(dev.type == "cuda" and blocks >= 1,
+           f"empty_blocks: a CUDA device and blocks >= 1, got {dev} and "
+           f"{blocks}")
+    meta = OBS.meta_exact("tri_edm.empty_blocks", "tri_edm", impl="cuda",
+                          kind="yardstick", steps=blocks, block_shape=(1, 1),
+                          bb_bound=None)
+    OBS.instrumented_launch(meta, BUILD.load("tri_edm").empty_blocks_launch,
+                            (), blocks,
+                            torch.cuda.current_stream(dev).cuda_stream)
+
+
 # every kernel wrapper, by the launch name it records
 WRAPPERS = {"tri_edm.ltm": edm_ltm, "tri_edm.bb": edm_bb,
             "tri_edm.dummy_ltm": dummy_ltm}

@@ -13,10 +13,13 @@ the paper's utilization and structural I. A pre-launch hook
 (``set_launch_hook``) runs at the top of ``record_launch``: before every
 kernel launch and every plain version's run, and may raise to abort it
 (the fault-injection surface of ``resilience.faults.install_launch_hook``).
+``capture`` collects every launch recorded inside a block, with its
+operands' dtypes (what ``analysis/launch_lint.py`` reads).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional, Tuple
 
@@ -24,6 +27,7 @@ from repro_torch.obs import metrics as MET
 from repro_torch.obs import sinks as SK
 
 _LAUNCH_HOOK = None
+_CAPTURES: list = []
 
 
 def set_launch_hook(hook):
@@ -144,11 +148,27 @@ def _operand_bytes(operands) -> int:
     return total
 
 
+@contextlib.contextmanager
+def capture():
+    """Collect (meta, operand dtypes) of every launch recorded in the
+    block, in order (nestable)."""
+    got: list = []
+    _CAPTURES.append(got)
+    try:
+        yield got
+    finally:
+        _CAPTURES.remove(got)
+
+
 def record_launch(meta: LaunchMeta, operands=()):
     """Run the pre-launch hook, then emit one launch's counters and trace
     event."""
     if _LAUNCH_HOOK is not None:
         _LAUNCH_HOOK(meta)
+    if _CAPTURES:
+        dtypes = tuple(x.dtype for x in operands if hasattr(x, "dtype"))
+        for got in _CAPTURES:
+            got.append((meta, dtypes))
     labels = {"name": meta.name, "impl": meta.impl}
     MET.counter_inc("launches_total", 1, labels)
     MET.counter_inc("tiles_launched_total",

@@ -2,7 +2,8 @@
 
 Port of the parts of ``repro/obs/metrics.py`` the port emits (pure
 Python, no torch). A ``Registry`` holds instrument values keyed by
-(name, sorted labels). Emissions through ``counter_inc`` /
+(name, sorted labels); ``snapshot`` aggregates them for a metrics
+document. Emissions through ``counter_inc`` /
 ``histogram_observe`` land in the process-global registry and in every
 registry opened with ``scope``. ``RingLog`` is the bounded per-round log
 the engine keeps.
@@ -90,6 +91,37 @@ class Registry:
     def gauge_value(self, name: str, labels: Optional[dict] = None,
                     default=None):
         return self._gauges.get(_key(name, labels), default)
+
+    def histogram_value(self, name: str, labels: Optional[dict] = None):
+        return self._hists.get(_key(name, labels))
+
+    @staticmethod
+    def _fmt(k: Tuple) -> str:
+        if len(k) == 1:
+            return k[0]
+        inner = ",".join(f"{lk}={lv}" for lk, lv in k[1:])
+        return f"{k[0]}{{{inner}}}"
+
+    def snapshot(self) -> dict:
+        """Every instrument, aggregated: the body of a metrics document
+        (``sinks.flush_metrics``; its format in ``obs/schema.py``)."""
+        with self._lock:
+            hists = {}
+            for k, h in self._hists.items():
+                hists[self._fmt(k)] = {
+                    "count": h["count"], "sum": h["sum"],
+                    "min": h["min"], "max": h["max"],
+                    "mean": h["sum"] / max(h["count"], 1),
+                    "buckets": list(self._hist_bounds[k[0]]),
+                    "bucket_counts": list(h["bucket_counts"]),
+                }
+            return {
+                "counters": {self._fmt(k): v
+                             for k, v in sorted(self._counters.items())},
+                "gauges": {self._fmt(k): v
+                           for k, v in sorted(self._gauges.items())},
+                "histograms": hists,
+            }
 
 
 _GLOBAL = Registry("global")

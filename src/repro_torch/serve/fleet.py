@@ -19,12 +19,15 @@ its finished requests into the fleet's terminal set and migrates its
 in-flight (slot order) then queued requests to the least-loaded healthy
 replica's queue head, and (3) parks the victim, emptied
 (``strip_for_restart``, round indices and generator kept), for a
-probation window. Since ``Request.feed`` is prompt + tokens already
-emitted and greedy decoding is deterministic, the peer re-prefills the
-exact pre-fault state with the same kernels: the final token streams
-equal a fault-free single engine's. A circuit breaker stretches the
-window to ``probation_rounds`` after ``breaker_k`` consecutive faulted
-rounds; with no healthy replica left the victim is restored at once.
+probation window; should the victim's own snapshot fail, the fleet
+salvages from the periodic one it takes of each working replica every
+``snapshot_every`` fleet rounds. Since ``Request.feed`` is prompt +
+tokens already emitted and greedy decoding is deterministic, the peer
+re-prefills the exact pre-fault state with the same kernels: the final
+token streams equal a fault-free single engine's. A circuit breaker
+stretches the window to ``probation_rounds`` after ``breaker_k``
+consecutive faulted rounds; with no healthy replica left the victim is
+restored at once.
 
 Every transition is a counted metric (schema.FLEET_COUNTERS /
 FLEET_GAUGES) and a trace event (``failover``, ``engine_quarantine``,
@@ -72,8 +75,9 @@ class Fleet:
     def __init__(self, params, cfg, *, engines: int = 2,
                  engine_kw: Optional[dict] = None, clock=None,
                  fault_plan: Optional[F.FaultPlan] = None,
-                 heartbeat_timeout_s: float = 60.0, breaker_k: int = 3,
-                 probation_rounds: int = 8, max_fleet_tiles: int = 0):
+                 heartbeat_timeout_s: float = 60.0, snapshot_every: int = 4,
+                 breaker_k: int = 3, probation_rounds: int = 8,
+                 max_fleet_tiles: int = 0):
         if engines < 1 or breaker_k < 1 or probation_rounds < 1:
             raise ValueError("a fleet needs engines, breaker_k and "
                              "probation_rounds >= 1")
@@ -93,6 +97,9 @@ class Fleet:
         self.monitor = H.HeartbeatMonitor(range(engines),
                                           timeout_s=heartbeat_timeout_s)
         self.watches = {e: H.RoundWatch() for e in range(engines)}
+        # engine -> its latest periodic snapshot (snapshot_every 0: none)
+        self.snapshot_every = snapshot_every
+        self._snaps: Dict[int, SNAP.EngineSnapshot] = {}
         self.breaker_k = breaker_k
         self.probation_rounds = probation_rounds
         self.max_fleet_tiles = max_fleet_tiles
@@ -223,6 +230,9 @@ class Fleet:
             return
         if working:
             self._consecutive[e] = 0
+            if self.snapshot_every and \
+                    self._round % self.snapshot_every == 0:
+                self._snaps[e] = SNAP.snapshot(eng)
 
     def run(self, max_steps: int = 10_000) -> Dict[int, List[int]]:
         """Drive the fleet until drained and every parked replica is back.
@@ -242,7 +252,12 @@ class Fleet:
         rest to a healthy replica, park the victim for its probation."""
         self._consecutive[e] += 1
         consec = self._consecutive[e]
-        snap = SNAP.snapshot(eng)
+        try:
+            snap = SNAP.snapshot(eng)
+        except Exception:  # noqa: BLE001 — salvage from the periodic one
+            snap = self._snaps.get(e)
+            if snap is None:
+                raise
         window = self.probation_rounds if consec >= self.breaker_k else 1
         self.engines[e] = None
         self._pending_restore[e] = (SNAP.strip_for_restart(snap),

@@ -5,9 +5,10 @@
   arrays to the reference's.
 * No module of src/repro_torch, nor chip_smoke.py, imports jax or the
   JAX package (an AST scan of every import statement).
-* ``import repro_torch`` (and its serving, training, paper-experiment
-  and 3-body modules, and the serving CLI) succeeds in a process where
-  importing jax is impossible.
+* every slice's modules (serving, training, the fused step and fleet,
+  the paper's experiment, the 3-body workload and the serving CLI, the
+  schedule registry and the checker) import in a process where importing
+  jax is impossible, one parametrised case a slice.
 * Every ``extern "C"`` entry point of ``src/repro_torch/csrc/*.cu`` is
   bound in ``kernels/build.py`` with one ctypes type per parameter, of
   the right kind (pointer, int or float): the check nvcc and the card
@@ -127,12 +128,40 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert not bad, bad
 
 
-def test_port_imports_with_jax_blocked():
+# each slice's modules, imported in a process where jax and the JAX
+# package cannot be imported
+SLICES = {
+    "serving": "import repro_torch, repro_torch.serve.engine, "
+               "repro_torch.kernels.tri_attn.ops, repro_torch.models.model",
+    "training": "import repro_torch.train.train_step, repro_torch.train.data, "
+                "repro_torch.train.optimizer, repro_torch.train.checkpoint, "
+                "repro_torch.train.fault_tolerance, repro_torch.launch.train",
+    "fused": "import repro_torch.serve.fleet, "
+             "repro_torch.resilience.snapshot, "
+             "repro_torch.resilience.faults, repro_torch.obs.schema",
+    "paper": "import repro_torch.kernels.tri_edm.ops, "
+             "repro_torch.kernels.tri_edm.kernel, "
+             "repro_torch.kernels.tri_edm.ref, repro_torch.core.analysis; "
+             "from repro_torch.kernels.tri_attn.scan_impl import fwd_bb_torch",
+    "3body": "import repro_torch.kernels.tri_3body.ops, "
+             "repro_torch.kernels.tri_3body.kernel, "
+             "repro_torch.kernels.tri_3body.ref, repro_torch.launch.serve; "
+             "from repro_torch.core.mapping import tet_map",
+    "checker": "import repro_torch.core.schedule, repro_torch.core.packing, "
+               "repro_torch.analysis, repro_torch.analysis.contracts, "
+               "repro_torch.analysis.verifier, repro_torch.analysis.envelope, "
+               "repro_torch.analysis.launch_lint, "
+               "repro_torch.analysis.obs_lint, "
+               "repro_torch.analysis.resilience_lint, "
+               "repro_torch.analysis.lint, repro_torch.obs.timing, "
+               "repro_torch.obs.validate, repro_torch.resilience.smoke",
+}
+
+
+@pytest.mark.parametrize("name", list(SLICES))
+def test_slice_modules_import_with_jax_blocked(name):
     code = ("import sys; sys.modules['jax'] = None; "
-            "sys.modules['repro'] = None; "
-            "import repro_torch, repro_torch.serve.engine, "
-            "repro_torch.kernels.tri_attn.ops, repro_torch.models.model; "
-            "print('ok')")
+            "sys.modules['repro'] = None; " + SLICES[name] + "; print('ok')")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120)
@@ -140,62 +169,14 @@ def test_port_imports_with_jax_blocked():
     assert out.stdout.strip() == "ok"
 
 
-def test_training_modules_import_with_jax_blocked():
-    code = ("import sys; sys.modules['jax'] = None; "
-            "sys.modules['repro'] = None; "
-            "import repro_torch.train.train_step, repro_torch.train.data, "
-            "repro_torch.train.optimizer, repro_torch.train.checkpoint, "
-            "repro_torch.train.fault_tolerance, repro_torch.launch.train; "
-            "print('ok')")
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, env=env, timeout=120)
-    assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "ok"
-
-
-def test_fused_slice_modules_import_with_jax_blocked():
-    code = ("import sys; sys.modules['jax'] = None; "
-            "sys.modules['repro'] = None; "
-            "import repro_torch.serve.fleet, "
-            "repro_torch.resilience.snapshot, "
-            "repro_torch.resilience.faults, repro_torch.obs.schema; "
-            "print('ok')")
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, env=env, timeout=120)
-    assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "ok"
-
-
-def test_paper_modules_import_with_jax_blocked():
-    code = ("import sys; sys.modules['jax'] = None; "
-            "sys.modules['repro'] = None; "
-            "import repro_torch.kernels.tri_edm.ops, "
-            "repro_torch.kernels.tri_edm.kernel, "
-            "repro_torch.kernels.tri_edm.ref, repro_torch.core.analysis; "
-            "from repro_torch.kernels.tri_attn.scan_impl import fwd_bb_torch; "
-            "print('ok')")
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, env=env, timeout=120)
-    assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "ok"
-
-
-def test_3body_slice_modules_import_with_jax_blocked():
-    code = ("import sys; sys.modules['jax'] = None; "
-            "sys.modules['repro'] = None; "
-            "import repro_torch.kernels.tri_3body.ops, "
-            "repro_torch.kernels.tri_3body.kernel, "
-            "repro_torch.kernels.tri_3body.ref, repro_torch.launch.serve; "
-            "from repro_torch.core.mapping import tet_map; "
-            "print('ok')")
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, env=env, timeout=120)
-    assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "ok"
+def test_checker_modules_are_scanned_for_jax_imports():
+    files = {str(f.relative_to(PKG)) for f in PKG.rglob("*.py")}
+    assert {"core/schedule.py", "analysis/contracts.py",
+            "analysis/verifier.py", "analysis/envelope.py",
+            "analysis/launch_lint.py", "analysis/obs_lint.py",
+            "analysis/resilience_lint.py", "analysis/lint.py",
+            "obs/timing.py", "obs/validate.py",
+            "resilience/smoke.py"} <= files
 
 
 def _c_entry_points(src: str):
