@@ -159,6 +159,37 @@ Phases (any failure exits non-zero; nothing is caught):
      prefill and 4 tokens; a smoke-size float32 engine on the kernels
      emitting the plain versions' tokens; the serving CLI with --arch
      jamba-1.5-large-398b;
+  7e. the other architectures of the registry, random seeded bf16
+     weights, depth cut with dataclasses.replace where the card's memory
+     asks: granite-moe-3b-a800m at its published widths and all 32 layers
+     (40 experts top-8, g 3, head dim 64) served at the serving phase's
+     settings (4 slots x 2048, blk 64, f32 cache, 8 skewed prompts of
+     60-1000 tokens), split (32 new each) then fused (staggered budgets):
+     every request done, launches = 32 x the engine's, no plain version,
+     each request's first-token logits within the bf16 policy of a
+     batch-1 prefill through the attention oracle (impl ref) whose MoE
+     layers route every position to the experts the engine routed it to
+     (a top-k router's near-ties break either way under bf16 rounding);
+     a profiler window over 4 decode rounds and the host syncs a round by
+     source file; the same first tokens in float32 at full width
+     (RWKV_F32_TOL); mixtral-8x7b cut to 8 of 32 layers (slots of 4096
+     rolling rows, max_len 4608): a 4500-token prompt past the window
+     (band members in its admission prefill) and three of 60-500 tokens,
+     64 new each, the long request's logits at its first 45 steps against
+     the plain versions' forward over the same 4544 tokens routed as the
+     engine routed them (the bf16 policy; in float32, 47.5 GB,
+     RWKV_F32_TOL); granite-34b cut to 4 of 88 layers (g 48) and
+     llama3-405b to 2 of 126 (g 16): engines of 2 slots, 4 requests of
+     16-256 tokens, 16 new, first-token logits as above; musicgen-large (48 layers, audio
+     frames, seq 2048) and internvl2-1b (24 layers, 256 vision patches,
+     seq 4096) at full width and depth: 2 training steps of batch 1 with
+     2 x layers tri_attn.fwd and layers dq and dk/dv launches a step, then
+     a smoke-size float32 step each on the kernels against the plain
+     versions (rtol 1e-5); nemotron-4-340b at published widths: the engine
+     and the trainer refuse head dim 192 up front, nothing launched; each
+     new arch's smoke config as a float32 engine on the kernels emitting
+     the plain versions' tokens; the serving CLI with --arch
+     granite-moe-3b-a800m; a {"other_archs": ...} line;
   8. training: yi-9b at full width (24 of 48 layers unless --train-layers
      says otherwise: the 48-layer AdamW state does not fit 80 GB) for 3
      steps of seq 4096, batch 1, remat, random seeded bf16 weights,
@@ -2899,6 +2930,660 @@ def jamba_cli_phase():
           "selective-scan kernel", flush=True)
 
 
+# the other architectures (phase 7e): the serving engine's settings of
+# phase 4, depth cuts with dataclasses.replace (never reduced(), which
+# shrinks the widths)
+ARCH_ENGINE = dict(slots=4, max_len=2048, prefill_block=64, decode_block=64,
+                   prefill_impl="cuda", decode_impl="cuda")
+ARCH_PROMPTS = (1000, 90, 500, 250, 700, 60, 380, 150)
+ARCH_BUDGETS = (8, 40, 16, 32, 24, 12, 36, 20)  # fused mode, staggered
+MIXTRAL_CUT = 8  # of 32 layers: 23.7 GB of bf16 weights (all 32: 93.4 GB)
+MIXTRAL_PROMPTS = (4500, 60, 230, 500)  # the first crosses the 4096 window
+MIXTRAL_NEW = 64
+MIXTRAL_MAX_LEN = 4608  # slots of min(4096, 4608) rolling rows
+MIXTRAL_REF = 4544  # tokens of the plain reference forward (71 x 64)
+# a top-k router breaks a near-tie of its logits either way under bf16
+# rounding, and a token sent to another expert moves its logits by O(1),
+# so each reference run below routes every position of a request to the
+# experts the engine routed it to (_Routing's replay) and is held to the
+# tolerance at every token
+WIDE_CUTS = {"granite-34b": 4, "llama3-405b": 2}  # of 88 and 126 layers
+WIDE_ENGINE = dict(slots=2, requests=4, lens=(16, 256), max_new=16)
+FRONTEND_TRAIN = {"musicgen-large": 2048, "internvl2-1b": 4096}  # seq
+
+
+class _Routing:
+    """The experts models/moe.route picks, one (T, k) tensor (sorted) a
+    call, while the recorder is open. Given ``replay`` (one (T, k) tensor
+    a call, in layer order), each call's tokens go to those experts
+    instead, weighted by this run's own router (a softmax over their
+    logits); ``moved`` counts the token-layers whose own top-k differs."""
+
+    def __init__(self, replay=None):
+        self.replay, self.calls, self.moved = replay, [], 0
+
+    def __enter__(self):
+        from repro_torch.models import moe as MOE
+
+        self.MOE, self.orig = MOE, MOE.route
+
+        def route(params, xf, cfg, *, full_capacity=False):
+            out = self.orig(params, xf, cfg, full_capacity=full_capacity)
+            picked = out[1].sort(dim=-1).values
+            if self.replay is not None:
+                want = self.replay[len(self.calls)]
+                if want.shape != picked.shape or not bool(out[2].all()):
+                    _fail(f"route replay: {tuple(want.shape)} experts for "
+                          f"{tuple(picked.shape)} slots, all kept "
+                          f"{bool(out[2].all())}")
+                self.moved += int((want != picked).any(dim=-1).sum())
+                logits = (xf.float() @ params["router"]).gather(-1, want)
+                out = (torch.softmax(logits, dim=-1), want) + out[2:]
+                picked = want
+            self.calls.append(picked)
+            return out
+
+        MOE.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.MOE.route = self.orig
+        if exc[0] is None and self.replay is not None and \
+                len(self.calls) != len(self.replay):
+            _fail(f"route replay: {len(self.replay)} layers recorded, "
+                  f"{len(self.calls)} routed")
+
+
+def _probe_engine(Engine, *args, **kw):
+    """An Engine that records, while ``record`` is set, each request's
+    logits at every token it samples (``logits[uid, step]``) and the
+    experts each MoE layer routed every position of it to
+    (``experts(uid, n)``), over packed admits, decode rounds and fused
+    rounds."""
+    import collections
+
+    from repro_torch.serve import decode as D
+
+    class Probe(Engine):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.record, self.logits = True, {}
+            self.routed = collections.defaultdict(list)
+            self._admits = []
+
+        def _routes(self, req, pos0, calls, rows):
+            if calls:
+                self.routed[req.uid].append(
+                    (pos0, torch.stack([c[rows] for c in calls])))
+
+        def _decoded(self, live, logits, calls):
+            pos = self.pos.clone()
+            for s in live:
+                req = self.slot_req[s]
+                self.logits[req.uid, len(req.out)] = logits[s].float().clone()
+                self._routes(req, pos[s], calls, slice(s, s + 1))
+
+        def _take_admits(self):
+            pairs = super()._take_admits()
+            self._admits = [req for _, req in pairs]
+            return pairs
+
+        def _admit_packed(self, pairs, rnd):
+            if not self.record:
+                return super()._admit_packed(pairs, rnd)
+            with _Routing() as r:
+                super()._admit_packed(pairs, rnd)
+            starts = D._pack_prompts([req.feed for _, req in pairs],
+                                     self.prefill_block)[2]
+            for (_, req), st in zip(pairs, starts):
+                self._routes(req, 0, r.calls, slice(st, st + len(req.feed)))
+
+        def _decode_round(self, live, kv_lens, rnd):
+            if not self.record:
+                return super()._decode_round(live, kv_lens, rnd)
+            with _Routing() as r:
+                logits, cache = super()._decode_round(live, kv_lens, rnd)
+            self._decoded(live, logits[:, 0], r.calls)
+            return logits, cache
+
+        def step_fused(self):
+            orig = D.fused_step
+
+            def fused_step(params, cfg, cache, prompts, tokens, pos, kv_lens,
+                           slots, **k):
+                with _Routing() as r:
+                    out = orig(params, cfg, cache, prompts, tokens, pos,
+                               kv_lens, slots, **k)
+                # each MoE layer routes the pack, then the decode rows
+                for req, row, st in zip(self._admits, out[0], out[5]):
+                    self.logits[req.uid, len(req.out)] = row.float().clone()
+                    self._routes(req, 0, r.calls[0::2],
+                                 slice(st, st + len(req.feed)))
+                self._decoded(slots, out[1], r.calls[1::2])
+                return out
+
+            if self.record:
+                D.fused_step = fused_step
+            try:
+                super().step_fused()
+            finally:
+                D.fused_step = orig
+
+        def experts(self, uid, n):
+            """(MoE layers, n, k): the experts of request uid's positions
+            [0, n), each as last routed (a decode round reroutes the last
+            prompt token its admit routed); None for a dense arch."""
+            chunks = self.routed[uid]
+            if not chunks:
+                return None
+            e = chunks[0][1]
+            out = torch.full((e.shape[0], n, e.shape[2]), -1,
+                             dtype=e.dtype, device=e.device)
+            for pos0, e in chunks:
+                pos0 = int(pos0)
+                m = min(e.shape[1], n - pos0)
+                if m > 0:
+                    out[:, pos0:pos0 + m] = e[:, :m]
+            if bool((out < 0).any()):
+                _fail(f"request {uid}: positions of [0, {n}) never routed")
+            return out
+
+    return Probe(*args, **kw)
+
+
+def _host_syncs(fn) -> dict:
+    """The synchronizing CUDA calls ``fn()`` makes, counted by the source
+    file that made each (torch.cuda.set_sync_debug_mode)."""
+    import collections
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return dict(collections.Counter(
+        Path(w.filename).name for w in rec
+        if "synchroniz" in str(w.message)))
+
+
+def _arch_params(cfg, dev, label, card):
+    from repro_torch.models import model as MD
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = MD.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+    counts = cfg.param_counts()
+    print(f"{label}: {cfg.n_layers} layers, d_model {cfg.d_model}, H "
+          f"{cfg.n_heads} over Hkv {cfg.n_kv_heads} (g "
+          f"{cfg.n_heads // cfg.n_kv_heads}), head dim {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff} ({cfg.mlp_activation}), experts {cfg.n_experts} top-"
+          f"{cfg.experts_per_token}, window {cfg.sliding_window}, vocab "
+          f"{cfg.vocab_size}: {gb:.2f} GB of bf16 weights "
+          f"({counts['total'] / 1e9:.3f} B parameters, "
+          f"{counts['active'] / 1e9:.3f} B active a token) in "
+          f"{time.perf_counter() - t0:.1f} s; card {card}", flush=True)
+    return params
+
+
+def _first_token_check(label, eng, params, cfg, prompts, tol=None):
+    """Each request's first-token logits (``eng`` a _probe_engine) against
+    a batch-1 prefill of its prompt on the same weights, its attention the
+    masked full-matrix oracle (impl "ref", plain PyTorch: the plain tile
+    walk halves its tile until it divides a ragged prompt, to 2 tokens
+    and minutes a request), its MoE layers routing every position to the
+    experts the engine routed it to, within ``tol`` (default the bf16
+    policy). Returns (largest error, token-layers the prefill's own router
+    would have sent elsewhere, token-layers routed)."""
+    from repro_torch.train import train_step as TS
+
+    prefill = TS.make_prefill_step(cfg, attn_impl="ref",
+                                   cache_dtype=torch.float32)
+    errs, moved, routed = [], 0, 0
+    for uid, p in enumerate(prompts):
+        experts = eng.experts(uid, len(p))
+        with _Routing(experts) as r:
+            want, _ = prefill(params, {"tokens": torch.as_tensor(
+                np.asarray(p, np.int64)[None],
+                device=params["embed"].device)})
+        moved += r.moved
+        routed += 0 if experts is None else experts.shape[0] * len(p)
+        errs.append(_close(f"{label}: request {uid}'s first-token logits "
+                           "vs a batch-1 prefill", eng.logits[uid, 0][None],
+                           want, tol or _logit_tol(want)))
+    return max(errs), moved, routed
+
+
+def _served_line(label, st, results, prompt_lens, wall, card, extra=""):
+    new_tokens = sum(len(v) for v in results.values())
+    print(f"{label}: {len(results)} requests, {sum(prompt_lens)} prompt + "
+          f"{new_tokens} generated tokens in {wall:.3f} s "
+          f"({new_tokens / wall:.1f} generated tokens/s), admit rounds "
+          f"{st['admit_rounds']}, decode rounds {st['decode_rounds']}, fused "
+          f"rounds {st['fused_rounds']}{extra}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; card {card}",
+          flush=True)
+
+
+def _f32_engine(cfg, dev, prompts, budgets, max_len):
+    """Float32 weights from the same seed (the draws before their bf16
+    rounding) and a split probe engine on the kernels serving
+    ``prompts``; returns (cfg, params, engine, results)."""
+    from repro_torch.models import model as MD
+    from repro_torch.serve.engine import Engine
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = MD.init_params(cfg32, seed=0, device=dev)
+    eng = _probe_engine(Engine, params, cfg32, device=dev,
+                        **dict(ARCH_ENGINE, max_len=max_len))
+    results, _ = _serve(eng, prompts, budgets)
+    _check_served(f"{cfg.name} float32", eng, results, range(len(prompts)),
+                  budgets, cfg32)
+    return cfg32, params, eng, results
+
+
+def granite_moe_phase(dev, card, K):
+    """granite-moe-3b-a800m at its published widths and all 32 layers:
+    split then fused serving on the kernels (launches = 32 x the engine's,
+    no plain version, first-token logits against a batch-1 prefill through
+    the attention oracle routed as the engine routed), a profiler window
+    over decode rounds and the host syncs a round; the same prompts' first
+    tokens in float32 at full width."""
+    from repro_torch.configs import registry as REG
+    from repro_torch.obs import metrics as MET
+    from repro_torch.serve.engine import Engine
+
+    cfg = REG.get_config("granite-moe-3b-a800m")
+    params = _arch_params(cfg, dev, "granite-moe", card)
+    n_l = cfg.n_layers
+    rng = np.random.default_rng(26)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32)
+               for n in ARCH_PROMPTS]
+    errs = {}
+    for mode, budgets in (("split", [32] * len(prompts)),
+                          ("fused", list(ARCH_BUDGETS))):
+        eng = _probe_engine(Engine, params, cfg, step_mode=mode, device=dev,
+                            **ARCH_ENGINE)
+        reg = MET.Registry(f"granite_moe_{mode}")
+        _reset_launches(K)
+        with MET.scope(reg):
+            results, wall = _serve(eng, prompts, budgets)
+        st = _check_served(f"granite-moe {mode}", eng, results,
+                           range(len(prompts)), budgets, cfg)
+        want = {"tri_attn.packed_decode_fwd":
+                n_l * st["decode_packed_launches"]}
+        if mode == "split":
+            want["tri_attn.packed_fwd"] = n_l * st["prefill_launches"]
+        else:
+            want["tri_attn.fused_step_fwd"] = n_l * st["fused_launches"]
+            mixed = st["decode_rounds"] - st["decode_packed_launches"]
+            if st["fused_fallbacks"] or mixed < 2:
+                _fail(f"granite-moe fused: fallbacks "
+                      f"{st['fused_fallbacks']}, mixed rounds {mixed}")
+        if not all(want.values()):
+            _fail(f"granite-moe {mode}: a kernel of the path never ran: "
+                  f"{want}")
+        launches = _check_launches(f"granite-moe {mode}", K, reg, want)
+        err, moved, routed = _first_token_check(
+            f"granite-moe {mode}", eng, params, cfg, prompts)
+        errs[mode] = err
+        _served_line(f"granite-moe {mode}", st, results, ARCH_PROMPTS, wall,
+                     card, f"; launches {launches} (= {n_l} layers x the "
+                     f"engine's); first-token logits of all {len(prompts)} "
+                     f"requests vs batch-1 prefills through the oracle "
+                     f"attention routed as the engine routed: max abs err "
+                     f"{err:.4g} (bf16 policy); their own router would have "
+                     f"sent {moved} of {routed} token-layers elsewhere")
+        if mode == "split":
+            eng.record = False
+            for uid, n in enumerate((900, 40, 600, 200)):
+                eng.submit(rng.integers(1, cfg.vocab_size, size=n),
+                           max_new=10, uid=1000 + uid)
+            eng.round()  # admit + first decode round, outside the window
+            profile_rounds(eng, 4, "granite-moe packed decode rounds (4 "
+                           "live slots)", card)
+            syncs = _host_syncs(lambda: [eng.round() for _ in range(2)])
+            print(f"granite-moe host syncs a decode round, by source file: "
+                  f"{ {f: n / 2 for f, n in syncs.items()} } ({n_l} MoE "
+                  f"layers); card {card}", flush=True)
+            eng.run()
+        del eng
+    del params
+    torch.cuda.empty_cache()
+    # float32 at full width: every request's first token at RWKV_F32_TOL
+    cfg32, params, eng, _ = _f32_engine(
+        cfg, dev, prompts, [1] * len(prompts), ARCH_ENGINE["max_len"])
+    err32, moved, routed = _first_token_check(
+        "granite-moe float32", eng, params, cfg32, prompts, RWKV_F32_TOL)
+    del eng
+    print(f"granite-moe float32 at full width: first tokens on the kernels "
+          f"vs batch-1 prefills through the oracle attention routed as the "
+          f"engine routed, all {len(prompts)} requests: max abs err "
+          f"{err32:.4g} (tol {RWKV_F32_TOL}); their own router would have "
+          f"sent {moved} of {routed} token-layers elsewhere; card {card}",
+          flush=True)
+    errs["float32"] = err32
+    del params
+    torch.cuda.empty_cache()
+    return errs
+
+
+def mixtral_phase(dev, card, K):
+    """mixtral-8x7b at its published widths cut to MIXTRAL_CUT layers:
+    slots of 4096 rolling rows, a prompt of 4500 tokens past the window
+    (band members in its admission prefill) whose 64 decode steps wrap
+    its slot; its logits at the first 45 steps against the plain
+    versions' forward over the same 4544 tokens (band attention of window
+    4096), routed as the engine routed them: in bf16 and in float32 (the
+    same seed's weights, 47.5 GB)."""
+    from repro_torch.configs import mixtral_8x7b
+    from repro_torch.models import model as MD
+    from repro_torch.obs import metrics as MET
+    from repro_torch.serve.engine import Engine
+
+    cfg = dataclasses.replace(mixtral_8x7b.CONFIG, n_layers=MIXTRAL_CUT)
+    params = _arch_params(cfg, dev, f"mixtral (cut to {MIXTRAL_CUT} of "
+                          f"{mixtral_8x7b.CONFIG.n_layers} layers)", card)
+    rng = np.random.default_rng(27)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32)
+               for n in MIXTRAL_PROMPTS]
+    n_ref = MIXTRAL_REF - len(prompts[0]) + 1  # steps the reference covers
+
+    def window_check(label, eng, params, cfg, results, tol_fn):
+        """The long request's logits vs the plain versions' forward;
+        returns (largest error, token-layers its own router would have
+        sent elsewhere)."""
+        toks = np.concatenate([prompts[0], np.asarray(
+            results[0][:n_ref - 1], np.int32)])
+        with torch.no_grad(), _Routing(eng.experts(0, MIXTRAL_REF)) as r:
+            hidden, _, _ = MD.forward(params, cfg, {"tokens": torch.as_tensor(
+                toks[None].astype(np.int64), device=dev)},
+                attn_impl="torch", block=64, full_capacity=True)
+            want = MD.logits_from_hidden(params, cfg,
+                                         hidden[0, len(prompts[0]) - 1:])
+        errs = [_close(f"{label}: the long request's logits at step {i} vs "
+                       "the plain versions' forward", eng.logits[0, i],
+                       want[i], tol_fn(want[i])) for i in range(n_ref)]
+        return max(errs), r.moved
+
+    budgets = [MIXTRAL_NEW] * len(prompts)
+    eng = _probe_engine(Engine, params, cfg, device=dev, **dict(
+        ARCH_ENGINE, max_len=MIXTRAL_MAX_LEN))
+    if eng.s_cache != cfg.sliding_window or not eng._rolling:
+        _fail(f"mixtral: slots of {eng.s_cache} rows, rolling "
+              f"{eng._rolling}")
+    reg = MET.Registry("mixtral")
+    _reset_launches(K)
+    with MET.scope(reg):
+        results, wall = _serve(eng, prompts, budgets)
+    st = _check_served("mixtral", eng, results, range(len(prompts)), budgets,
+                       cfg)
+    launches = _check_launches("mixtral", K, reg, {
+        "tri_attn.packed_fwd": cfg.n_layers * st["prefill_launches"],
+        "tri_attn.packed_decode_fwd": cfg.n_layers *
+        st["decode_packed_launches"]})
+    err, moved = window_check("mixtral", eng, params, cfg, results,
+                              _logit_tol)
+    s_cache = eng.s_cache
+    del eng
+    routed = cfg.n_layers * MIXTRAL_REF
+    _served_line("mixtral", st, results, MIXTRAL_PROMPTS, wall, card,
+                 f"; launches {launches} (= {cfg.n_layers} layers x the "
+                 f"engine's); the {MIXTRAL_PROMPTS[0]}-token request: band "
+                 f"members past the {cfg.sliding_window}-token window in its "
+                 f"admission prefill, {MIXTRAL_NEW} decode steps at "
+                 f"positions {MIXTRAL_PROMPTS[0] - 1}-"
+                 f"{MIXTRAL_PROMPTS[0] + MIXTRAL_NEW - 2} through slots of "
+                 f"{s_cache} rolling rows; its logits at all {n_ref} steps "
+                 f"vs the plain versions' forward over {MIXTRAL_REF} tokens "
+                 f"(impl torch, band) routed as the engine routed: max abs "
+                 f"err {err:.4g} (bf16 policy); its own router would have "
+                 f"sent {moved} of {routed} token-layers elsewhere")
+    del params
+    torch.cuda.empty_cache()
+    # float32 (the same seed's draws, unrounded): every step
+    cfg32, params, eng, results = _f32_engine(
+        cfg, dev, prompts, [n_ref] * len(prompts), MIXTRAL_MAX_LEN)
+    err32, moved32 = window_check("mixtral float32", eng, params, cfg32,
+                                  results, lambda want: RWKV_F32_TOL)
+    del eng
+    print(f"mixtral float32 ({cfg.n_layers} layers, "
+          f"{sum(x.numel() for x in _leaves(params)) * 4 / 1e9:.1f} GB): "
+          f"the long request's logits at all {n_ref} steps vs the plain "
+          f"versions' forward routed as the engine routed, max abs err "
+          f"{err32:.4g} (tol {RWKV_F32_TOL}); its own router would have "
+          f"sent {moved32} of {routed} token-layers elsewhere; card {card}",
+          flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return {"bfloat16": err, "float32": err32}
+
+
+def wide_gqa_phase(dev, card, K):
+    """granite-34b (g 48: six decode head slices a kv head; gelu) and
+    llama3-405b (g 16) at published widths, depth cut: an engine of 2
+    slots, 4 requests, every request done on the kernels, first-token
+    logits within the bf16 policy of a batch-1 prefill through the
+    attention oracle."""
+    from repro_torch.configs import registry as REG
+    from repro_torch.obs import metrics as MET
+    from repro_torch.serve.engine import Engine
+
+    errs = {}
+    for arch, cut in WIDE_CUTS.items():
+        full = REG.get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=cut)
+        params = _arch_params(cfg, dev, f"{arch} (cut to {cut} of "
+                              f"{full.n_layers} layers)", card)
+        ek = WIDE_ENGINE
+        rng = np.random.default_rng(28)
+        prompts = [p.astype(np.int32) for p in _rwkv_prompts(
+            rng, ek["requests"], ek["lens"], cfg.vocab_size)]
+        budgets = [ek["max_new"]] * len(prompts)
+        eng = _probe_engine(Engine, params, cfg, device=dev, **dict(
+            ARCH_ENGINE, slots=ek["slots"], max_len=512))
+        reg = MET.Registry(arch)
+        _reset_launches(K)
+        with MET.scope(reg):
+            results, wall = _serve(eng, prompts, budgets)
+        st = _check_served(arch, eng, results, range(len(prompts)), budgets,
+                           cfg)
+        launches = _check_launches(arch, K, reg, {
+            "tri_attn.packed_fwd": cut * st["prefill_launches"],
+            "tri_attn.packed_decode_fwd": cut *
+            st["decode_packed_launches"]})
+        errs[arch], _, _ = _first_token_check(arch, eng, params, cfg,
+                                              prompts)
+        _served_line(arch, st, results, [len(p) for p in prompts], wall,
+                     card, f"; launches {launches}; first-token logits of "
+                     f"all {len(prompts)} requests vs batch-1 prefills "
+                     f"through the oracle attention: max abs err "
+                     f"{errs[arch]:.4g} (bf16 policy)")
+        del eng, params
+        torch.cuda.empty_cache()
+    return errs
+
+
+def frontend_training_phase(dev, card, K):
+    """musicgen-large (audio frames, MHA, gelu) and internvl2-1b (a vision
+    prefix of 256 patches, g 7) at published widths and depth: 2 training
+    steps of batch 1 on SyntheticLM's frontend batches through tri_fwd
+    (the prefix schedule for internvl2) and tri_bwd, launches asserted;
+    then one smoke-size float32 step on the kernels against the plain
+    versions."""
+    from repro_torch.configs import registry as REG
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.obs import metrics as MET
+    from repro_torch.train import data as DATA
+    from repro_torch.train import fault_tolerance as FT
+    from repro_torch.train import optimizer as OPT
+    from repro_torch.train import train_step as TS
+
+    steps = 2
+    for arch, seq in FRONTEND_TRAIN.items():
+        cfg = REG.get_config(arch)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        opt = OPT.OptConfig()
+        state = TS.init_state(cfg, opt, seed=0, device=dev)
+        ds = DATA.SyntheticLM(cfg, ShapeConfig(arch, seq, 1, "train"),
+                              seed=0, device=dev)
+        step = TS.make_train_step(cfg, opt, attn_impl="cuda", remat=True,
+                                  block=64)
+        times = []
+        reg = MET.Registry(arch)
+        _reset_launches(K)
+        with MET.scope(reg):
+            state, log = FT.run_training(state, _timed(step, times),
+                                         ds.batch, steps)
+        n_l = cfg.n_layers
+        launches = _check_launches(f"{arch} train", K, reg, {
+            "tri_attn.fwd": 2 * n_l * steps, "tri_attn.bwd_dq": n_l * steps,
+            "tri_attn.bwd_dkv": n_l * steps})
+        losses = [m["loss"] for m in log]
+        if len(losses) != steps or not all(np.isfinite(losses)) or \
+                min(losses) <= 0:
+            _fail(f"{arch} train: losses {losses}")
+        shapes = ", ".join(f"{k} {tuple(v.shape)}"
+                           for k, v in ds.batch(0).items())
+        prefix = cfg.n_patches if cfg.frontend == "vision_patches" else 0
+        print(f"{arch} train: {n_l} layers, {steps} steps of batch 1, seq "
+              f"{seq} ({shapes}; prefix {prefix}), "
+              f"losses {losses}, step times {times} s, "
+              f"{seq / times[-1]:.1f} tokens/s (the second); peak memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+              f"{launches}, no plain version; card {card}", flush=True)
+        del state, step
+        torch.cuda.empty_cache()
+        scfg = REG.smoke_config(arch)
+        sopt = OPT.OptConfig(lr=3e-3, warmup_steps=1, total_steps=10)
+        base = TS.init_state(scfg, sopt, seed=0, device=dev)
+        sds = DATA.SyntheticLM(scfg, ShapeConfig("t", 64, 2, "train"),
+                               seed=0, device=dev)
+        mets = {impl: FT.run_training(copy.deepcopy(base), TS.make_train_step(
+            scfg, sopt, attn_impl=impl, block=16), sds.batch, 2)[1]
+            for impl in ("cuda", "torch")}
+        for key in ("loss", "grad_norm"):
+            a = [m[key] for m in mets["cuda"]]
+            b = [m[key] for m in mets["torch"]]
+            if not np.allclose(a, b, rtol=1e-5, atol=0):
+                _fail(f"{arch} smoke training: kernel {key} {a} != plain {b}")
+        print(f"{arch} smoke training: float32, 2 steps on the kernels "
+              f"{[m['loss'] for m in mets['cuda']]} vs the plain versions "
+              f"{[m['loss'] for m in mets['torch']]} (rtol 1e-5)", flush=True)
+
+
+def nemotron_phase(dev, card, K):
+    """nemotron-4-340b at published widths: the engine and the trainer
+    refuse head dim 192 on the kernels up front, and nothing launches."""
+    from repro_torch.configs import registry as REG
+    from repro_torch.serve.engine import Engine
+    from repro_torch.train import optimizer as OPT
+    from repro_torch.train import train_step as TS
+
+    cfg = REG.get_config("nemotron-4-340b")
+    _reset_launches(K)
+    msgs = []
+    for label, make in (
+            ("engine", lambda: Engine(None, cfg, slots=2, max_len=64,
+                                      device=dev)),
+            ("trainer", lambda: TS.make_train_step(cfg, OPT.OptConfig(),
+                                                   attn_impl="cuda"))):
+        try:
+            make()
+        except NotImplementedError as e:
+            msgs.append(str(e))
+            if "head dim 192" not in str(e):
+                _fail(f"nemotron {label}: refusal does not name head dim "
+                      f"192: {e}")
+        else:
+            _fail(f"nemotron {label}: head dim 192 was not refused")
+    torch.cuda.synchronize()
+    if any(_launches(K).values()):
+        _fail(f"nemotron: the refusal launched {_launches(K)}")
+    print(f"nemotron-4-340b: head dim {cfg.head_dim} refused up front by "
+          f"the engine and the trainer, no launch: {msgs[0]!r}; card {card}",
+          flush=True)
+
+
+def smoke_archs_phase(dev):
+    """Each new arch's smoke config in float32: an engine on the kernels
+    emits the plain versions' tokens on the card (nemotron's relu2 and
+    granite-moe's experts included)."""
+    from repro_torch.configs import registry as REG
+    from repro_torch.models import model as MD
+    from repro_torch.serve.engine import Engine
+
+    done = []
+    for arch in ("granite-moe-3b-a800m", "mixtral-8x7b", "granite-34b",
+                 "llama3-405b", "musicgen-large", "internvl2-1b",
+                 "nemotron-4-340b"):
+        cfg = REG.smoke_config(arch)
+        params = MD.init_params(cfg, seed=3, device=dev)
+        rng = np.random.default_rng(29)
+        # the mixtral prompt crosses its smoke window of 64
+        lens = (80, 5, 30, 1, 12) if cfg.sliding_window else (20, 5, 30, 1)
+        prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+                   for n in lens]
+        budgets = [6] * len(prompts)
+        got = {}
+        for impl in ("cuda", "torch"):
+            eng = Engine(params, cfg, slots=2, max_len=128,
+                         prefill_impl=impl, decode_impl=impl, device=dev)
+            got[impl], _ = _serve(eng, prompts, budgets)
+            _check_served(f"{arch} smoke engine ({impl})", eng, got[impl],
+                          range(len(prompts)), budgets, cfg)
+        if got["cuda"] != got["torch"]:
+            _fail(f"{arch} smoke: kernel engine {got['cuda']} != plain "
+                  f"engine {got['torch']}")
+        done.append(arch)
+    print(f"smoke archs: float32 engines (2 slots, slots reused, a 1-token "
+          f"prompt) on the kernels emit the plain versions' tokens for "
+          f"{', '.join(done)}", flush=True)
+
+
+def other_archs_phase(dev, card, K):
+    """Phase 7e: the registry's other seven architectures on the card."""
+    t0 = time.perf_counter()
+    moe_errs = granite_moe_phase(dev, card, K)
+    mix_errs = mixtral_phase(dev, card, K)
+    wide_errs = wide_gqa_phase(dev, card, K)
+    frontend_training_phase(dev, card, K)
+    nemotron_phase(dev, card, K)
+    smoke_archs_phase(dev)
+    arch_cli_phase(K)
+    print(json.dumps({"other_archs": {
+        "seconds": round(time.perf_counter() - t0, 1),
+        "first_token_max_abs_err": dict(
+            {f"granite-moe {m}": e for m, e in moe_errs.items()},
+            **wide_errs), "mixtral_window_max_abs_err": mix_errs}}),
+        flush=True)
+
+
+def arch_cli_phase(K):
+    """launch/serve.py --arch granite-moe-3b-a800m on the card."""
+    from repro_torch.launch import serve as SERVE
+
+    _reset_launches(K)
+    results, eng = SERVE.main(["--arch", "granite-moe-3b-a800m",
+                               "--requests", "6", "--max-new", "8"])
+    report = eng.report()
+    if sorted(results) != list(range(6)) or any(
+            r["status"] != "done" or r["tokens"] != 8
+            for r in report.values()) or not (
+            K.packed_fwd.launches and K.packed_decode_fwd.launches):
+        _fail(f"serve CLI (granite-moe): {report}, launches {_launches(K)}")
+    print("serve CLI: python -m repro_torch.launch.serve --arch "
+          "granite-moe-3b-a800m served 6 requests through the kernels",
+          flush=True)
+
+
 def serve_cli_phase():
     """The serving CLI (launch/serve.py) on the card at smoke size, in both
     step modes: every request done through the kernels, no plain
@@ -3267,6 +3952,8 @@ def main():
     ssm_row["launches"], ssm_row["launches_offline"] = jamba_serving_phase(
         dev, card)
     jamba_cli_phase()
+    torch.cuda.empty_cache()
+    other_archs_phase(dev, card, K)
     torch.cuda.empty_cache()
     prefix_phase(dev)
     print("kernels: " + "; ".join(

@@ -1,7 +1,7 @@
 """Configuration schema (port of ``repro/configs/base.py``): the
-``ModelConfig`` and ``ShapeConfig`` fields and the ``reduced`` smoke
-sizing, unchanged, so a config built here equals the reference's field
-for field."""
+``ModelConfig`` and ``ShapeConfig`` fields, the four ``SHAPES`` cells and
+the ``reduced`` smoke sizing, unchanged, so a config built here equals
+the reference's field for field."""
 
 from __future__ import annotations
 
@@ -90,6 +90,12 @@ class ModelConfig:
             return False
         return idx % self.moe_every == self.moe_offset
 
+    def is_pure_full_attention(self) -> bool:
+        """True if every token-mixing layer is unwindowed full attention
+        (quadratic: the long_500k cell is skipped for it)."""
+        return (all(k == "attn" for k in self.layer_kinds)
+                and self.sliding_window is None)
+
     def param_counts(self) -> dict:
         """{"total", "active"} parameters, the reference's count (its
         approximations of the rwkv and Mamba projections included)."""
@@ -132,6 +138,25 @@ class ShapeConfig:
     seq_len: int
     global_batch: int
     kind: str  # train | prefill | decode | long_decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind in ("decode", "long_decode")
+
+    @property
+    def tokens_per_step(self) -> int:
+        """One new token a sequence for decode cells, else every token."""
+        if self.is_decode:
+            return self.global_batch
+        return self.seq_len * self.global_batch
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "long_decode"),
+}
 
 
 def reduced(cfg: ModelConfig, *, layers: Optional[int] = None) -> ModelConfig:

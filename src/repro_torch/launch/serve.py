@@ -1,17 +1,19 @@
 """Serving entry point of the port (port of ``repro/launch/serve.py``).
 
 Serves a batch of random prompts through the continuous-batching engine
-on the smoke config of ``--arch``: on the card by default (the tri_attn
-kernels; for rwkv6-1.6b the WKV kernel, for jamba-1.5-large-398b the
-selective-scan kernel, under sequential admission and lockstep decode,
-which the engine picks for an arch with recurrent layers), or with
-``--device cpu`` on the plain PyTorch versions. Weights are random from
-``--seed`` (``models.model.init_params``).
+on the smoke config of ``--arch`` (any of the registry's ten): on the
+card by default (the tri_attn kernels; for rwkv6-1.6b the WKV kernel,
+for jamba-1.5-large-398b the selective-scan kernel, under sequential
+admission and lockstep decode, which the engine picks for an arch with
+recurrent layers), or with ``--device cpu`` on the plain PyTorch
+versions. Weights are random from ``--seed``
+(``models.model.init_params``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --requests 6
     PYTHONPATH=src python -m repro_torch.launch.serve --step-mode fused
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-1.5-large-398b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b
 """
 
 from __future__ import annotations

@@ -1,9 +1,11 @@
 """Training entry point of the port (port of ``repro/launch/train.py``).
 
 Runs real steps: on the card by default (the tri_attn kernels), or with
-``--device cpu`` on the plain PyTorch versions. The smoke config unless
-``--full-config``; checkpointing, the preemption guard and deterministic
-restart as in the reference.
+``--device cpu`` on the plain PyTorch versions. The smoke config of
+``--arch`` (any of the registry's ten; musicgen-large and internvl2-1b
+on their audio and VLM batches) unless ``--full-config``;
+checkpointing, the preemption guard and deterministic restart as in the
+reference.
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 4
     PYTHONPATH=src python -m repro_torch.launch.train --steps 50 \\

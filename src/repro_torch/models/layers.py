@@ -1,5 +1,5 @@
 """Shared model layers: RMS and layer norm, RoPE, GQA attention, the
-swiglu MLP.
+swiglu, squared-ReLU and gelu MLPs.
 
 Port of the dense-attention part of ``repro/models/layers.py``. Parameters
 are plain dicts of tensors. The large projections stay ``torch.matmul``,
@@ -69,19 +69,21 @@ def apply_rope(x, positions, theta: float):
 
 
 def attention(params, x, cfg, *, positions, attn_impl: str, packed=None,
-              block: int = 64):
+              block: int = 64, prefix: int = 0):
     """Full-sequence attention (training and prefill). x: (B, S, d).
 
     Without ``packed`` each row of the batch is one causal (banded under
-    cfg.sliding_window) sequence through ``triangular_attention`` at tile
+    cfg.sliding_window, prefix-causal over its first ``prefix`` rows: a
+    vision prefix) sequence through ``triangular_attention`` at tile
     edge ``block`` (halved until it divides S), differentiable; where
     that edge falls below the kernels' smallest (a ragged prompt: S =
     2047), the kernel path pads S to a multiple of ``block`` at its
     causal tail instead, which no real row attends. With
     ``packed`` (a PackedTriSched) S is the concatenation of a request
     batch, positions restart per request, and attention is block-diagonal
-    per request. Returns (out (B, S, d), k, v) with k/v (B, S, Hkv, hd)
-    rotated, ready to seed a decode cache."""
+    per request (``prefix`` is not applied: the members carry their own
+    kinds, as in the reference). Returns (out (B, S, d), k, v) with k/v
+    (B, S, Hkv, hd) rotated, ready to seed a decode cache."""
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ params["wq"]).reshape(b, s, h, hd)
@@ -106,7 +108,8 @@ def attention(params, x, cfg, *, positions, attn_impl: str, packed=None,
         impl = "ref" if attn_impl == "torch" and s <= blk else attn_impl
         ot = attn_ops.triangular_attention(qt, kt, vt,
                                            window=cfg.sliding_window,
-                                           impl=impl, block=blk)[:, :, :s]
+                                           prefix=prefix, impl=impl,
+                                           block=blk)[:, :, :s]
     ctx = ot.transpose(1, 2).reshape(b, s, h * hd)
     return ctx @ params["wo"], k, v
 
@@ -206,15 +209,48 @@ def fused_attention(params, x_pack, x_dec, cfg, *, pack_positions, packed,
     return out_pack, out_dec, k, v, cache_k, cache_v
 
 
+MLP_ACTIVATIONS = ("swiglu", "relu2", "gelu")
+
+
+def init_mlp(gen, cfg, dtype, device, stack: int):
+    """The dense FFN's matrices, stacked on a leading axis of ``stack``
+    layers: wi, wg, wo for swiglu; wi, wo for the two-matrix relu2 and
+    gelu forms."""
+    d, f = cfg.d_model, cfg.d_ff
+    p = {"wi": dense_init(gen, (d, f), d, dtype, device, stack)}
+    if cfg.mlp_activation == "swiglu":
+        p["wg"] = dense_init(gen, (d, f), d, dtype, device, stack)
+    p["wo"] = dense_init(gen, (f, d), f, dtype, device, stack)
+    return p
+
+
 def mlp(params, x, cfg):
-    if cfg.mlp_activation != "swiglu":
-        raise NotImplementedError(
-            f"mlp_activation={cfg.mlp_activation!r}: only swiglu is ported "
-            "(ROADMAP queue A, models)")
-    return (_silu(x @ params["wg"]) * (x @ params["wi"])) @ params["wo"]
+    """swiglu, or the two-matrix relu(x wi)^2 wo (nemotron) and
+    gelu(x wi) wo (granite-34b, musicgen)."""
+    act = cfg.mlp_activation
+    if act == "swiglu":
+        return (_silu(x @ params["wg"]) * (x @ params["wi"])) @ params["wo"]
+    if act == "relu2":
+        h = torch.relu(x @ params["wi"])
+        return (h * h) @ params["wo"]
+    if act == "gelu":
+        return _gelu(x @ params["wi"]) @ params["wo"]
+    raise ValueError(f"mlp_activation {act!r}; known {MLP_ACTIVATIONS}")
 
 
 def _silu(x):
     """x * (1 / (1 + exp(-x))), one rounding per op: the reference's XLA
     lowering of jax.nn.silu, so bfloat16 activations round alike."""
     return x * torch.reciprocal(1 + torch.exp(-x))
+
+
+def _gelu(x):
+    """jax.nn.gelu's default tanh form, x * (0.5 * (1 + tanh(sqrt(2 / pi)
+    * (x + 0.044715 * x^3)))), each op rounded to x's dtype with its
+    constants in that dtype: the reference's XLA lowering, so bfloat16
+    activations round alike (torch's gelu(approximate="tanh") rounds once
+    and differs in a bf16 ulp on ~40% of inputs)."""
+    c = lambda v: torch.tensor(v, dtype=x.dtype, device=x.device)
+    inner = x + c(0.044715) * (x * x * x)
+    return x * (c(0.5) * (1.0 + torch.tanh(c(math.sqrt(2 / math.pi))
+                                           * inner)))

@@ -1,9 +1,11 @@
 """Top-level model: embedding -> layers -> norm -> LM head.
 
-Port of ``repro/models/model.py`` for the dense attention, the RWKV-6 and
-the Mamba/attention hybrid (MoE) architectures:
+Port of ``repro/models/model.py`` for every architecture of the registry
+(dense and MoE attention, RWKV-6, the Mamba/attention hybrid, and the
+audio and vision stub frontends):
   init_params(cfg, seed, device)             -> params
   params_from_jax(np_params, cfg, device)    -> params (reference weights)
+  embed_inputs(params, cfg, batch)           -> (B, S, d) embeddings
   forward(params, cfg, batch, ...)           -> (hidden, aux, states)
   logits_from_hidden(params, cfg, hidden)    -> (B, S, padded_vocab) f32
   loss_fn(params, cfg, batch, ...)           -> (loss, {"ce", "aux"})
@@ -12,6 +14,11 @@ the Mamba/attention hybrid (MoE) architectures:
   prefill_cache(params, cfg, batch, max_len) -> (hidden, cache)
   fused_step(params, cfg, cache, ...)        -> (logits_admit, logits_dec,
                                                  cache, states)
+A batch holds "tokens" (B, S_tok) and/or "embeds" (B, P, d) (the stub
+frontends' precomputed audio frames, alone, or vision patches, placed
+before the tokens), "labels" (B, S) and an optional "mask" (B, S) of
+loss weights. A vision prefix (cfg.n_patches) makes the non-packed
+attention prefix-causal over the first n_patches rows.
 Params keep the reference pytree layout (``layers`` stacked on a leading
 superlayer axis), so reference weights carry over leaf for leaf. Training
 hands ``forward`` each stacked leaf as a list of per-layer tensors instead
@@ -48,7 +55,7 @@ def init_params(cfg, seed: int = 0, device=DEV.DEFAULT_DEVICE):
     dtype = param_dtype(cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
     d, vp, n = cfg.d_model, cfg.padded_vocab, cfg.n_superlayers
-    h, hkv, hd, f = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     ones = lambda *s: torch.ones(s, dtype=torch.float32, device=dev)
     dense = lambda shape, fan_in: L.dense_init(gen, shape, fan_in, dtype,
                                                dev, n)
@@ -69,8 +76,7 @@ def init_params(cfg, seed: int = 0, device=DEV.DEFAULT_DEVICE):
                 "wo": dense((h * hd, d), h * hd),
             }
         ffn = MOE.init_moe(gen, cfg, dtype, dev, n) if cfg.is_moe_layer(p) \
-            else {"wi": dense((d, f), d), "wg": dense((d, f), d),
-                  "wo": dense((f, d), f)}
+            else L.init_mlp(gen, cfg, dtype, dev, n)
         layers[f"l{p}"] = {"norm1": ones(n, d), "mixer": mixer,
                            "norm2": ones(n, d), "ffn": ffn}
     params = {
@@ -103,6 +109,21 @@ def params_from_jax(np_params, cfg, device=DEV.DEFAULT_DEVICE):
     return conv(dict(np_params))
 
 
+def embed_inputs(params, cfg, batch):
+    """Token embeddings, after the stub frontend's "embeds" (cast to the
+    params' dtype) when the batch has them."""
+    parts = []
+    if batch.get("embeds") is not None:
+        parts.append(batch["embeds"].to(param_dtype(cfg)))
+    if batch.get("tokens") is not None:
+        # F.embedding, not indexing: its backward sums each row's grads in
+        # a fixed order (indexing's accumulates them in thread order on
+        # the CPU)
+        parts.append(torch.nn.functional.embedding(batch["tokens"],
+                                                   params["embed"]))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+
 def forward(params, cfg, batch, *, attn_impl: str = "cuda",
             collect_state: bool = False, positions=None, packed=None,
             remat: bool = False, block: int = 64,
@@ -121,13 +142,11 @@ def forward(params, cfg, batch, *, attn_impl: str = "cuda",
     layer inputs are kept. ``block`` is the attention tile edge of the
     non-packed path; the reference's training default is 512, which the
     kernels do not take, so the port's is 64 (the serving tile)."""
-    tokens = batch["tokens"]
-    # F.embedding, not indexing: its backward sums each row's grads in a
-    # fixed order (indexing's accumulates them in thread order on the CPU)
-    x = torch.nn.functional.embedding(tokens, params["embed"])
+    x = embed_inputs(params, cfg, batch)
     if positions is None:
-        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
-                                 device=tokens.device)
+        positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                 device=x.device)
+    prefix = cfg.n_patches if cfg.frontend == "vision_patches" else 0
     per_layer = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for l in range(cfg.n_superlayers):
@@ -140,7 +159,7 @@ def forward(params, cfg, batch, *, attn_impl: str = "cuda",
                     lp[f"l{p}"], x, cfg, kind, p, positions=positions,
                     attn_impl=attn_impl, packed=packed,
                     collect_state=collect_state, block=block,
-                    full_capacity=full_capacity)
+                    full_capacity=full_capacity, prefix=prefix)
                 if a is not None:
                     aux = aux + a
             return x, aux, states
@@ -186,8 +205,9 @@ def cross_entropy(logits, labels, mask, vocab_size: int):
 def loss_fn(params, cfg, batch, *, attn_impl: str = "cuda",
             remat: bool = True, aux_weight: float = 0.01, block: int = 64,
             packed=None):
-    """Next-token loss of a batch ({"tokens", "labels"} (B, S), an
-    optional "mask"). Returns (loss, {"ce", "aux"}).
+    """Next-token loss of a batch ("tokens" and/or "embeds", "labels"
+    (B, S), an optional "mask" of loss weights, 0 on a vision prefix).
+    Returns (loss, {"ce", "aux"}).
 
     ``packed`` (a PackedTriSched) trains on bin-packed documents
     (train/data.PackedDocsLM): tokens are then (B, S_total), the

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.tri_attn import kernel as attn_kernel
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as MB
 from repro_torch.models import moe as MOE
@@ -31,6 +32,23 @@ def check_supported(cfg):
             raise NotImplementedError(
                 f"{cfg.name}: {kind!r} mixers are not ported (known: "
                 f"{KINDS})")
+
+
+def check_kernel_head_dim(cfg, impl: str):
+    """Refuse, before anything is built or launched, an architecture
+    whose attention head dim the kernels have no body for (nemotron-4's
+    192): impl "cuda" only, attention layers only."""
+    if impl != "cuda" or "attn" not in cfg.layer_pattern:
+        return
+    dims = attn_kernel.SUPPORTED_HEAD_DIMS
+    if cfg.head_dim not in dims:
+        raise NotImplementedError(
+            f"{cfg.name}: head dim {cfg.head_dim} has no attention kernel "
+            f"body (the kernels take head dims {dims}); a D {cfg.head_dim} "
+            f"instantiation of the forward, packed, decode and fused "
+            f"bodies and a dk/dv backward that fits its registers are "
+            f"ROADMAP A.1d; run impl='torch' (the plain versions) until "
+            f"then")
 
 
 def layer_params(tree, l: int):
@@ -50,13 +68,15 @@ def _ffn(p, x, cfg, p_idx: int, full_capacity: bool):
 
 def layer_fwd(p, x, cfg, kind: str, p_idx: int, *, positions,
               attn_impl: str, packed, collect_state: bool, block: int = 64,
-              full_capacity: bool = False):
+              full_capacity: bool = False, prefix: int = 0):
     """One layer over a full sequence (packed prefill batch or training
     rows). Returns (x, aux, state): aux the MoE load-balance loss (None
     without MoE); with collect_state an attention layer's rotated {"k",
     "v"}, a mamba layer's {"h", "conv"}, an rwkv layer's {"shift", "s",
     "shift_c"}. full_capacity: drop-free MoE (serving semantics: a
-    prefill that drops tokens diverges from the decode it seeds)."""
+    prefill that drops tokens diverges from the decode it seeds).
+    prefix: the prefix-causal rows of a non-packed attention (a vision
+    prefix)."""
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
     if kind == "rwkv":
         out, st = RW.rwkv_time_mix(p["mixer"], h, cfg, impl=attn_impl)
@@ -70,7 +90,7 @@ def layer_fwd(p, x, cfg, kind: str, p_idx: int, *, positions,
     else:
         out, k, v = L.attention(p["mixer"], h, cfg, positions=positions,
                                 attn_impl=attn_impl, packed=packed,
-                                block=block)
+                                block=block, prefix=prefix)
         st = {"k": k, "v": v}
     x = x + out
     h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)

@@ -53,7 +53,8 @@ poisoned output is not retried, degraded or quarantined either: it raises,
 before the round commits, so the fleet can migrate the replica's requests.
 
 Kernel builds happen at construction when an impl is "cuda", so a build
-failure raises there.
+failure raises there; before that, an arch whose attention head dim no
+kernel body takes (nemotron-4-340b's 192) is refused.
 """
 
 from __future__ import annotations
@@ -69,6 +70,7 @@ from repro_torch import device as DEV
 from repro_torch.core import mapping as M
 from repro_torch.kernels import build as BUILD
 from repro_torch.models import model as MD
+from repro_torch.models import transformer as T
 from repro_torch.obs import metrics as MET
 from repro_torch.obs import schema as SCH
 from repro_torch.obs import sinks as SK
@@ -159,6 +161,8 @@ class Engine:
                 (decode_mode, decode_impl) == ("lockstep", "cuda")):
             raise ValueError("sequential prefill and lockstep decode run the "
                              "plain version: pass impl='torch' with them")
+        for impl in (prefill_impl, decode_impl):
+            T.check_kernel_head_dim(cfg, impl)
         if not D.traced_prefill_ok([max_len], prefill_block):
             raise ValueError(
                 f"max_len {max_len} at block {prefill_block} exceeds the "

@@ -1,5 +1,6 @@
-"""Synthetic data pipeline (port of ``repro/train/data.py``: dense text
-and ragged documents bin-packed for packed training).
+"""Synthetic data pipeline (port of ``repro/train/data.py``: dense text,
+the stub frontends' audio and vision batches, and ragged documents
+bin-packed for packed training).
 
 Deterministic per (seed, step): resuming from a checkpoint at step k
 re-produces batch k + 1 bit for bit with no stored iterator state, the
@@ -29,28 +30,55 @@ def _zipf_tokens(rng: np.random.Generator, vocab: int, b: int,
     return toks
 
 
+def _tensors(arrays: dict, device) -> dict:
+    return {k: torch.as_tensor(v, device=device) for k, v in arrays.items()}
+
+
 class SyntheticLM:
-    """Batch factory for one (cfg, shape) cell: {"tokens", "labels"} (B, S)
-    int32 tensors on ``device``."""
+    """Batch factory for one (cfg, shape) cell, tensors on ``device``:
+    {"tokens", "labels"} (B, S) int32; for an audio-frames arch
+    {"embeds" (B, S, d) in ``act_dtype``, "labels"}; for a vision-patches
+    arch {"embeds" (B, P, d), "tokens" (B, S - P), "labels" (B, S) (0 on
+    the prefix), "mask" (B, S) (0 on the prefix)}. The draws are the
+    reference's, Philox stream and order included."""
 
     def __init__(self, cfg, shape, *, seed: int = 0,
-                 device=DEV.DEFAULT_DEVICE):
-        if cfg.frontend != "none":
-            raise NotImplementedError(
-                f"{cfg.name}: {cfg.frontend} batches are not ported yet "
-                "(ROADMAP queue A, models)")
+                 device=DEV.DEFAULT_DEVICE, act_dtype=torch.bfloat16):
         self.cfg, self.shape, self.seed = cfg, shape, seed
         self.device = DEV.resolve(device)
+        self.act_dtype = act_dtype
 
     def _rng(self, step: int) -> np.random.Generator:
         return np.random.Generator(
             np.random.Philox(key=[self.seed, (0xB10C << 32) | step]))
 
+    def _embeds(self, rng, b: int, n: int) -> torch.Tensor:
+        emb = rng.standard_normal((b, n, self.cfg.d_model),
+                                  dtype=np.float32) * 0.02
+        return torch.as_tensor(emb, device=self.device).to(self.act_dtype)
+
     def batch(self, step: int) -> dict:
+        cfg = self.cfg
         b, s = self.shape.global_batch, self.shape.seq_len
-        toks = _zipf_tokens(self._rng(step), self.cfg.vocab_size, b, s + 1)
-        return {"tokens": torch.as_tensor(toks[:, :-1], device=self.device),
-                "labels": torch.as_tensor(toks[:, 1:], device=self.device)}
+        rng = self._rng(step)
+        if cfg.frontend == "audio_frames":
+            toks = _zipf_tokens(rng, cfg.vocab_size, b, s + 1)
+            return {"embeds": self._embeds(rng, b, s),
+                    **_tensors({"labels": toks[:, 1:]}, self.device)}
+        if cfg.frontend == "vision_patches":
+            p = cfg.n_patches
+            toks = _zipf_tokens(rng, cfg.vocab_size, b, s - p + 1)
+            embeds = self._embeds(rng, b, p)
+            labels = np.concatenate([np.zeros((b, p), np.int32),
+                                     toks[:, 1:]], axis=1)
+            mask = np.concatenate([np.zeros((b, p), np.float32),
+                                   np.ones((b, s - p), np.float32)], axis=1)
+            return {"embeds": embeds, **_tensors(
+                {"tokens": toks[:, :-1], "labels": labels, "mask": mask},
+                self.device)}
+        toks = _zipf_tokens(rng, cfg.vocab_size, b, s + 1)
+        return _tensors({"tokens": toks[:, :-1], "labels": toks[:, 1:]},
+                        self.device)
 
 
 def pack_documents(doc_lens, capacity: int, *, block: int):
@@ -121,10 +149,6 @@ class PackedDocsLM:
         return [_zipf_tokens(rng, self.cfg.vocab_size, 1, s + 1)[0]
                 for s in self.doc_lens]
 
-    def _tensors(self, arrays: dict) -> dict:
-        return {k: torch.as_tensor(v, device=self.device)
-                for k, v in arrays.items()}
-
     def batch(self, step: int) -> dict:
         toks = np.zeros((1, self.s_total), np.int32)
         labels = np.zeros((1, self.s_total), np.int32)
@@ -136,8 +160,8 @@ class PackedDocsLM:
             labels[0, st:st + s] = doc[1:]
             mask[0, st:st + s] = 1.0
             positions[0, st:st + pad] = np.arange(pad)
-        return self._tensors({"tokens": toks, "labels": labels, "mask": mask,
-                              "positions": positions})
+        return _tensors({"tokens": toks, "labels": labels, "mask": mask,
+                         "positions": positions}, self.device)
 
     def padded_batch(self, step: int) -> dict:
         """Pad-to-max baseline: (R, S_max) rows over the same documents."""
@@ -149,5 +173,5 @@ class PackedDocsLM:
             toks[row, :s] = doc[:-1]
             labels[row, :s] = doc[1:]
             mask[row, :s] = 1.0
-        return self._tensors({"tokens": toks, "labels": labels,
-                              "mask": mask})
+        return _tensors({"tokens": toks, "labels": labels, "mask": mask},
+                        self.device)

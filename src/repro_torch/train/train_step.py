@@ -23,6 +23,7 @@ import torch
 
 from repro_torch import device as DEV
 from repro_torch.models import model as MD
+from repro_torch.models import transformer as T
 from repro_torch.obs import metrics as MET
 from repro_torch.obs import trace as TR
 from repro_torch.train import optimizer as OPT
@@ -110,20 +111,25 @@ def make_train_step(cfg, opt: OPT.OptConfig, *, microbatches: int = 1,
     backward passes whose grads are summed in float32 and divided by M,
     as the reference does. ``packed`` (a PackedTriSched) trains on
     bin-packed documents (train/data.PackedDocsLM batches, which carry
-    "positions" and "mask"): one static schedule serves every step."""
+    "positions" and "mask"): one static schedule serves every step.
+    Batches may carry "embeds" (the stub frontends). On the kernels an
+    arch whose head dim no attention body takes is refused here
+    (``transformer.check_kernel_head_dim``)."""
     if packed is not None and microbatches != 1:
         raise ValueError(f"a packed batch is one row (B = 1) of bin-packed "
                          f"documents, so it does not split into "
                          f"{microbatches} microbatches: pass microbatches=1")
+    T.check_kernel_head_dim(cfg, attn_impl)
     labels = {"impl": attn_impl, "packed": "0" if packed is None else "1"}
 
     def train_step(state: TrainState, batch):
         MET.counter_inc("train_step_calls", 1, labels)
         MET.counter_inc("train_microbatches", microbatches, labels)
         views = trainable(state.params)
-        if batch["tokens"].shape[0] % microbatches:
-            raise ValueError(f"batch {batch['tokens'].shape[0]} does not "
-                             f"split into {microbatches} microbatches")
+        rows = batch["labels"].shape[0]
+        if rows % microbatches:
+            raise ValueError(f"batch {rows} does not split into "
+                             f"{microbatches} microbatches")
         mbs = [dict(zip(batch, parts)) for parts in zip(
             *(torch.chunk(x, microbatches) for x in batch.values()))]
         loss, mets, acc = 0.0, [], None
@@ -132,6 +138,10 @@ def make_train_step(cfg, opt: OPT.OptConfig, *, microbatches: int = 1,
                                 remat=remat, aux_weight=aux_weight,
                                 block=block, packed=packed)
             l.backward()
+            if views["embed"].grad is None:
+                # an "embeds"-only batch (audio frames) reads no token
+                # row: the reference's gradient there is zero
+                views["embed"].grad = torch.zeros_like(views["embed"])
             loss = loss + l.detach()
             mets.append(met)
             if microbatches > 1:
@@ -181,19 +191,24 @@ def make_serve_step(cfg, *, attn_impl: str = "cuda"):
 
 def make_prefill_step(cfg, *, attn_impl: str = "cuda", block: int = 64,
                       cache_dtype=torch.bfloat16, max_len: int = 0):
-    """prefill_step(params, {"tokens": (B, S)}) -> (last-position logits
-    (B, Vp), decode cache of max(S, max_len) positions, [0, S) filled).
+    """prefill_step(params, batch) -> (last-position logits (B, Vp),
+    decode cache of max(S, max_len) positions, [0, S) filled), S the
+    batch's tokens plus its "embeds" rows.
     The reference sizes the cache at S, so a decode step past it wraps
     onto row 0 of an attention layer's k/v; ``max_len`` leaves room for
     the tokens a caller decodes next. On the card an rwkv model's WKV
     region, and each of a jamba model's Mamba layers, is one kernel
     launch over all B x S streams."""
 
+    T.check_kernel_head_dim(cfg, attn_impl)
+
     @torch.no_grad()
     def prefill_step(params, batch):
         MET.counter_inc("prefill_step_calls", 1, {"impl": attn_impl})
+        s_total = sum(batch[k].shape[1] for k in ("tokens", "embeds")
+                      if batch.get(k) is not None)
         hidden, cache = MD.prefill_cache(
-            params, cfg, batch, max(batch["tokens"].shape[1], max_len),
+            params, cfg, batch, max(s_total, max_len),
             attn_impl=attn_impl, block=block, cache_dtype=cache_dtype)
         return MD.logits_from_hidden(params, cfg, hidden[:, -1:])[:, 0], \
             cache

@@ -155,6 +155,17 @@ SLICES = {
                "repro_torch.analysis.resilience_lint, "
                "repro_torch.analysis.lint, repro_torch.obs.timing, "
                "repro_torch.obs.validate, repro_torch.resilience.smoke",
+    "archs": "import repro_torch.configs.granite_moe_3b_a800m, "
+             "repro_torch.configs.mixtral_8x7b, "
+             "repro_torch.configs.granite_34b, "
+             "repro_torch.configs.llama3_405b, "
+             "repro_torch.configs.musicgen_large, "
+             "repro_torch.configs.internvl2_1b, "
+             "repro_torch.configs.nemotron_4_340b, "
+             "repro_torch.configs.registry, repro_torch.models.layers, "
+             "repro_torch.models.model, repro_torch.train.data; "
+             "from repro_torch.configs.registry import all_configs; "
+             "assert len(all_configs()) == 10",
 }
 
 

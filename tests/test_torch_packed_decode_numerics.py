@@ -277,3 +277,40 @@ def test_chunk_constants_match_the_cuda_body():
         m = re.search(rf"constexpr int {name} = (\d+);", src)
         assert m is not None and int(m.group(1)) == getattr(K, name), name
     assert all(K.DECODE_CHUNK % blk == 0 for blk in K.SUPPORTED_BLOCKS)
+
+
+@pytest.mark.parametrize("blk", [4, 16])
+def test_capacity_padding_is_inert(blk):
+    """The split decode round's capacity bucket only pads the reference's
+    grid: within one impl ("torch", the plain version; "ref", the masked
+    oracle) three capacities give the same bits, across impls and against
+    the reference's scan impl they agree within the f32 tolerance (the
+    reference's own test asks scan and pallas for the same bits, which
+    fails: ROADMAP C). The card's impl "cuda" is held the same way in
+    tests/test_torch_cuda.py."""
+    b, s_cache = 3, 8 * blk
+    kv_lens, slots = [2 * blk + 1, 8 * blk - 2], [0, 2]
+    q, kc, vc = O.rand_decode_state(0, b, 4, 2, s_cache, 8)
+    jtbl, needed = JOPS.make_decode_table(kv_lens, slots, blk=blk,
+                                          n_members=b + 1, n_slots=b)
+    tbl, t_needed = OPS.make_decode_table(kv_lens, slots, blk=blk,
+                                          n_members=b + 1, n_slots=b)
+    assert t_needed == needed and tbl.tobytes() == jtbl.tobytes()
+    want = JOPS.packed_decode_attention(q, kc, vc, jnp.asarray(jtbl),
+                                        JOPS.DecodeRoundSpec(
+                                            n_members=b + 1,
+                                            capacity=needed, blk=blk,
+                                            impl="scan"))
+    tq, tk, tv = (torch.as_tensor(np.asarray(x)) for x in (q, kc, vc))
+    outs = {}
+    for impl in ("torch", "ref"):
+        runs = [OPS.packed_decode_attention(
+            tq, tk, tv, torch.as_tensor(tbl),
+            OPS.DecodeRoundSpec(b + 1, capacity, blk, impl, needed))
+            for capacity in (needed, needed + 5, 4 * needed)]
+        for run in runs[1:]:
+            assert torch.equal(run, runs[0]), impl
+        assert torch.count_nonzero(runs[0][1]) == 0  # the retired slot
+        outs[impl] = runs[0].numpy()
+    O.assert_close(outs["torch"], outs["ref"], "attn", jnp.float32)
+    O.assert_close(outs["torch"], np.asarray(want), "attn", jnp.float32)

@@ -174,8 +174,8 @@ def test_unported_mixers_still_raise():
         T.check_supported(dataclasses.replace(cfg, layer_pattern=pattern))
     T.check_supported(dataclasses.replace(
         REG.smoke_config("yi-9b"), n_experts=4, experts_per_token=2))
-    with pytest.raises(KeyError, match="not ported yet"):
-        REG.get_config("mixtral-8x7b")
+    with pytest.raises(KeyError, match="unknown arch"):
+        REG.get_config("xlstm-7b")
 
 
 def test_params_and_init_match_reference_layout(ctx):
