@@ -14,7 +14,7 @@ Phases (any failure exits non-zero; nothing is caught):
      the body kernel.tile_body names for its direction, HGMMA at BLK 64
      and 128, HMMA in the forward at 16 and 32, neither in the backward at
      16 and 32, and no other; no tensor-core instantiation may spill);
-     and of all 64 instantiations of packed_decode.cu's kernel (the decode
+     and of all 80 instantiations of packed_decode.cu's kernel (the decode
      body of attn_decode.cuh, f32 FMAs: no spill, no HGMMA or HMMA); and
      of all 16 of wkv_scan.cu's (the chunked kernel and the one-chunk
      walk, dtype x hd) and 8 of ssm_scan.cu's (no spill);
@@ -185,10 +185,18 @@ Phases (any failure exits non-zero; nothing is caught):
      seq 4096) at full width and depth: 2 training steps of batch 1 with
      2 x layers tri_attn.fwd and layers dq and dk/dv launches a step, then
      a smoke-size float32 step each on the kernels against the plain
-     versions (rtol 1e-5); nemotron-4-340b at published widths: the engine
-     and the trainer refuse head dim 192 up front, nothing launched; each
-     new arch's smoke config as a float32 engine on the kernels emitting
-     the plain versions' tokens; the serving CLI with --arch
+     versions (rtol 1e-5); nemotron-4-340b (head dim 192, g 12): rows
+     1-5 of the kernel table at its attention shape (H 96, Hkv 8, D 192,
+     bf16, blk 64; the kernel phase's serving members, one layer at seq
+     2048 for tri_fwd and fwd_bb) against their plain versions, in turns
+     with SDPA, beside their bounds, then its published widths cut to 4
+     of 96 layers (46.51 GB) served as granite-34b is, split and fused
+     (staggered budgets), launches = 4 x the engine's, a profiler window
+     over 4 decode rounds and the host syncs a round, a make_prefill_step
+     batch through tri_fwd against the oracle, the trainer's refusal of
+     the D 192 backward with nothing launched; each new arch's smoke
+     config, and nemotron's at head dim 192, as a float32 engine on the
+     kernels emitting the plain versions' tokens; the serving CLI with --arch
      granite-moe-3b-a800m; a {"other_archs": ...} line;
   8. training: yi-9b at full width (24 of 48 layers unless --train-layers
      says otherwise: the 48-layer AdamW state does not fit 80 GB) for 3
@@ -209,7 +217,8 @@ Phases (any failure exits non-zero; nothing is caught):
      bitwise-equal states; 3 packed steps with the kernels and with the
      plain versions agree, and packed and padded losses agree (rtol
      1e-5).
-The last lines are the {"kernels": [...]} line, the card line and
+The last lines are the {"kernels": [...]} line (rows 1-5 carry their
+nemotron D 192 readings under "at_d192"), the card line and
 {"ok": true, "device": {...}}.
 """
 
@@ -434,9 +443,9 @@ def decode_build(BUILD) -> dict:
     (the decode body of attn_decode.cuh, which the fused kernels' decode
     half runs too: their bf16-q instantiations are in tensor_core_build's
     report), and the tensor-core instructions cuobjdump finds there. Fails
-    unless all 64 (q x cache dtype x BLK x D) are found, none spills and
-    none holds an HGMMA or HMMA: the decode body is f32 FMAs on the CUDA
-    cores. Returns {(q, cache, BLK, D): {"registers": r, ...}}."""
+    unless all 80 (q x cache dtype x BLK x D, D 16-192) are found, none
+    spills and none holds an HGMMA or HMMA: the decode body is f32 FMAs
+    on the CUDA cores. Returns {(q, cache, BLK, D): {"registers": r, ...}}."""
     def key(line):
         m = DECODE_KEY.search(line)
         if m is None:
@@ -467,20 +476,20 @@ def decode_build(BUILD) -> dict:
             k = key(line)
         elif k is not None and ("HGMMA." in line or "HMMA." in line):
             info[k]["tensor_core_ops"] = info[k].get("tensor_core_ops", 0) + 1
-    if len(info) != 64:
+    if len(info) != 80:
         _fail(f"decode: {len(info)} instantiations of packed_decode_kernel "
-              f"in ptxas's report, not 64")
+              f"in ptxas's report, not 80")
     for k, row in sorted(info.items()):
         if row["spill_bytes"] != 0 or row.get("tensor_core_ops"):
             _fail(f"decode: packed_decode_kernel {k}: "
                   f"{row.get('tensor_core_ops', 0)} HGMMA/HMMA, ptxas: "
                   f"{row['ptxas']}")
     regs = [row["registers"] for row in info.values()]
-    print(f"decode: 64 instantiations of packed_decode_kernel (q x cache "
+    print(f"decode: 80 instantiations of packed_decode_kernel (q x cache "
           f"dtype x BLK x D), {min(regs)}-{max(regs)} registers, no spills, "
           f"no HGMMA or HMMA; bf16 q, f32 cache, 64 x 128: "
-          f"{info[('bf16', 'f32', 64, 128)]['registers']} registers",
-          flush=True)
+          f"{info[('bf16', 'f32', 64, 128)]['registers']} registers, 64 x "
+          f"192: {info[('bf16', 'f32', 64, 192)]['registers']}", flush=True)
     return {k: {"registers": r["registers"], "spill_bytes": r["spill_bytes"]}
             for k, r in info.items()}
 
@@ -529,12 +538,14 @@ def scan_build(BUILD) -> dict:
             for k, r in info.items()}
 
 
-def kernel_phase(dev, K, OPS, SC):
-    """Both kernels at full yi-9b width vs plain version and SDPA."""
+def kernel_phase(dev, K, OPS, SC, h=32, hkv=4, d=128, tag="kernels"):
+    """Both kernels at full yi-9b width (or another attention shape: H,
+    Hkv, D) vs plain version and SDPA; ``tag`` starts each printed
+    line."""
     import torch.nn.functional as F
 
     rng = np.random.default_rng(0)
-    h, hkv, d, blk = 32, 4, 128, 64
+    blk = 64
     dt = torch.bfloat16
 
     def rand(*shape, dtype=dt):
@@ -663,7 +674,7 @@ def kernel_phase(dev, K, OPS, SC):
     dec_grid = K.decode_grid(needed, b + 1, blk, hkv, h // hkv)
     dec_path = (f"fma_f32, chunks of {K.DECODE_CHUNK} tokens split over "
                 f"the SMs, merged in the launch")
-    print(f"kernels: packed_decode_fwd at the kernel phase's shape "
+    print(f"{tag}: packed_decode_fwd at the kernel phase's shape "
           f"({dec_path}; grid {dec_grid}) {dec_ms:.4f} ms through the "
           f"wrapper, L2 cold in turns {dec_turns['decode'][1]}, on the "
           f"device L2 cold {dec_device:.4f} ms ({100 * dec_bound / dec_device:.1f}% "
@@ -675,7 +686,7 @@ def kernel_phase(dev, K, OPS, SC):
                fwd_lib=lib, kv_lens=kv_lens, dec=(qd, kc, vc), dec_out=got,
                kv_tokens=kv_tokens, dec_lib=dec_lib)
     path = K.tile_body(dt, blk, BODY_DIR["packed_fwd_tc_kernel"][1])
-    print(f"kernels: packed_fwd at the serving shape {fwd_ms:.4f} ms "
+    print(f"{tag}: packed_fwd at the serving shape {fwd_ms:.4f} ms "
           f"({path}) in turns {turns['fwd'][1]}, on the device "
           f"{fwd_device:.4f} ms, SDPA with the block mask {fwd_lib:.4f} ms in "
           f"turns {turns['sdpa'][1]}, bound {fwd_bound:.6f} ms "
@@ -709,7 +720,7 @@ def kernel_phase(dev, K, OPS, SC):
     ]
 
 
-def fused_kernel_phase(dev, K, OPS, SC, D, ctx):
+def fused_kernel_phase(dev, K, OPS, SC, D, ctx, tag="fused"):
     """tri_attn.fused_step_fwd at full yi-9b width: the prefill members of
     the packed_fwd row admitted into slots 4-7 of B = 8 while slots 0-3
     decode the packed_decode row's kv_lens, on the same tensors. Held
@@ -807,7 +818,7 @@ def fused_kernel_phase(dev, K, OPS, SC, D, ctx):
     dec_blocks = grid[0] * grid[1]
     # csrc/fused_step.cu's FusedShape::NT: the prefill body's threads
     threads = 256 if path == "fma_f32" else 2 * blk
-    print(f"fused: fused_step_fwd at {threads} threads a block ({path} "
+    print(f"{tag}: fused_step_fwd at {threads} threads a block ({path} "
           f"prefill, the decode half at {threads}) {times['fused']} ms, on "
           f"the device {device_ms:.4f} ms; split kernels summed "
           f"{times['split']} ms, packed_fwd {times['fwd']} ms, "
@@ -2949,6 +2960,14 @@ MIXTRAL_REF = 4544  # tokens of the plain reference forward (71 x 64)
 # tolerance at every token
 WIDE_CUTS = {"granite-34b": 4, "llama3-405b": 2}  # of 88 and 126 layers
 WIDE_ENGINE = dict(slots=2, requests=4, lens=(16, 256), max_new=16)
+# nemotron-4-340b: 4 of 96 layers, 23.25 B parameters, 46.51 GB of bf16
+# weights; fused budgets all different, so whichever two requests the
+# engine admits first, one ends first and the next admission meets the
+# other live (a mixed round); one attention layer at this seq for the
+# tri_fwd / fwd_bb rows
+NEMOTRON_CUT = 4
+NEMOTRON_BUDGETS = (16, 8, 12, 4)
+NEMOTRON_SEQ = 2048
 FRONTEND_TRAIN = {"musicgen-large": 2048, "internvl2-1b": 4096}  # seq
 
 
@@ -3479,52 +3498,226 @@ def frontend_training_phase(dev, card, K):
               f"{[m['loss'] for m in mets['torch']]} (rtol 1e-5)", flush=True)
 
 
-def nemotron_phase(dev, card, K):
-    """nemotron-4-340b at published widths: the engine and the trainer
-    refuse head dim 192 on the kernels up front, and nothing launches."""
+def nemotron_dense_rows(dev, K, SC, h, hkv, d, s_len):
+    """tri_attn.fwd and tri_attn.fwd_bb at one attention layer of (B 1,
+    H h, Hkv hkv, S s_len, D d, ltm, blk 64, bf16): each against its plain
+    version, in turns with SDPA's causal forward, beside its bound (the
+    forward's, over the causal pairs: fwd_bb launches the whole n x n grid
+    but computes the same function). Returns {name: reading}."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.tri_attn import ops as OPS
+
+    rng = np.random.default_rng(27)
+    q, k, v = (torch.as_tensor(rng.standard_normal(shape, np.float32),
+                               device=dev).to(torch.bfloat16)
+               for shape in ((1, h, s_len, d), (1, hkv, s_len, d),
+                             (1, hkv, s_len, d)))
+    sched = OPS.make_sched(s_len, block=64)
+    scale = d ** -0.5
+    lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                 enable_gqa=True)
+    bound, by = _attn_bounds(q, k, h * s_len * (s_len + 1) // 2)["fwd"]
+    rows = {}
+    for name, fn, plain in (
+            ("tri_attn.fwd", K.fwd, SC.fwd_torch),
+            ("tri_attn.fwd_bb", K.fwd_bb, SC.fwd_bb_torch)):
+        out, lse = fn(q, k, v, sched)
+        again = fn(q, k, v, sched)
+        torch.cuda.synchronize()
+        if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+            _fail(f"{name} at D {d}: two runs on the same inputs differ")
+        w_out, w_lse = plain(q, k, v, sched, scale)
+        err = max(_close(f"{name} D {d} out", out, w_out),
+                  _close(f"{name} D {d} lse", lse, w_lse, LSE_TOL))
+        _close(f"{name} D {d} vs SDPA", out, lib())
+        turns = _in_turns({"kernel": lambda: fn(q, k, v, sched),
+                           "sdpa": lib}, 10)
+        rows[name] = {
+            "ms": turns["kernel"][0], "ms_turns": turns["kernel"][1],
+            "library_ms": turns["sdpa"][0],
+            "library_ms_turns": turns["sdpa"][1],
+            "library": "SDPA is_causal forward, in turns",
+            "device_ms": _device_ms(lambda: [fn(q, k, v, sched)
+                                             for _ in range(10)], 10,
+                                    name.split(".")[1]),
+            "plain_ms": _median_ms(lambda: plain(q, k, v, sched, scale), 2,
+                                   1),
+            "bound_ms": bound, "bound_by": by, "max_abs_err": err,
+            "path": K.tile_body(q.dtype, 64, "fwd"),
+            "shape": {"B": 1, "H": h, "Hkv": hkv, "S": s_len, "D": d,
+                      "blk": 64, "kind": "ltm"}}
+        del out, lse, again, w_out, w_lse
+        torch.cuda.empty_cache()
+    return rows
+
+
+def nemotron_phase(dev, card, K, tc_build):
+    """nemotron-4-340b at its published widths (d_model 18432, 96 heads
+    over 8 kv heads, head dim 192, relu2 d_ff 73728, vocab 256000), depth
+    cut to NEMOTRON_CUT layers: first rows 1-5 of the kernel table at its
+    attention shape (H 96, Hkv 8, D 192, bf16, blk 64; the serving
+    members of the kernel phase, one layer at seq NEMOTRON_SEQ) against
+    their plain versions, timed beside SDPA and their bounds; then an
+    engine of 2 slots and 4 requests of 16-256 tokens, 16 new, split then
+    fused (staggered budgets), every request done on the kernels,
+    launches = NEMOTRON_CUT x the engine's, first-token logits within the
+    bf16 policy of a batch-1 prefill through the attention oracle; a
+    make_prefill_step batch through tri_attn.fwd against the oracle's;
+    the trainer's refusal (the D 192 backward), nothing launched. Returns
+    {kernel name: its D 192 reading}."""
     from repro_torch.configs import registry as REG
+    from repro_torch.kernels.tri_attn import ops as OPS
+    from repro_torch.kernels.tri_attn import scan_impl as SC
+    from repro_torch.obs import metrics as MET
+    from repro_torch.serve import decode as D
     from repro_torch.serve.engine import Engine
     from repro_torch.train import optimizer as OPT
     from repro_torch.train import train_step as TS
 
-    cfg = REG.get_config("nemotron-4-340b")
-    _reset_launches(K)
-    msgs = []
-    for label, make in (
-            ("engine", lambda: Engine(None, cfg, slots=2, max_len=64,
-                                      device=dev)),
-            ("trainer", lambda: TS.make_train_step(cfg, OPT.OptConfig(),
-                                                   attn_impl="cuda"))):
-        try:
-            make()
-        except NotImplementedError as e:
-            msgs.append(str(e))
-            if "head dim 192" not in str(e):
-                _fail(f"nemotron {label}: refusal does not name head dim "
-                      f"192: {e}")
+    full = REG.get_config("nemotron-4-340b")
+    h, hkv, d = full.n_heads, full.n_kv_heads, full.head_dim
+    t0 = time.perf_counter()
+    ctx, rows = kernel_phase(dev, K, OPS, SC, h=h, hkv=hkv, d=d,
+                             tag=f"nemotron D {d}")
+    rows.append(fused_kernel_phase(dev, K, OPS, SC, D, ctx,
+                                   tag=f"nemotron D {d}"))
+    del ctx
+    torch.cuda.empty_cache()
+    readings = {row["name"]: row for row in rows}
+    readings.update(nemotron_dense_rows(dev, K, SC, h, hkv, d,
+                                        NEMOTRON_SEQ))
+    for name, kern in (("tri_attn.packed_fwd", "packed_fwd_tc_kernel"),
+                       ("tri_attn.fused_step_fwd",
+                        "fused_step_kernel f32 cache"),
+                       ("tri_attn.fwd", "tri_fwd_tc_kernel"),
+                       ("tri_attn.fwd_bb", "fwd_bb_tc_kernel")):
+        readings[name]["ptxas"] = tc_build[(kern, 64, d)]
+    torch.cuda.empty_cache()
+    print(f"nemotron D {d} kernels ({time.perf_counter() - t0:.1f} s): "
+          + "; ".join(
+              f"{n} {r['ms']:.4f} ms (device {r.get('device_ms', 0):.4f}, "
+              f"library {r['library_ms']:.4f}, bound {r['bound_ms']:.6f} by "
+              f"{r['bound_by']}, plain {r['plain_ms']:.2f}) err "
+              f"{r['max_abs_err']:.3g}" for n, r in readings.items())
+          + f"; card {card}", flush=True)
+
+    cut = NEMOTRON_CUT
+    cfg = dataclasses.replace(full, n_layers=cut)
+    params = _arch_params(cfg, dev, f"nemotron-4-340b (cut to {cut} of "
+                          f"{full.n_layers} layers)", card)
+    ek = WIDE_ENGINE
+    rng = np.random.default_rng(30)
+    prompts = [p.astype(np.int32) for p in _rwkv_prompts(
+        rng, ek["requests"], ek["lens"], cfg.vocab_size)]
+    errs = {}
+    for mode, budgets in (("split", [ek["max_new"]] * len(prompts)),
+                          ("fused", list(NEMOTRON_BUDGETS))):
+        eng = _probe_engine(Engine, params, cfg, step_mode=mode, device=dev,
+                            **dict(ARCH_ENGINE, slots=ek["slots"],
+                                   max_len=512))
+        reg = MET.Registry(f"nemotron_{mode}")
+        _reset_launches(K)
+        with MET.scope(reg):
+            results, wall = _serve(eng, prompts, budgets)
+        st = _check_served(f"nemotron {mode}", eng, results,
+                           range(len(prompts)), budgets, cfg)
+        want = {"tri_attn.packed_decode_fwd":
+                cut * st["decode_packed_launches"]}
+        if mode == "split":
+            want["tri_attn.packed_fwd"] = cut * st["prefill_launches"]
         else:
-            _fail(f"nemotron {label}: head dim 192 was not refused")
+            want["tri_attn.fused_step_fwd"] = cut * st["fused_launches"]
+            mixed = st["decode_rounds"] - st["decode_packed_launches"]
+            if st["fused_fallbacks"] or mixed < 1:
+                _fail(f"nemotron fused: fallbacks {st['fused_fallbacks']}, "
+                      f"mixed rounds {mixed}")
+        if not all(want.values()):
+            _fail(f"nemotron {mode}: a kernel of the path never ran: "
+                  f"{want}")
+        launches = _check_launches(f"nemotron {mode}", K, reg, want)
+        errs[mode], _, _ = _first_token_check(f"nemotron {mode}", eng,
+                                              params, cfg, prompts)
+        _served_line(f"nemotron {mode}", st, results,
+                     [len(p) for p in prompts], wall, card,
+                     f"; launches {launches} (= {cut} layers x the "
+                     f"engine's); first-token logits of all {len(prompts)} "
+                     f"requests vs batch-1 prefills through the oracle "
+                     f"attention: max abs err {errs[mode]:.4g} (bf16 "
+                     f"policy)")
+        if mode == "split":
+            eng.record = False
+            for uid, n in enumerate((250, 40)):
+                eng.submit(rng.integers(1, cfg.vocab_size, size=n),
+                           max_new=12, uid=1000 + uid)
+            eng.round()  # admit + first decode round, outside the window
+            profile_rounds(eng, 4, "nemotron packed decode rounds (2 live "
+                           "slots)", card)
+            syncs = _host_syncs(lambda: [eng.round() for _ in range(2)])
+            print(f"nemotron host syncs a decode round, by source file: "
+                  f"{ {f: n / 2 for f, n in syncs.items()} }; card {card}",
+                  flush=True)
+            eng.run()
+        del eng
+
+    # the prefill step on the kernels (tri_attn.fwd at D 192) against the
+    # attention oracle's, on one batch
+    toks = torch.as_tensor(rng.integers(1, cfg.vocab_size, size=(2, 256)),
+                           device=dev)
+    reg = MET.Registry("nemotron_prefill")
+    _reset_launches(K)
+    with MET.scope(reg):
+        got, _ = TS.make_prefill_step(cfg, attn_impl="cuda",
+                                      cache_dtype=torch.float32)(
+            params, {"tokens": toks})
+        torch.cuda.synchronize()
+    launches = _check_launches("nemotron prefill step", K, reg,
+                               {"tri_attn.fwd": cut})
+    want, _ = TS.make_prefill_step(cfg, attn_impl="ref",
+                                   cache_dtype=torch.float32)(
+        params, {"tokens": toks})
+    errs["prefill_step"] = _close("nemotron prefill step logits", got, want,
+                                  _logit_tol(want))
+    del params
+    torch.cuda.empty_cache()
+
+    _reset_launches(K)
+    try:
+        TS.make_train_step(cfg, OPT.OptConfig(), attn_impl="cuda")
+    except NotImplementedError as e:
+        if "head dim 192" not in str(e) or "ROADMAP A.1e" not in str(e):
+            _fail(f"nemotron trainer: refusal does not name head dim 192 "
+                  f"and its ROADMAP item: {e}")
+        refusal = str(e)
+    else:
+        _fail("nemotron trainer: head dim 192 was not refused")
     torch.cuda.synchronize()
     if any(_launches(K).values()):
-        _fail(f"nemotron: the refusal launched {_launches(K)}")
-    print(f"nemotron-4-340b: head dim {cfg.head_dim} refused up front by "
-          f"the engine and the trainer, no launch: {msgs[0]!r}; card {card}",
-          flush=True)
+        _fail(f"nemotron: the trainer's refusal launched {_launches(K)}")
+    print(f"nemotron-4-340b: prefill step of 2 x 256 tokens on the kernels, "
+          f"launches {launches}, logits vs the oracle attention's max abs "
+          f"err {errs['prefill_step']:.4g} (bf16 policy); the trainer "
+          f"refuses head dim {d} up front, no launch: {refusal!r}; phase "
+          f"{time.perf_counter() - t0:.1f} s; card {card}", flush=True)
+    return readings, errs
 
 
 def smoke_archs_phase(dev):
-    """Each new arch's smoke config in float32: an engine on the kernels
-    emits the plain versions' tokens on the card (nemotron's relu2 and
-    granite-moe's experts included)."""
+    """Each new arch's smoke config in float32, and nemotron's at head dim
+    192 (2 layers, 2 heads of 192 over 1 kv head): an engine on the
+    kernels emits the plain versions' tokens on the card (nemotron's relu2
+    and granite-moe's experts included)."""
     from repro_torch.configs import registry as REG
     from repro_torch.models import model as MD
     from repro_torch.serve.engine import Engine
 
     done = []
-    for arch in ("granite-moe-3b-a800m", "mixtral-8x7b", "granite-34b",
-                 "llama3-405b", "musicgen-large", "internvl2-1b",
-                 "nemotron-4-340b"):
-        cfg = REG.smoke_config(arch)
+    archs = [(arch, REG.smoke_config(arch)) for arch in (
+        "granite-moe-3b-a800m", "mixtral-8x7b", "granite-34b",
+        "llama3-405b", "musicgen-large", "internvl2-1b", "nemotron-4-340b")]
+    # nemotron's head dim on the forward and decode bodies at smoke size
+    archs.append(("nemotron-4-340b D 192", dataclasses.replace(
+        archs[-1][1], n_layers=2, n_heads=2, n_kv_heads=1, head_dim=192)))
+    for arch, cfg in archs:
         params = MD.init_params(cfg, seed=3, device=dev)
         rng = np.random.default_rng(29)
         # the mixtral prompt crosses its smoke window of 64
@@ -3548,22 +3741,25 @@ def smoke_archs_phase(dev):
           f"{', '.join(done)}", flush=True)
 
 
-def other_archs_phase(dev, card, K):
-    """Phase 7e: the registry's other seven architectures on the card."""
+def other_archs_phase(dev, card, K, tc_build):
+    """Phase 7e: the registry's other seven architectures on the card.
+    Returns nemotron's D 192 kernel readings."""
     t0 = time.perf_counter()
     moe_errs = granite_moe_phase(dev, card, K)
     mix_errs = mixtral_phase(dev, card, K)
     wide_errs = wide_gqa_phase(dev, card, K)
     frontend_training_phase(dev, card, K)
-    nemotron_phase(dev, card, K)
+    d192, nem_errs = nemotron_phase(dev, card, K, tc_build)
     smoke_archs_phase(dev)
     arch_cli_phase(K)
     print(json.dumps({"other_archs": {
         "seconds": round(time.perf_counter() - t0, 1),
         "first_token_max_abs_err": dict(
             {f"granite-moe {m}": e for m, e in moe_errs.items()},
+            **{f"nemotron {m}": e for m, e in nem_errs.items()},
             **wide_errs), "mixtral_window_max_abs_err": mix_errs}}),
         flush=True)
+    return d192
 
 
 def arch_cli_phase(K):
@@ -3953,7 +4149,12 @@ def main():
         dev, card)
     jamba_cli_phase()
     torch.cuda.empty_cache()
-    other_archs_phase(dev, card, K)
+    d192 = other_archs_phase(dev, card, K, tc_build)
+    d192["tri_attn.packed_decode_fwd"]["ptxas"] = dec_build[
+        ("bf16", "f32", 64, 192)]
+    for k in kernels:
+        if k["name"] in d192:
+            k["at_d192"] = d192[k["name"]]
     torch.cuda.empty_cache()
     prefix_phase(dev)
     print("kernels: " + "; ".join(

@@ -2,10 +2,10 @@
 
 [arXiv:2402.16819 (Nemotron-4 15B report; 340B scales it)]
 96L d_model=18432 96H (GQA kv=8) d_ff=73728 vocab=256000.
-head_dim = 192, which the attention kernels do not take yet (they
-dispatch D in 16, 32, 64, 128): the engine and the trainer refuse it on
-the card (models/transformer.check_kernel_head_dim); its smoke config
-(head dim 16) runs on the kernels.
+head_dim = 192: the forward attention bodies take it, so the engine and
+the prefill step serve it on the card; the backward kernels take 16-128,
+so the trainer refuses it there (models/transformer.check_kernel_head_dim,
+ROADMAP A.1e). Its smoke config (head dim 16) trains on the kernels.
 """
 
 from repro_torch.configs.base import ModelConfig

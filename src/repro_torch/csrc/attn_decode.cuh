@@ -49,9 +49,11 @@
 //   - softmax: one warp a head, the tile's max and p = exp(s - m_new) over
 //     the warp (one max and one sum tree a head a tile), alpha and l.
 //     Barrier.
-//   - PV: each thread owns a 16-byte column of D for up to 8 / (NT / (D /
-//     VEC)) heads, in registers: acc = acc * alpha, then one fmaf a key in
-//     key order.
+//   - PV: each thread owns ceil(8 D / VEC / NT) (head, 16-byte column of
+//     D) items, e / (D / VEC) and e % (D / VEC) for e = tid + NT i, in
+//     registers: acc = acc * alpha, then one fmaf a key in key order. Where
+//     NT is a multiple of D / VEC (D up to 128) a thread's items share one
+//     column and one load a key; at D 192 (48 or 24 columns) they do not.
 // The ring stage of tile t - 1 is refilled after the first barrier of tile
 // t (every thread is past its PV), and the scores / p buffer alternates
 // between two halves, so nothing else waits. Each output element is
@@ -256,11 +258,12 @@ __device__ __forceinline__ void decode_walk(const DecodeArgs<TQ, TC>& a,
   // scores: key tid % BLK, heads sg + SG i
   constexpr int SG = NT / BLK;
   constexpr int HPS = (GH + SG - 1) / SG;
-  // PV: 16-byte column tid % NC, heads hg + NHG i
+  // PV: item i of a thread is (head, 16-byte column) e / NC, e % NC of
+  // e = tid + NT i; where NT is a multiple of NC (D <= 128) all of a
+  // thread's items share its column tid % NC and one load a key
   constexpr int NC = D / VEC;
-  static_assert(NT % NC == 0, "whole columns");
-  constexpr int NHG = NT / NC;
-  constexpr int HPT = (GH + NHG - 1) / NHG;
+  constexpr int HPT = (GH * NC + NT - 1) / NT;
+  constexpr bool ONE_COL = NT % NC == 0;
 
   TC* ring = reinterpret_cast<TC*>(smem);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + S * Sh::TILE);
@@ -280,7 +283,8 @@ __device__ __forceinline__ void decode_walk(const DecodeArgs<TQ, TC>& a,
   const int MC = (a.S_cache / BLK + CT - 1) / CT;
   const size_t tok_stride = static_cast<size_t>(a.Hkv) * D;
   const int kk = tid % BLK, sg = tid / BLK;
-  const int cc = tid % NC, hg = tid / NC;
+  auto item_col = [&](int i) { return ONE_COL ? tid % NC : (tid + NT * i) % NC; };
+  auto item_head = [&](int i) { return (tid + NT * i) / NC; };
 
   if (tid == 0)
     for (int s = 0; s < S; ++s) decode_bar_init<NT>(&bars[s]);
@@ -400,7 +404,7 @@ __device__ __forceinline__ void decode_walk(const DecodeArgs<TQ, TC>& a,
       // PV: this thread's column of D for its heads, keys in order
 #pragma unroll
       for (int i = 0; i < HPT; ++i) {
-        const int h = hg + NHG * i;
+        const int h = item_head(i);
         if (h < gs) {
           const float alpha = sa[h];
 #pragma unroll
@@ -410,11 +414,12 @@ __device__ __forceinline__ void decode_walk(const DecodeArgs<TQ, TC>& a,
 #pragma unroll 4
       for (int k = 0; k < BLK; ++k) {
         float vf[VEC];
-        load16(sv + k * DP + cc * VEC, vf);
+        if constexpr (ONE_COL) load16(sv + k * DP + item_col(0) * VEC, vf);
 #pragma unroll
         for (int i = 0; i < HPT; ++i) {
-          const int h = hg + NHG * i;
+          const int h = item_head(i);
           if (h < gs) {
+            if constexpr (!ONE_COL) load16(sv + k * DP + item_col(i) * VEC, vf);
             const float p = ss[h * BLK + k];
 #pragma unroll
             for (int e = 0; e < VEC; ++e) acc[i][e] = fmaf(p, vf[e], acc[i][e]);
@@ -432,15 +437,16 @@ __device__ __forceinline__ void decode_walk(const DecodeArgs<TQ, TC>& a,
 
     const int hrow = hk * g + h0;  // the slice's first query head
     if (nc == 1) {
-      TQ* os = a.out + (static_cast<size_t>(slot) * a.H + hrow) * D + cc * VEC;
+      TQ* os = a.out + (static_cast<size_t>(slot) * a.H + hrow) * D;
 #pragma unroll
       for (int i = 0; i < HPT; ++i) {
-        const int h = hg + NHG * i;
+        const int h = item_head(i);
         if (h < gs) {
           const float l = sl[h];
 #pragma unroll
           for (int e = 0; e < VEC; ++e)
-            os[h * D + e] = from_f32<TQ>(__fdividef(acc[i][e], l));
+            os[h * D + item_col(i) * VEC + e] =
+                from_f32<TQ>(__fdividef(acc[i][e], l));
         }
       }
     } else {
@@ -449,10 +455,10 @@ __device__ __forceinline__ void decode_walk(const DecodeArgs<TQ, TC>& a,
       const size_t cell = static_cast<size_t>(r * MC + c) * a.H + hrow;
 #pragma unroll
       for (int i = 0; i < HPT; ++i) {
-        const int h = hg + NHG * i;
+        const int h = item_head(i);
         if (h < gs) {
-          float4* dst =
-              reinterpret_cast<float4*>(wacc + (cell + h) * D + cc * VEC);
+          float4* dst = reinterpret_cast<float4*>(wacc + (cell + h) * D +
+                                                  item_col(i) * VEC);
 #pragma unroll
           for (int e4 = 0; e4 < VEC / 4; ++e4)
             dst[e4] = make_float4(acc[i][4 * e4], acc[i][4 * e4 + 1],
@@ -474,12 +480,12 @@ __device__ __forceinline__ void decode_walk(const DecodeArgs<TQ, TC>& a,
       __syncthreads();
       if (*flag) {
         __threadfence();
-        TQ* os = a.out + (static_cast<size_t>(slot) * a.H + hrow) * D + cc * VEC;
+        TQ* os = a.out + (static_cast<size_t>(slot) * a.H + hrow) * D;
         const size_t cell0 = static_cast<size_t>(r * MC) * a.H + hrow;
         const size_t step = a.H;  // from chunk to chunk
 #pragma unroll
         for (int i = 0; i < HPT; ++i) {
-          const int h = hg + NHG * i;
+          const int h = item_head(i), cc = item_col(i);
           if (h >= gs) continue;
           float m = __ldcg(wml + (cell0 + h) * 2);
 #pragma unroll 8
@@ -506,7 +512,7 @@ __device__ __forceinline__ void decode_walk(const DecodeArgs<TQ, TC>& a,
           }
 #pragma unroll
           for (int e = 0; e < VEC; ++e)
-            os[h * D + e] = from_f32<TQ>(__fdividef(o[e], l));
+            os[h * D + cc * VEC + e] = from_f32<TQ>(__fdividef(o[e], l));
         }
       }
     }

@@ -27,7 +27,10 @@
 // SW / 2 columns x BLK rows, swizzled over SW = min(2 D, 128) bytes: each
 // row of a box is one SW-byte request, and the swizzle is the one wgmma's
 // descriptors name (K-major for Q and K in S = Q K^T, MN-major for V in
-// O += P V, which bf16 allows). Atoms start on 1 KB boundaries. Filled in
+// O += P V, which bf16 allows). Atoms start on 1 KB boundaries (at D 192
+// a tile is three atoms of BLK x 128 bytes, three boxes, and every tile
+// 24 KB or 48 KB). Head dims 16-192 take this body in the forward; the
+// backward's (attn_mma_bwd.cuh) stop at 128. Filled in
 // 16-byte pieces (cp.async 16 bytes a thread, or TMA boxes 16 bytes wide
 // into a no-swizzle layout), the same products were bound by the copies
 // on the H100; whole 128-byte rows lift that. On the mma.sync path
@@ -68,7 +71,6 @@ struct Shape {
   static constexpr int NT = 2 * BLK;        // one warp per 16 rows
   static constexpr int TILE = BLK * D * 2;  // bytes of a bf16 tile
   static constexpr int OS = D + 8;          // bf16 row stride of out's staging
-  static constexpr int STAGES = 2;          // row_tile's K/V ring
   // wgmma path: a tile is 2 D / SW atoms of BLK rows x SW bytes, swizzled
   // over SW bytes (128, or the whole row where it is shorter)
   static constexpr int SW = 2 * D < 128 ? 2 * D : 128;
@@ -78,10 +80,19 @@ struct Shape {
   // row_tile: Q, the K/V ring, then an mbarrier for Q and one a stage;
   // fwd_bb: Q, K, V, its arrival flag and one mbarrier; both with 1 KB to
   // align the start (a swizzle pattern repeats every 8 SW bytes)
-  static constexpr size_t ROW_BYTES =
-      (1 + 2 * STAGES) * TILE + 8 * (1 + STAGES) + 1024;
+  static constexpr size_t ring_bytes(int stages) {
+    return (1 + 2 * stages) * static_cast<size_t>(TILE) + 8 * (1 + stages) +
+           1024;
+  }
+  // row_tile's K/V ring: two stages, or one where two do not fit (BLK 128
+  // at D 192: 246,808 bytes; one stage takes 148,496 and gives up the
+  // overlap of the next tile's copy with this tile's products)
+  static constexpr int STAGES = ring_bytes(2) <= SMEM_LIMIT ? 2 : 1;
+  static constexpr size_t ROW_BYTES = ring_bytes(STAGES);
   static constexpr size_t BB_BYTES = 3 * TILE + 16 + 1024;
   static_assert(BLK * OS * 2 <= 2 * TILE, "out's staging fits two tiles");
+  static_assert(ROW_BYTES <= SMEM_LIMIT && BB_BYTES <= SMEM_LIMIT,
+                "a row walk fits one block's shared memory");
 };
 
 // One warp's 16 rows: this lane's rows g = lane / 4 and g + 8.
@@ -358,6 +369,49 @@ struct Wgmma<128> {
           "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
           "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+// Head dim 192 (nemotron-4): only the PV product has N = D; S = Q K^T keeps
+// N = BLK and takes 12 k16 steps over the three 128-byte atoms of a row.
+template <>
+struct Wgmma<192> {
+  __device__ static __forceinline__ void rs(float (&d)[96],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+        "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+        "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+          "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+          "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+          "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+          "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+          "+f"(d[95])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
   }
 };

@@ -428,17 +428,14 @@ __device__ __forceinline__ void dkv_col_tile(
 
 // Host dispatch over the kernels' template parameters: calls
 // f(TypeTag<T>, BLK, D) with BLK and D as std::integral_constant for
-// dtype 0 (float32) / 1 (bfloat16), blk and D in 16, 32, 64, 128.
-template <typename F>
-inline int dispatch_tile(int dtype, int blk, int D, F&& f) {
+// dtype 0 (float32) / 1 (bfloat16), blk in 16, 32, 64, 128 and D in DS.
+template <int... DS, typename F>
+inline int dispatch_dims(int dtype, int blk, int D, F&& f) {
   auto by_d = [&](auto t, auto b) -> int {
-    switch (D) {
-      case 16: return f(t, b, std::integral_constant<int, 16>{});
-      case 32: return f(t, b, std::integral_constant<int, 32>{});
-      case 64: return f(t, b, std::integral_constant<int, 64>{});
-      case 128: return f(t, b, std::integral_constant<int, 128>{});
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
+    int rc = static_cast<int>(cudaErrorInvalidValue);
+    ((D == DS ? (rc = f(t, b, std::integral_constant<int, DS>{}), 0) : 0),
+     ...);
+    return rc;
   };
   auto by_blk = [&](auto t) -> int {
     switch (blk) {
@@ -450,6 +447,20 @@ inline int dispatch_tile(int dtype, int blk, int D, F&& f) {
     }
   };
   return dispatch_dtype(dtype, by_blk);
+}
+
+// The backward's head dims (tri_bwd.cu, packed_bwd.cu): its D 192 bodies
+// are not yet held to the plain versions on the card (ROADMAP A.1e).
+template <typename F>
+inline int dispatch_tile(int dtype, int blk, int D, F&& f) {
+  return dispatch_dims<16, 32, 64, 128>(dtype, blk, D, f);
+}
+
+// The forward's (tri_fwd.cu, fwd_bb.cu, packed_fwd.cu; fused_step.cu and
+// packed_decode.cu switch over the same set): nemotron-4's 192 besides.
+template <typename F>
+inline int dispatch_fwd_tile(int dtype, int blk, int D, F&& f) {
+  return dispatch_dims<16, 32, 64, 128, 192>(dtype, blk, D, f);
 }
 
 }  // namespace tri

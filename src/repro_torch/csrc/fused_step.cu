@@ -43,7 +43,9 @@
 //
 // Dynamic shared memory is the larger of the two halves' needs
 // (tri::DecodeShape: a chunk's ring of K/V tiles, 143 KB with an f32 cache
-// at D 128).
+// at D 128; at D 192 the f32 cache's ring takes 211,072 bytes at blk 64
+// and 215,168 at blk 128, over the prefill half's 123,928 and 148,496,
+// within the 232,448 a block may take at every blk).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -177,6 +179,7 @@ int dispatch_d(int D, const Args& a) {
     case 32: return launch_fused<TQ, TC, BLK, 32>(a);
     case 64: return launch_fused<TQ, TC, BLK, 64>(a);
     case 128: return launch_fused<TQ, TC, BLK, 128>(a);
+    case 192: return launch_fused<TQ, TC, BLK, 192>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

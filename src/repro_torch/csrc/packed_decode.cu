@@ -30,7 +30,7 @@
 //
 // Template parameters are the query and cache element types, covering the
 // engine's bf16 queries against an f32 cache and the other combinations,
-// the tile edge and the head dim. The block's body is tri::decode_walk
+// the tile edge and the head dim (16-192). The block's body is tri::decode_walk
 // (attn_decode.cuh), which the fused step kernel runs too, at its prefill
 // body's thread count; both give the same bits.
 
@@ -91,6 +91,7 @@ int dispatch_d(int D, const Args& a) {
     case 32: return launch_decode<TQ, TC, BLK, 32>(a);
     case 64: return launch_decode<TQ, TC, BLK, 64>(a);
     case 128: return launch_decode<TQ, TC, BLK, 128>(a);
+    case 192: return launch_decode<TQ, TC, BLK, 192>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

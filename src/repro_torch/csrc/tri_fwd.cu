@@ -29,7 +29,11 @@
 // blk / 4 packed bf16 pairs a thread: 32 + 64 + 16 at blk 64, D 128; ptxas
 // gives that instantiation 128 registers, no spills). Shared memory is
 // 5 blk D 2 bytes plus three mbarriers and 1 KB of alignment: 81 KB at
-// blk 64, D 128 (two blocks an SM), 161 KB at blk 128 (one).
+// blk 64, D 128 (two blocks an SM), 161 KB at blk 128 (one). Head dim 192
+// (nemotron-4) takes the same body: 123,928 bytes at blk 64; at blk 128
+// two stages would take 246,808, over the 232,448 a block may take, so
+// the ring keeps one (148,496) and the next tile's copy no longer
+// overlaps this tile's products.
 //
 // float32 keeps the CUDA-core body (tri::prefill_row_tile, attn_tiles.cuh,
 // scalar f32 FMAs): the reference computes in f32 and TF32 would compute
@@ -108,7 +112,7 @@ extern "C" int tri_fwd_launch(const void* q, const void* k, const void* v,
                               int win, int pre, float scale, int dtype,
                               void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  return tri::dispatch_tile(dtype, blk, D, [&](auto t, auto blk_c, auto d_c) {
+  return tri::dispatch_fwd_tile(dtype, blk, D, [&](auto t, auto blk_c, auto d_c) {
     using T = typename decltype(t)::type;
     constexpr int BLK = decltype(blk_c)::value, DD = decltype(d_c)::value;
     if constexpr (std::is_same_v<T, __nv_bfloat16>) {

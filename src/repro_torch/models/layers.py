@@ -23,14 +23,15 @@ from repro_torch.kernels.tri_attn import ref as attn_ref
 
 def dense_init(gen, shape, fan_in, dtype, device, stack: int = 0):
     """N(0, 1/fan_in) weights from ``gen``; a stacked leaf is drawn one
-    layer at a time so the f32 draw never holds more than one layer."""
+    layer at a time and scaled in place, so the f32 draw never holds more
+    than one layer once (nemotron-4's 18432 x 256000 head: 18.9 GB)."""
     if not stack:
         w = torch.randn(shape, generator=gen, device=device)
-        return (w / math.sqrt(fan_in)).to(dtype)
+        return w.div_(math.sqrt(fan_in)).to(dtype)
     out = torch.empty((stack,) + tuple(shape), dtype=dtype, device=device)
     for l in range(stack):
         w = torch.randn(shape, generator=gen, device=device)
-        out[l] = (w / math.sqrt(fan_in)).to(dtype)
+        out[l] = w.div_(math.sqrt(fan_in)).to(dtype)
     return out
 
 

@@ -80,8 +80,8 @@ def init_params(cfg, seed: int = 0, device=DEV.DEFAULT_DEVICE):
         layers[f"l{p}"] = {"norm1": ones(n, d), "mixer": mixer,
                            "norm2": ones(n, d), "ffn": ffn}
     params = {
-        "embed": (torch.randn((vp, d), generator=gen, device=dev)
-                  * 0.02).to(dtype),
+        "embed": torch.randn((vp, d), generator=gen, device=dev)
+                 .mul_(0.02).to(dtype),
         "layers": layers,
         "final_norm": ones(d),
     }

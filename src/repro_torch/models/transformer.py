@@ -34,21 +34,29 @@ def check_supported(cfg):
                 f"{KINDS})")
 
 
-def check_kernel_head_dim(cfg, impl: str):
+def check_kernel_head_dim(cfg, impl: str, *, backward: bool = False):
     """Refuse, before anything is built or launched, an architecture
-    whose attention head dim the kernels have no body for (nemotron-4's
-    192): impl "cuda" only, attention layers only."""
+    whose attention head dim the kernels have no body for: impl "cuda"
+    only, attention layers only. The forward bodies (serving, the prefill
+    step) take nemotron-4's 192; the backward's (``backward``: the train
+    step) do not yet."""
     if impl != "cuda" or "attn" not in cfg.layer_pattern:
         return
-    dims = attn_kernel.SUPPORTED_HEAD_DIMS
-    if cfg.head_dim not in dims:
+    dims = attn_kernel.BWD_HEAD_DIMS if backward \
+        else attn_kernel.FWD_HEAD_DIMS
+    if cfg.head_dim in dims:
+        return
+    if backward and cfg.head_dim in attn_kernel.FWD_HEAD_DIMS:
         raise NotImplementedError(
-            f"{cfg.name}: head dim {cfg.head_dim} has no attention kernel "
-            f"body (the kernels take head dims {dims}); a D {cfg.head_dim} "
-            f"instantiation of the forward, packed, decode and fused "
-            f"bodies and a dk/dv backward that fits its registers are "
-            f"ROADMAP A.1d; run impl='torch' (the plain versions) until "
-            f"then")
+            f"{cfg.name}: head dim {cfg.head_dim} has no attention backward "
+            f"kernel body (the backward takes head dims {dims}; the forward "
+            f"bodies serve it): the D {cfg.head_dim} dq and dk/dv bodies "
+            f"are ROADMAP A.1e; train with attn_impl='torch' (the plain "
+            f"versions) until then")
+    raise NotImplementedError(
+        f"{cfg.name}: head dim {cfg.head_dim} has no attention kernel body "
+        f"(the kernels take head dims {dims}); run impl='torch' (the plain "
+        f"versions)")
 
 
 def layer_params(tree, l: int):

@@ -54,7 +54,8 @@ before the round commits, so the fleet can migrate the replica's requests.
 
 Kernel builds happen at construction when an impl is "cuda", so a build
 failure raises there; before that, an arch whose attention head dim no
-kernel body takes (nemotron-4-340b's 192) is refused.
+forward kernel body takes is refused (head dims 16-128 and nemotron-4's
+192 are served).
 """
 
 from __future__ import annotations

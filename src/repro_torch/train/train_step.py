@@ -113,13 +113,13 @@ def make_train_step(cfg, opt: OPT.OptConfig, *, microbatches: int = 1,
     bin-packed documents (train/data.PackedDocsLM batches, which carry
     "positions" and "mask"): one static schedule serves every step.
     Batches may carry "embeds" (the stub frontends). On the kernels an
-    arch whose head dim no attention body takes is refused here
-    (``transformer.check_kernel_head_dim``)."""
+    arch whose head dim no attention backward body takes (nemotron-4's
+    192) is refused here (``transformer.check_kernel_head_dim``)."""
     if packed is not None and microbatches != 1:
         raise ValueError(f"a packed batch is one row (B = 1) of bin-packed "
                          f"documents, so it does not split into "
                          f"{microbatches} microbatches: pass microbatches=1")
-    T.check_kernel_head_dim(cfg, attn_impl)
+    T.check_kernel_head_dim(cfg, attn_impl, backward=True)
     labels = {"impl": attn_impl, "packed": "0" if packed is None else "1"}
 
     def train_step(state: TrainState, batch):

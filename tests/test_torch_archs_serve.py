@@ -7,9 +7,10 @@ equal the JAX MODEL's per-request greedy decode for granite-moe (MoE, top
 past its smoke window of 64 (band members in the admission prefill, a
 rolling slot cache that wraps) and for granite-34b (gelu, one kv head).
 Port alone: one train step of each new arch (finite, params moved, grad
-norm above 0), nemotron-4-340b's refusal at head dim 192 on the kernels
-before anything is built, and each new arch's smoke config through the
-serving and training CLIs.
+norm above 0), nemotron-4-340b's head dim 192 taken by the engine and the
+prefill step on the kernels and refused by the trainer (and by the
+attention ops for an operand that needs a grad) before anything is built,
+and each new arch's smoke config through the serving and training CLIs.
 """
 
 import copy
@@ -121,27 +122,37 @@ def test_one_train_step(arch):
 
 
 def test_nemotron_head_dim_is_refused_up_front():
-    """At published widths the engine, the trainer and the prefill step
-    refuse head dim 192 on the kernels before building or launching
-    anything, naming the dim, the supported dims and the ROADMAP item;
-    the plain versions and the smoke config (head dim 16) are not
-    refused."""
+    """At published widths the engine and the prefill step take head dim
+    192 on the kernels (the forward bodies have a D 192 instantiation):
+    the engine gets past the head-dim check to its device check, the
+    prefill step builds. The trainer refuses it before building or
+    launching anything, naming the dim, the backward's head dims and its
+    ROADMAP item, as the attention ops do for a D 192 operand that needs a
+    grad; the plain versions are not refused."""
+    from repro_torch.kernels.tri_attn import ops as OPS
+
     cfg = REG.get_config("nemotron-4-340b")
     assert cfg.head_dim == 192
     opt = OPT.OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
-    msg = r"head dim 192 .*\(16, 32, 64, 128\).*ROADMAP A\.1d"
-    with pytest.raises(NotImplementedError, match=msg):
+    with pytest.raises(ValueError, match="needs device='cuda'"):
         Engine(None, cfg, slots=2, max_len=64, device="cpu")
+    TS.make_prefill_step(cfg, attn_impl="cuda")
+    msg = r"head dim 192 .*backward.*\(16, 32, 64, 128\).*ROADMAP A\.1e"
     with pytest.raises(NotImplementedError, match=msg):
         TS.make_train_step(cfg, opt, attn_impl="cuda")
-    with pytest.raises(NotImplementedError, match=msg):
-        TS.make_prefill_step(cfg, attn_impl="cuda")
     TS.make_train_step(cfg, opt, attn_impl="torch")
-    smoke = REG.smoke_config("nemotron-4-340b")
-    TS.make_train_step(smoke, opt, attn_impl="cuda")
-    # past the refusal, the kernel path's own device check speaks
-    with pytest.raises(ValueError, match="needs device='cuda'"):
-        Engine(None, smoke, slots=2, max_len=64, device="cpu")
+    TS.make_train_step(REG.smoke_config("nemotron-4-340b"), opt,
+                       attn_impl="cuda")
+    q = torch.zeros((1, 2, 32, 192), requires_grad=True)
+    kv = torch.zeros((1, 1, 32, 192))
+    sched = OPS.make_sched(32, block=16)
+    psched = OPS.make_packed_sched([16, 16], block=16)
+    for fn, s in ((OPS._TriAttention, sched),
+                  (OPS._PackedTriAttention, psched)):
+        with pytest.raises(NotImplementedError, match="ROADMAP A.1e"):
+            fn.apply(q, kv, kv, s, 192 ** -0.5, "cuda")
+        out = fn.apply(q, kv, kv, s, 192 ** -0.5, "torch")
+        assert out.shape == q.shape and out.requires_grad
 
 
 @pytest.mark.parametrize("arch", NEW_ARCHS)

@@ -48,10 +48,16 @@ def _rand(rng, shape, dtype, dev):
                            device=dev).to(dtype)
 
 
+# D 192 (nemotron-4) at g 1 and 12 at every edge: wgmma m64n192k16 at 64
+# and 128 (one K/V stage at 128), mma.sync at 16 and 32
+D192_PACKED = [(blk, 192, h, hkv) for blk in (16, 32, 64, 128)
+               for h, hkv in ((2, 2), (12, 1))]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("blk,d,h,hkv", [(16, 16, 4, 4), (16, 32, 4, 2),
                                          (32, 64, 8, 2), (64, 128, 32, 4),
-                                         (128, 128, 8, 1)])
+                                         (128, 128, 8, 1)] + D192_PACKED)
 def test_packed_fwd_matches_plain(dev, dtype, blk, d, h, hkv):
     rng = np.random.default_rng(blk + d + h)
     lens = [5 * blk, 2 * blk, 3 * blk, blk]
@@ -83,7 +89,8 @@ def _packed_fwd_case(dev, blk, d, g, hkv):
                     ((1, g * hkv, s, d), (1, hkv, s, d), (1, hkv, s, d))]
 
 
-@pytest.mark.parametrize("blk,d", [(64, 128), (128, 64), (128, 128)])
+@pytest.mark.parametrize("blk,d", [(64, 128), (128, 64), (128, 128),
+                                   (64, 192), (128, 192)])
 def test_packed_fwd_is_deterministic(dev, blk, d):
     """One block per accumulator owner on the bf16 wgmma body, no atomics:
     two runs are bitwise equal, and finite."""
@@ -121,10 +128,12 @@ def test_packed_fwd_misaligned_bf16_raises(dev, blk, arg):
 @pytest.mark.parametrize("q_dtype,c_dtype", [
     (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
     (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16)])
-# (64, 64, 16, 1): g = 16 query heads a kv head, two head slices of 8
+# (64, 64, 16, 1): g = 16 query heads a kv head, two head slices of 8; at
+# D 192 no thread count in use divides the 48 (f32) or 24 (bf16) columns
 @pytest.mark.parametrize("blk,d,h,hkv", [(16, 16, 4, 2), (32, 32, 8, 2),
                                          (64, 128, 32, 4), (128, 64, 8, 1),
-                                         (128, 128, 8, 2), (64, 64, 16, 1)])
+                                         (128, 128, 8, 2), (64, 64, 16, 1)]
+                         + D192_PACKED)
 def test_packed_decode_matches_plain(dev, q_dtype, c_dtype, blk, d, h, hkv):
     """Members across the chunk edges at every blk: a whole cache, one
     chunk exactly and one token past it, a band-limited slot whose
@@ -314,10 +323,10 @@ def _fused_case(rng, dev, *, blk, d, g, hkv, q_dtype, c_dtype, b=5,
 @pytest.mark.parametrize("q_dtype,c_dtype", [
     (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
     (torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16)])
-@pytest.mark.parametrize("g,hkv", [(1, 2), (8, 1)])
+@pytest.mark.parametrize("g,hkv", [(1, 2), (8, 1), (12, 1)])
 # bf16 q: the decode half at the prefill body's 2 blk threads, 32 to 256
 @pytest.mark.parametrize("blk", [16, 32, 64, 128])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 192])
 def test_fused_step_matches_plain(dev, d, blk, g, hkv, q_dtype, c_dtype):
     rng = np.random.default_rng(blk + d + g)
     psched, ins, spec = _fused_case(rng, dev, blk=blk, d=d, g=g, hkv=hkv,
@@ -905,9 +914,10 @@ BB_KINDS = {"ltm": lambda blk: None, "band": lambda blk: blk + 5,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("g,hkv", [(1, 2), (2, 2), (8, 1)])
+@pytest.mark.parametrize("g,hkv", [(1, 2), (2, 2), (8, 1), (12, 1)])
 @pytest.mark.parametrize("blk,d", [(16, 64), (32, 64), (64, 128),
-                                   (128, 128)])
+                                   (128, 128), (16, 192), (32, 192),
+                                   (64, 192), (128, 192)])
 @pytest.mark.parametrize("kind", ["ltm", "band", "band_short"])
 def test_fwd_bb_matches_plain_and_tri_fwd(dev, kind, blk, d, g, hkv, dtype):
     from repro_torch.kernels.tri_attn import scan_impl as SC
@@ -1705,15 +1715,16 @@ def test_odd_groups_tri_fwd_and_bwd_match_plain(dev, kind, g, hkv, dtype,
                                    **_group_grad_tol(name, dtype, g))
 
 
+@pytest.mark.parametrize("d", [64, 192])
 @pytest.mark.parametrize("blk", [16, 64])
-def test_decode_capacity_padding_is_inert(dev, blk):
+def test_decode_capacity_padding_is_inert(dev, blk, d):
     """The split decode round on the card: three capacity buckets give
     the same bits (the grid walks the live tiles, not the capacity), and
     the plain version's within the tolerance."""
     rng = np.random.default_rng(blk)
     b, s_cache = 3, 8 * blk
     q, kc, vc, tbl, needed = _decode_case(
-        rng, dev, [2 * blk + 1, 8 * blk - 2], [0, 2], blk=blk, d=64, h=8,
+        rng, dev, [2 * blk + 1, 8 * blk - 2], [0, 2], blk=blk, d=d, h=8,
         hkv=2, b=b, s_cache=s_cache, q_dtype=torch.float32)
     runs = [OPS.packed_decode_attention(
         q, kc, vc, tbl, OPS.DecodeRoundSpec(b + 1, capacity, blk, "cuda",
@@ -1726,3 +1737,115 @@ def test_decode_capacity_padding_is_inert(dev, blk):
                                             needed))
     _close(runs[0], want, torch.float32)
     assert torch.count_nonzero(runs[0][1]) == 0
+
+
+# ---------------------------------------------------------------------------
+# Head dim 192 (nemotron-4-340b) on the forward bodies, beside the D 192
+# cases of the packed_fwd, packed_decode, fused and fwd_bb tests above:
+# tri_fwd (bf16: mma.sync at blk 16 and 32, wgmma at 64 and 128, one K/V
+# stage at 128; f32: the CUDA-core body) at g 1 and nemotron's 12, and the
+# decode body's PV items over 48 f32 or 24 bf16 columns, which no thread
+# count in use divides. The backward keeps head dims 16-128 (ROADMAP
+# A.1e) and refuses 192 before any launch.
+# ---------------------------------------------------------------------------
+
+D192_GROUPS = [(1, 2), (12, 1)]  # (g, Hkv)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,hkv", D192_GROUPS)
+@pytest.mark.parametrize("blk", [16, 32, 64, 128])
+@pytest.mark.parametrize("kind", ["ltm", "prefix", "band_short"])
+def test_d192_tri_fwd_matches_plain(dev, kind, blk, g, hkv, dtype):
+    from repro_torch.kernels.tri_attn import scan_impl as SC
+
+    sched, q, k, v, do = _tri_case(dev, kind, blk, 192, g, hkv, dtype, n=4,
+                                   b=1)
+    before = K.fwd.launches
+    out, lse = K.fwd(q, k, v, sched)
+    again = K.fwd(q, k, v, sched)
+    torch.cuda.synchronize()
+    assert K.fwd.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip((out, lse), again))
+    want_out, want_lse = SC.fwd_torch(q, k, v, sched, 192 ** -0.5)
+    _close(out, want_out, dtype, "out")
+    _close(lse, want_lse, dtype, "lse")
+    delta = (do.float() * out.float()).sum(dim=-1)
+    launched = K.bwd_dq.launches
+    with pytest.raises(ValueError, match="head_dim 192"):
+        K.bwd_dq(q, k, v, do, lse, delta, sched)
+    assert K.bwd_dq.launches == launched  # refused before the launch
+
+
+D192_DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+               (torch.bfloat16, torch.bfloat16)]  # (q, cache)
+
+
+@pytest.mark.parametrize("q_dtype,c_dtype", D192_DTYPES)
+@pytest.mark.parametrize("blk", [16, 32, 64, 128])
+def test_d192_decode_bits_at_any_thread_count_and_in_any_round(
+        dev, blk, q_dtype, c_dtype):
+    """At D 192 no thread count in use divides the decode body's 48 (f32)
+    or 24 (bf16) columns, so a thread's PV items lie on several columns;
+    each output element is still computed by the same operations, a key
+    at a time in key order, and a member's chunks merged in chunk order:
+    the fused kernel's decode half at 2 blk threads (bf16 q) or 256 and
+    packed_decode at 256 give the same bits, for members of one chunk
+    (acc / l written directly) and of several, and a slot alone gives the
+    bits it gives among the round."""
+    g, hkv, b = 12, 1, 5
+    rng = np.random.default_rng(blk + 192)
+    s_cache = 4 * blk
+    kv_lens, slots = [4 * blk, 3, 2 * blk + 5], [0, 2, 3]
+    psched, ins, spec = _fused_case(rng, dev, blk=blk, d=192, g=g, hkv=hkv,
+                                    q_dtype=q_dtype, c_dtype=c_dtype,
+                                    kv_lens=kv_lens, slots=slots)
+    _, o_dec = K.fused_step_fwd(*ins, psched=psched, capacity=spec.capacity,
+                                tiles=spec.tiles)
+    q, kc, vc = ins[3:6]
+    _, _, _, tbl, needed = _decode_case(rng, dev, kv_lens, slots, blk=blk,
+                                        d=192, b=b, s_cache=s_cache, q=q,
+                                        caches=(kc, vc))
+    split = K.packed_decode_fwd(q, kc, vc, tbl, capacity=needed, blk=blk,
+                                tiles=needed)
+    torch.cuda.synchronize()
+    assert torch.equal(o_dec[slots], split[slots])
+    chunks = [-(-min(n, s_cache) // K.DECODE_CHUNK) for n in kv_lens]
+    assert 1 in chunks and (blk < 64 or max(chunks) > 1), chunks
+    for slot, kv_len in zip(slots, kv_lens):
+        _, _, _, alone_tbl, alone_needed = _decode_case(
+            rng, dev, [kv_len], [slot], blk=blk, d=192, b=b,
+            s_cache=s_cache, q=q, caches=(kc, vc))
+        alone = K.packed_decode_fwd(q, kc, vc, alone_tbl,
+                                    capacity=alone_needed, blk=blk,
+                                    tiles=alone_needed)
+        torch.cuda.synchronize()
+        assert torch.equal(alone[slot], split[slot]), (blk, slot)
+
+
+def _launch_counts():
+    return {name: fn.launches for name, fn in K.WRAPPERS.items()}
+
+
+def test_d192_backward_is_refused_before_any_launch(dev):
+    """triangular_attention and packed_prefill_attention refuse, at
+    forward time, a D 192 operand that needs a grad on the kernels; the
+    trainer refuses nemotron-4-340b before building anything."""
+    from repro_torch.configs import registry as REG
+    from repro_torch.train import optimizer as OPT
+    from repro_torch.train import train_step as TS
+
+    rng = np.random.default_rng(0)
+    q, k, v = (_rand(rng, (1, 2, 128, 192), torch.bfloat16, dev)
+               for _ in range(3))
+    before = _launch_counts()
+    with pytest.raises(NotImplementedError, match="ROADMAP A.1e"):
+        OPS.triangular_attention(q.requires_grad_(), k, v, impl="cuda")
+    psched = OPS.make_packed_sched([64, 64], block=64)
+    with pytest.raises(NotImplementedError, match="ROADMAP A.1e"):
+        OPS.packed_prefill_attention(q, k, v, psched, impl="cuda")
+    with pytest.raises(NotImplementedError, match="ROADMAP A.1e"):
+        TS.make_train_step(REG.get_config("nemotron-4-340b"),
+                           OPT.OptConfig(), attn_impl="cuda")
+    assert _launch_counts() == before
+
