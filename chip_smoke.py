@@ -186,15 +186,25 @@ Phases (any failure exits non-zero; nothing is caught):
      2 x layers tri_attn.fwd and layers dq and dk/dv launches a step, then
      a smoke-size float32 step each on the kernels against the plain
      versions (rtol 1e-5); nemotron-4-340b (head dim 192, g 12): rows
-     1-5 of the kernel table at its attention shape (H 96, Hkv 8, D 192,
+     1-9 of the kernel table at its attention shape (H 96, Hkv 8, D 192,
      bf16, blk 64; the kernel phase's serving members, one layer at seq
-     2048 for tri_fwd and fwd_bb) against their plain versions, in turns
-     with SDPA, beside their bounds, then its published widths cut to 4
-     of 96 layers (46.51 GB) served as granite-34b is, split and fused
-     (staggered budgets), launches = 4 x the engine's, a profiler window
-     over 4 decode rounds and the host syncs a round, a make_prefill_step
-     batch through tri_fwd against the oracle, the trainer's refusal of
-     the D 192 backward with nothing launched; each new arch's smoke
+     2048 for tri_fwd and fwd_bb, bwd dq and dk/dv at seq 2048 and
+     packed_bwd dq and dk/dv on one 2048-row row of 8 documents, each
+     backward twice bitwise, in turns with SDPA's backward, its device
+     time) against their plain versions, in turns with SDPA, beside their
+     bounds, then its published widths cut to 4 of 96 layers (46.51 GB)
+     served as granite-34b is, split and fused (staggered budgets),
+     launches = 4 x the engine's, a profiler window over 4 decode rounds
+     and the host syncs a round, a make_prefill_step batch through
+     tri_fwd against the oracle; then cut to 1 of 96 layers (12.89 B
+     parameters, bf16, remat, Adafactor, microbatches 1) and trained 3
+     dense steps on one 2048-token row and 3 packed steps on one row of
+     8 documents: launches of exactly 2 (fwd or packed_fwd) and 1 (dq,
+     dk/dv) a layer a step, the first step's loss and attention weights'
+     grads within the bf16 policy of the same step through the oracle
+     attention, losses finite and falling, step times, real tokens/s and
+     peak memory, and the first step's chunked Adafactor update of wo
+     against a whole-leaf float32 one on the card; each new arch's smoke
      config, and nemotron's at head dim 192, as a float32 engine on the
      kernels emitting the plain versions' tokens; the serving CLI with --arch
      granite-moe-3b-a800m; a {"other_archs": ...} line;
@@ -217,7 +227,7 @@ Phases (any failure exits non-zero; nothing is caught):
      bitwise-equal states; 3 packed steps with the kernels and with the
      plain versions agree, and packed and padded losses agree (rtol
      1e-5).
-The last lines are the {"kernels": [...]} line (rows 1-5 carry their
+The last lines are the {"kernels": [...]} line (rows 1-9 carry their
 nemotron D 192 readings under "at_d192"), the card line and
 {"ok": true, "device": {...}}.
 """
@@ -2968,6 +2978,26 @@ WIDE_ENGINE = dict(slots=2, requests=4, lens=(16, 256), max_new=16)
 NEMOTRON_CUT = 4
 NEMOTRON_BUDGETS = (16, 8, 12, 4)
 NEMOTRON_SEQ = 2048
+# the packed train phase's eight documents scaled to one NEMOTRON_SEQ row
+# (1900 real tokens, padded to blk 64: 704 + 512 + 320 + 192 + 128 + 3 x 64)
+NEMOTRON_DOCS = (700, 500, 300, 180, 100, 60, 40, 20)
+# nemotron's training: depth cut to 1 of 96 layers (12.89 B parameters,
+# 25.8 GB of bf16 weights and as much of grads; Adafactor's factored state
+# is O(rows + cols), where AdamW's moments would add 103 GB), 3 steps of
+# one row, dense then packed, through the reference's Adafactor
+NEMOTRON_TRAIN_CUT = 1
+NEMOTRON_TRAIN_STEPS = 3
+# one row repeated, so the loss must fall: Adafactor's update is unit RMS
+# whatever the grad's size, and at these widths on the H100 an lr of 1e-4
+# took the loss 13.02 -> 70.05, 3e-5 and 1e-5 up and down; 3e-6 falls at
+# every step (PERF.md section 6)
+NEMOTRON_OPT = dict(kind="adafactor", lr=3e-6, warmup_steps=1,
+                    total_steps=100)
+# the bf16 policy of a whole step against its oracle-attention twin: the
+# loss within PAD_LOSS_RTOL, the attention weights' grads within
+# BF16_GRAD_TOL with the absolute part scaled by the leaf's largest grad
+# (tests/test_torch_train.py's bf16 grads)
+NEMOTRON_ATTN_WEIGHTS = ("wq", "wk", "wv", "wo")
 FRONTEND_TRAIN = {"musicgen-large": 2048, "internvl2-1b": 4096}  # seq
 
 
@@ -3551,27 +3581,141 @@ def nemotron_dense_rows(dev, K, SC, h, hkv, d, s_len):
     return rows
 
 
+def _sdpa_backend(q, k, v, **kw) -> str:
+    """The backend SDPA picks for these operands (PyTorch's own choice,
+    torch._fused_sdp_choice), or why it could not be read."""
+    from torch.nn.attention import SDPBackend
+
+    try:
+        return SDPBackend(torch._fused_sdp_choice(q, k, v, **kw)).name
+    except (AttributeError, RuntimeError, TypeError, ValueError) as e:
+        return f"not read ({type(e).__name__}: {e})"
+
+
+def nemotron_train_rows(dev, K, SC, h, hkv, d, s_len):
+    """Rows 6-9 of the kernel table at nemotron-4's attention shape: bwd dq
+    and dk/dv at one dense layer (B 1, H h, Hkv hkv, S s_len, D d, ltm,
+    blk 64, bf16) and packed_bwd dq and dk/dv on one s_len-row row of
+    NEMOTRON_DOCS: each against its plain version at BF16_GRAD_TOL, twice
+    bitwise, in turns with SDPA's autograd backward (causal, or the
+    block-diagonal causal mask), its device time beside its bound (over
+    the pairs the mask keeps). Returns {name: reading}."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.tri_attn import ops as OPS
+
+    rng = np.random.default_rng(28)
+    blk, scale = 64, d ** -0.5
+    q, do = (torch.as_tensor(rng.standard_normal((1, h, s_len, d),
+                                                 np.float32),
+                             device=dev).to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.as_tensor(rng.standard_normal((1, hkv, s_len, d),
+                                                np.float32),
+                            device=dev).to(torch.bfloat16) for _ in range(2))
+    lens = [-(-n // blk) * blk for n in NEMOTRON_DOCS]
+    if sum(lens) != s_len:
+        _fail(f"nemotron documents pad to {sum(lens)} rows, not {s_len}")
+    sched = OPS.make_sched(s_len, block=blk)
+    psched = OPS.make_packed_sched(lens, block=blk)
+    mask = torch.zeros((s_len, s_len), dtype=torch.bool, device=dev)
+    base = 0
+    for n_tok in lens:
+        mask[base:base + n_tok, base:base + n_tok] = torch.ones(
+            (n_tok, n_tok), dtype=torch.bool, device=dev).tril()
+        base += n_tok
+    cases = {
+        "tri_attn.bwd": (K.fwd, K.bwd_dq, K.bwd_dkv, SC.dq_torch,
+                         SC.dkv_torch, sched, dict(is_causal=True),
+                         h * s_len * (s_len + 1) // 2, "tri_bwd",
+                         {"kind": "ltm"}),
+        "tri_attn.packed_bwd": (
+            K.packed_fwd, K.packed_bwd_dq, K.packed_bwd_dkv,
+            SC.packed_dq_torch, SC.packed_dkv_torch, psched,
+            dict(attn_mask=mask), h * int(mask.sum()), "packed_bwd",
+            {"kind": "ltm", "docs": list(NEMOTRON_DOCS),
+             "member_lens": lens, "steps": psched.steps})}
+    rows = {}
+    for name, (fwd, dq_fn, dkv_fn, dq_plain, dkv_plain, sc, sdpa_kw, pairs,
+               kern, extra) in cases.items():
+        out, lse = fwd(q, k, v, sc)
+        delta = (do.float() * out.float()).sum(dim=-1)
+        del out
+        run = {"dq": lambda: dq_fn(q, k, v, do, lse, delta, sc),
+               "dkv": lambda: dkv_fn(q, k, v, do, lse, delta, sc)}
+        got = {key: fn() for key, fn in run.items()}
+        again = {key: fn() for key, fn in run.items()}
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(
+                [got["dq"], *got["dkv"]], [again["dq"], *again["dkv"]])):
+            _fail(f"{name} at D {d}: two runs on the same inputs differ")
+        del again
+        want = {"dq": dq_plain(q, k, v, do, lse, delta, sc, scale),
+                "dkv": dkv_plain(q, k, v, do, lse, delta, sc, scale)}
+        err = {"dq": _close(f"{name} D {d} dq", got["dq"], want["dq"],
+                            BF16_GRAD_TOL),
+               "dkv": max(_close(f"{name} D {d} dk", got["dkv"][0],
+                                 want["dkv"][0], BF16_GRAD_TOL),
+                          _close(f"{name} D {d} dv", got["dkv"][1],
+                                 want["dkv"][1], BF16_GRAD_TOL))}
+        plain = {"dq": _median_ms(lambda: dq_plain(q, k, v, do, lse, delta,
+                                                   sc, scale), 2, 1),
+                 "dkv": _median_ms(lambda: dkv_plain(q, k, v, do, lse,
+                                                     delta, sc, scale), 2, 1)}
+        del got, want
+        bw = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        backend = _sdpa_backend(*bw, enable_gqa=True, **sdpa_kw)
+        o_lib = F.scaled_dot_product_attention(*bw, enable_gqa=True,
+                                               **sdpa_kw)
+        sdpa_bwd = lambda: torch.autograd.grad(o_lib, bw, do,
+                                               retain_graph=True)
+        turns = _in_turns(dict(run, sdpa=sdpa_bwd), 10)
+        bounds = _attn_bounds(q, k, pairs)
+        for key in ("dq", "dkv"):
+            row_name = f"{name}_{key}"
+            rows[row_name] = {
+                "ms": turns[key][0], "ms_turns": turns[key][1],
+                "library_ms": turns["sdpa"][0],
+                "library_ms_turns": turns["sdpa"][1],
+                "library": f"SDPA autograd backward (dq, dk and dv "
+                           f"together), backend {backend}",
+                "device_ms": _device_ms(lambda: [run[key]()
+                                                 for _ in range(10)], 10,
+                                        f"{kern}_{key}"),
+                "plain_ms": plain[key], "bound_ms": bounds[key][0],
+                "bound_by": bounds[key][1], "max_abs_err": err[key],
+                "path": K.tile_body(q.dtype, blk, "bwd"),
+                "grid": list((K.bwd_grid if kern == "tri_bwd"
+                              else K.packed_bwd_grid)(
+                    key, sc, h if key == "dq" else hkv, 1, q.dtype)),
+                "shape": dict({"B": 1, "H": h, "Hkv": hkv, "S": s_len,
+                               "D": d, "blk": blk, "pairs": pairs},
+                              **extra)}
+        del o_lib, bw, lse, delta
+        torch.cuda.empty_cache()
+    return rows
+
+
 def nemotron_phase(dev, card, K, tc_build):
     """nemotron-4-340b at its published widths (d_model 18432, 96 heads
     over 8 kv heads, head dim 192, relu2 d_ff 73728, vocab 256000), depth
-    cut to NEMOTRON_CUT layers: first rows 1-5 of the kernel table at its
+    cut to NEMOTRON_CUT layers: first rows 1-9 of the kernel table at its
     attention shape (H 96, Hkv 8, D 192, bf16, blk 64; the serving
-    members of the kernel phase, one layer at seq NEMOTRON_SEQ) against
-    their plain versions, timed beside SDPA and their bounds; then an
-    engine of 2 slots and 4 requests of 16-256 tokens, 16 new, split then
-    fused (staggered budgets), every request done on the kernels,
-    launches = NEMOTRON_CUT x the engine's, first-token logits within the
-    bf16 policy of a batch-1 prefill through the attention oracle; a
+    members of the kernel phase, one layer at seq NEMOTRON_SEQ, the
+    dense and packed backward at the training shapes) against their plain
+    versions, timed beside SDPA and their bounds; then an engine of 2
+    slots and 4 requests of 16-256 tokens, 16 new, split then fused
+    (staggered budgets), every request done on the kernels, launches =
+    NEMOTRON_CUT x the engine's, first-token logits within the bf16
+    policy of a batch-1 prefill through the attention oracle; a
     make_prefill_step batch through tri_attn.fwd against the oracle's;
-    the trainer's refusal (the D 192 backward), nothing launched. Returns
-    {kernel name: its D 192 reading}."""
+    then nemotron trained on the kernels (nemotron_training). Returns
+    ({kernel name: its D 192 reading}, first-token errors, the training's
+    readings)."""
     from repro_torch.configs import registry as REG
     from repro_torch.kernels.tri_attn import ops as OPS
     from repro_torch.kernels.tri_attn import scan_impl as SC
     from repro_torch.obs import metrics as MET
     from repro_torch.serve import decode as D
     from repro_torch.serve.engine import Engine
-    from repro_torch.train import optimizer as OPT
     from repro_torch.train import train_step as TS
 
     full = REG.get_config("nemotron-4-340b")
@@ -3586,11 +3730,18 @@ def nemotron_phase(dev, card, K, tc_build):
     readings = {row["name"]: row for row in rows}
     readings.update(nemotron_dense_rows(dev, K, SC, h, hkv, d,
                                         NEMOTRON_SEQ))
+    readings.update(nemotron_train_rows(dev, K, SC, h, hkv, d,
+                                        NEMOTRON_SEQ))
     for name, kern in (("tri_attn.packed_fwd", "packed_fwd_tc_kernel"),
                        ("tri_attn.fused_step_fwd",
                         "fused_step_kernel f32 cache"),
                        ("tri_attn.fwd", "tri_fwd_tc_kernel"),
-                       ("tri_attn.fwd_bb", "fwd_bb_tc_kernel")):
+                       ("tri_attn.fwd_bb", "fwd_bb_tc_kernel"),
+                       ("tri_attn.bwd_dq", "tri_bwd_dq_tc_kernel"),
+                       ("tri_attn.bwd_dkv", "tri_bwd_dkv_tc_kernel"),
+                       ("tri_attn.packed_bwd_dq", "packed_bwd_dq_tc_kernel"),
+                       ("tri_attn.packed_bwd_dkv",
+                        "packed_bwd_dkv_tc_kernel")):
         readings[name]["ptxas"] = tc_build[(kern, 64, d)]
     torch.cuda.empty_cache()
     print(f"nemotron D {d} kernels ({time.perf_counter() - t0:.1f} s): "
@@ -3680,25 +3831,212 @@ def nemotron_phase(dev, card, K, tc_build):
     del params
     torch.cuda.empty_cache()
 
-    _reset_launches(K)
-    try:
-        TS.make_train_step(cfg, OPT.OptConfig(), attn_impl="cuda")
-    except NotImplementedError as e:
-        if "head dim 192" not in str(e) or "ROADMAP A.1e" not in str(e):
-            _fail(f"nemotron trainer: refusal does not name head dim 192 "
-                  f"and its ROADMAP item: {e}")
-        refusal = str(e)
-    else:
-        _fail("nemotron trainer: head dim 192 was not refused")
-    torch.cuda.synchronize()
-    if any(_launches(K).values()):
-        _fail(f"nemotron: the trainer's refusal launched {_launches(K)}")
     print(f"nemotron-4-340b: prefill step of 2 x 256 tokens on the kernels, "
           f"launches {launches}, logits vs the oracle attention's max abs "
-          f"err {errs['prefill_step']:.4g} (bf16 policy); the trainer "
-          f"refuses head dim {d} up front, no launch: {refusal!r}; phase "
-          f"{time.perf_counter() - t0:.1f} s; card {card}", flush=True)
-    return readings, errs
+          f"err {errs['prefill_step']:.4g} (bf16 policy); card {card}",
+          flush=True)
+    train = nemotron_training(dev, card, K, full)
+    print(f"nemotron phase {time.perf_counter() - t0:.1f} s; card {card}",
+          flush=True)
+    return readings, errs, train
+
+
+def _attn_weight_grads(grads) -> dict:
+    """Copies of the attention weights' per-layer grads of a train-step
+    grad tree (``train_step.trainable``'s layout)."""
+    out = {}
+    for kind, layer in grads["layers"].items():
+        for name in NEMOTRON_ATTN_WEIGHTS:
+            for l, g in enumerate(layer["mixer"][name]):
+                out[f"{kind}.{l}.{name}"] = g.detach().clone()
+    return out
+
+
+def _adafactor_whole_leaf(opt, p, g):
+    """The reference's Adafactor step at step 0 (beta2_t = 0) of one
+    factored (rows, cols) leaf alone, in float32 on whole tensors: its own
+    global clip, row and column means, the RMS clip, weight decay.
+    Returns (u, vr, vc), u the step in units of the learning rate (p
+    becomes p - lr u)."""
+    g = g.float()
+    norm = torch.sqrt(torch.sum(g * g))
+    g = g * torch.clamp(opt.grad_clip / torch.clamp(norm, min=1e-12),
+                        max=1.0)
+    g2 = g * g + 1e-30
+    vr, vc = g2.mean(dim=-1), g2.mean(dim=-2)
+    del g2
+    u = g / (torch.sqrt(vr / vr.mean())[:, None] * torch.sqrt(vc)[None, :]
+             + 1e-30)
+    del g
+    rms = torch.sqrt(torch.mean(u * u) + 1e-30)
+    u = u / torch.clamp(rms / opt.clip_threshold, min=1.0)
+    return u + opt.weight_decay * p, vr, vc
+
+
+def nemotron_training(dev, card, K, full):
+    """nemotron-4-340b at published widths, depth cut to NEMOTRON_TRAIN_CUT
+    layers, bf16 weights, blk 64, remat, Adafactor, microbatches 1: 3
+    dense steps of one NEMOTRON_SEQ-token row through tri_attn.fwd and the
+    D 192 bwd dq and dk/dv, then 3 packed steps of one row of
+    NEMOTRON_DOCS through packed_fwd and the packed dq and dk/dv. Before
+    each run, the same first step through impl "ref" (the masked oracle
+    attention) from the same weights: its loss and attention weights'
+    grads against the kernels' first step at the bf16 policy. Launches
+    asserted, losses finite and falling, step times, real tokens/s and
+    peak memory, a profiler window over a fourth step (outside the
+    launch counts); then the first step's chunked Adafactor update of the
+    layer's attention wo against a whole-leaf float32 Adafactor on the
+    card. Returns the readings."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.tri_attn import ops as OPS
+    from repro_torch.models import model as MD
+    from repro_torch.obs import metrics as MET
+    from repro_torch.train import data as DATA
+    from repro_torch.train import fault_tolerance as FT
+    from repro_torch.train import optimizer as OPT
+    from repro_torch.train import train_step as TS
+
+    t0 = time.perf_counter()
+    cut, steps, blk = NEMOTRON_TRAIN_CUT, NEMOTRON_TRAIN_STEPS, 64
+    cfg = dataclasses.replace(full, n_layers=cut)
+    opt = OPT.OptConfig(**NEMOTRON_OPT)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = TS.init_state(cfg, opt, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(state.params))
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    opt_mb = sum(x.numel() * 4 for x in _leaves(state.opt_state)) / 1e6
+    print(f"nemotron train: {cut} of {full.n_layers} layers at published "
+          f"widths, {n_params / 1e9:.3f} B parameters, {state_gb:.2f} GB of "
+          f"bf16 weights and Adafactor state ({opt_mb:.1f} MB of it the "
+          f"factored statistics) in {time.perf_counter() - t0:.1f} s; "
+          f"{NEMOTRON_OPT}, microbatches 1, remat, blk {blk}", flush=True)
+    dense = DATA.SyntheticLM(cfg, ShapeConfig("nemotron_train", NEMOTRON_SEQ,
+                                              1, "train"),
+                             seed=0, device=dev).batch(0)
+    docs = DATA.PackedDocsLM(cfg, NEMOTRON_DOCS, block=blk, seed=0,
+                             device=dev)
+    psched = OPS.make_packed_sched(docs.member_lens, block=blk)
+    runs = {"dense": (dense, None, NEMOTRON_SEQ,
+                      {"tri_attn.fwd": 2 * cut * steps,
+                       "tri_attn.bwd_dq": cut * steps,
+                       "tri_attn.bwd_dkv": cut * steps}),
+            "packed": (docs.batch(0), psched, sum(NEMOTRON_DOCS),
+                       {"tri_attn.packed_fwd": 2 * cut * steps,
+                        "tri_attn.packed_bwd_dq": cut * steps,
+                        "tri_attn.packed_bwd_dkv": cut * steps})}
+    seen, readings = {}, {}
+    real_apply = OPT.apply_updates
+    wo_of = lambda t: t["layers"]["l0"]["mixer"]["wo"][0]
+
+    def spy(opt_, params, grads, opt_state, step, **kw):
+        if "grads" not in seen:  # the run's first step
+            seen["grads"] = _attn_weight_grads(grads)
+            seen.setdefault("wo", (wo_of(params).detach().float().clone(),
+                                   wo_of(grads).detach().clone(), step))
+        return real_apply(opt_, params, grads, opt_state, step, **kw)
+
+    for run, (batch, packed, real, want) in runs.items():
+        # the first step through the oracle attention, from the same weights
+        views = TS.trainable(state.params)
+        ref_loss = MD.loss_fn(views, cfg, batch, attn_impl="ref",
+                              remat=True, block=blk, packed=packed)[0]
+        ref_loss.backward()
+        ref_grads = _attn_weight_grads(TS.grads_of(views))
+        # the graph's leaves hold every grad (25.8 GB): nothing may keep it
+        ref_loss = float(ref_loss.detach())
+        del views
+        torch.cuda.empty_cache()
+        step = TS.make_train_step(cfg, opt, attn_impl="cuda", remat=True,
+                                  block=blk, packed=packed)
+        times, first = [], int(state.step)
+        seen.pop("grads", None)
+        reg = MET.Registry(f"nemotron_train_{run}")
+        OPT.apply_updates = spy
+        try:
+            _reset_launches(K)
+            with MET.scope(reg):
+                state, log = FT.run_training(state, _timed(step, times),
+                                             lambda i: batch, first + steps)
+            launches = _check_launches(f"nemotron {run} train", K, reg, want)
+        finally:
+            OPT.apply_updates = real_apply
+        losses = [m["loss"] for m in log]
+        if len(losses) != steps or not all(np.isfinite(losses)) or not all(
+                b < a for a, b in zip(losses, losses[1:])):
+            _fail(f"nemotron {run} train: losses {losses} not finite and "
+                  f"falling")
+        if not np.isclose(losses[0], ref_loss, rtol=PAD_LOSS_RTOL, atol=0):
+            _fail(f"nemotron {run} train: first loss {losses[0]} against "
+                  f"the oracle attention's {ref_loss} (rtol "
+                  f"{PAD_LOSS_RTOL})")
+        errs = {}
+        for key, want_g in ref_grads.items():
+            scale = max(1e-30, float(want_g.float().abs().max()))
+            tol = dict(BF16_GRAD_TOL, atol=BF16_GRAD_TOL["atol"] * scale)
+            errs[key] = _close(f"nemotron {run} first-step grad {key}",
+                               seen["grads"][key], want_g, tol) / scale
+        del ref_grads
+        seen.pop("grads")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        readings[run] = {
+            "losses": losses, "oracle_first_loss": ref_loss,
+            "grad_norms": [m["grad_norm"] for m in log],
+            "step_s": times, "real_tokens": real,
+            "tokens_per_s": real / statistics.median(times),
+            "peak_gb": peak, "launches": launches,
+            "attn_grad_err_over_max": errs}
+        print(f"nemotron {run} train: {steps} Adafactor steps on one "
+              f"{batch['tokens'].shape[1]}-token row ({real} real tokens"
+              + (f", {len(NEMOTRON_DOCS)} documents, {psched.steps} tiles "
+                 f"a head" if packed is not None else "")
+              + f"), losses {losses} (the oracle attention's first "
+              f"{ref_loss:.6f}), grad norms {readings[run]['grad_norms']}; "
+              f"first-step attention grads vs the oracle's, max abs err / "
+              f"max |grad|: { {k: round(v, 5) for k, v in errs.items()} }; "
+              f"step times {times} s, {readings[run]['tokens_per_s']:.1f} "
+              f"real tokens/s (median step); peak memory {peak:.2f} GB of "
+              f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f};"
+              f" launches {launches}; card {card}", flush=True)
+        profile_window(lambda: step(state, batch), 1, "step",
+                       f"nemotron {run} training step", card)
+    p0, g0, step0 = seen.pop("wo")
+    del state
+    torch.cuda.empty_cache()
+    # the first dense step's update of the layer's wo: the port's chunked
+    # Adafactor (CHUNK elements a temporary) against the whole leaf. The
+    # step itself is held, in units of the learning rate: at the run's lr
+    # (lr u about 3e-6 against |p| about 0.02) p's own rounding would hide
+    # a wrong clip or rfac, so this update runs at a learning rate of
+    # about 1, where p - lr u rounds to 1e-7 of the step
+    p = {"layers": {"wo": p0[None].clone()}}
+    st = OPT.init_opt_state(p, opt)
+    unit = dataclasses.replace(opt, lr=opt.lr / OPT.schedule(opt, step0))
+    lr1 = OPT.schedule(unit, step0)
+    OPT.apply_updates(unit, p, {"layers": {"wo": [g0]}}, st, step0)
+    want_u, want_vr, want_vc = _adafactor_whole_leaf(opt, p0, g0)
+    got_u = (p0 - p["layers"]["wo"][0]) / lr1
+    wo_err = max(
+        _close("nemotron wo Adafactor step vs the whole leaf's", got_u,
+               want_u, dict(atol=1e-6, rtol=1e-5)),
+        _close("nemotron wo vr", st["vr"]["layers"]["wo"][0], want_vr,
+               dict(atol=0, rtol=1e-5)),
+        _close("nemotron wo vc", st["vc"]["layers"]["wo"][0], want_vc,
+               dict(atol=0, rtol=1e-5)))
+    chunks = -(-p0.shape[0] // max(1, OPT.CHUNK // p0.shape[1]))
+    readings["wo_adafactor"] = {"shape": list(p0.shape), "chunks": chunks,
+                                "max_abs_err": wo_err}
+    readings["seconds"] = time.perf_counter() - t0
+    print(f"nemotron Adafactor: the first step's update of wo "
+          f"{tuple(p0.shape)} in {chunks} chunks of rows against the whole "
+          f"leaf in float32 on the card: max abs err {wo_err:.3g} of the "
+          f"step (in units of lr), vr and vc (f32 "
+          f"tolerance); training {readings['seconds']:.1f} s; card {card}",
+          flush=True)
+    del p, st, got_u, want_u, p0, g0
+    torch.cuda.empty_cache()
+    return readings
 
 
 def smoke_archs_phase(dev):
@@ -3749,7 +4087,7 @@ def other_archs_phase(dev, card, K, tc_build):
     mix_errs = mixtral_phase(dev, card, K)
     wide_errs = wide_gqa_phase(dev, card, K)
     frontend_training_phase(dev, card, K)
-    d192, nem_errs = nemotron_phase(dev, card, K, tc_build)
+    d192, nem_errs, nem_train = nemotron_phase(dev, card, K, tc_build)
     smoke_archs_phase(dev)
     arch_cli_phase(K)
     print(json.dumps({"other_archs": {
@@ -3757,8 +4095,8 @@ def other_archs_phase(dev, card, K, tc_build):
         "first_token_max_abs_err": dict(
             {f"granite-moe {m}": e for m, e in moe_errs.items()},
             **{f"nemotron {m}": e for m, e in nem_errs.items()},
-            **wide_errs), "mixtral_window_max_abs_err": mix_errs}}),
-        flush=True)
+            **wide_errs), "mixtral_window_max_abs_err": mix_errs,
+        "nemotron_train": nem_train}}), flush=True)
     return d192
 
 

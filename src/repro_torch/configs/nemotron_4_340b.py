@@ -2,10 +2,12 @@
 
 [arXiv:2402.16819 (Nemotron-4 15B report; 340B scales it)]
 96L d_model=18432 96H (GQA kv=8) d_ff=73728 vocab=256000.
-head_dim = 192: the forward attention bodies take it, so the engine and
-the prefill step serve it on the card; the backward kernels take 16-128,
-so the trainer refuses it there (models/transformer.check_kernel_head_dim,
-ROADMAP A.1e). Its smoke config (head dim 16) trains on the kernels.
+head_dim = 192: every attention body takes it (kernel.HEAD_DIMS), forward
+and backward, so the engine and the prefill step serve it on the card and
+the trainer trains it there. The reference's dry-run trains it with
+Adafactor (train/optimizer.py, OptConfig(kind="adafactor")): AdamW's
+moments alone would be 8 bytes a parameter. Its smoke config (head dim
+16) trains on the kernels too.
 """
 
 from repro_torch.configs.base import ModelConfig

@@ -29,8 +29,8 @@
 // descriptors name (K-major for Q and K in S = Q K^T, MN-major for V in
 // O += P V, which bf16 allows). Atoms start on 1 KB boundaries (at D 192
 // a tile is three atoms of BLK x 128 bytes, three boxes, and every tile
-// 24 KB or 48 KB). Head dims 16-192 take this body in the forward; the
-// backward's (attn_mma_bwd.cuh) stop at 128. Filled in
+// 24 KB or 48 KB). Head dims 16-192 take this body, and the backward's
+// (attn_mma_bwd.cuh) too. Filled in
 // 16-byte pieces (cp.async 16 bytes a thread, or TMA boxes 16 bytes wide
 // into a no-swizzle layout), the same products were bound by the copies
 // on the H100; whole 128-byte rows lift that. On the mma.sync path

@@ -26,6 +26,18 @@
 // warpgroup holds one D-wide f32 accumulator (dV or dK), one 64 x 64
 // fragment and its bf16 repack: D / 2 + 32 + 16 registers of data.
 //
+// Head dims 16-192 run one code. At nemotron-4's D 192 a 64-row tile is
+// three 128-byte swizzle atoms of 8 KB side by side (tma_tile issues a box
+// an atom, as the forward's ring does), S = Q K^T and dP = dO V^T take 12
+// k16 steps across them (issue_ss), and dQ += dS K, dV += P^T dO and dK +=
+// dS^T Q are m64n192k16 (Wgmma<192>::rs, the atoms 8 KB apart along N).
+// The accumulator is then 96 registers a thread; P^T's hand-off buffers
+// stay 64 x 64 f32 whatever D is. Shared memory at D 192: dq 148,504
+// bytes (the K/V ring of two stages), dk/dv 231,992 (three Q/dO stages),
+// 456 bytes short of the 232,448 a block may take: a byte more in the
+// dk/dv layout fails the static_assert in BwdShape, and the way out is a
+// ring of two stages at D 192.
+//
 // Numerics (tests/test_torch_tri_bwd_numerics.py holds a plain emulation of
 // them against the reference's kernels): S and dP in f32; s scaled, then
 // the reference's token mask writes the finite MASK_VALUE; p = exp2((s -
@@ -66,6 +78,8 @@ struct BwdShape {
                                       DKV_ST * 2 * QB * 4 + 2 * QB * QB * 4 +
                                       8 * (1 + 2 * DKV_ST) + 1024;
   static_assert(TILE % 1024 == 0, "tiles keep the swizzle's 1 KB period");
+  static_assert(DQ_BYTES <= SMEM_LIMIT && DKV_BYTES <= SMEM_LIMIT,
+                "dq and dk/dv fit one block's shared memory");
 };
 
 // The four tensor maps of the backward (64-row boxes) and the rows where

@@ -62,6 +62,7 @@ struct FwdShape {
   static constexpr int ACC = BLK * D / PREFILL_NT;
   static constexpr int FLOATS = BLK * DP + KC * DP + KC * D + BLK * SP + 3 * BLK;
   static constexpr size_t BYTES = sizeof(float) * FLOATS;
+  static_assert(BYTES <= SMEM_LIMIT, "a prefill row tile fits a block");
 };
 
 // One key tile of a prefill q-row tile: keys [k0, k0 + BLK) of the (S, D)
@@ -239,12 +240,22 @@ __device__ __forceinline__ void bwd_pair(const float* q, const float* k,
 
 template <int BLK, int D>
 struct DqShape {
-  static constexpr int KC = BLK < 32 ? BLK : 32;
+  // Q, dO, one key chunk of K and V (padded rows), the chunk's dS, lse and
+  // delta, in floats, at a key chunk of kc
+  static constexpr size_t floats(int kc) {
+    return 2 * static_cast<size_t>(BLK) * (D + 1) + 2 * kc * (D + 1) +
+           BLK * (kc + 1) + 2 * BLK;
+  }
+  // keys per chunk: 32, or 16 where 32 does not fit (BLK 128 at D 192:
+  // 264,960 bytes; 16 takes 232,064). The keys of a row tile still reach
+  // each accumulator in ascending order, so the chunk moves no bit.
+  static constexpr int KC = BLK < 32 ? BLK
+                            : (4 * floats(32) <= SMEM_LIMIT ? 32 : 16);
   static constexpr int DP = D + 1;
   static constexpr int SP = KC + 1;
   static constexpr int ACC = BLK * D / PREFILL_NT;
-  static constexpr int FLOATS = 2 * BLK * DP + 2 * KC * DP + BLK * SP + 2 * BLK;
-  static constexpr size_t BYTES = sizeof(float) * FLOATS;
+  static constexpr size_t BYTES = sizeof(float) * floats(KC);
+  static_assert(BYTES <= SMEM_LIMIT, "a dq row tile fits a block");
 };
 
 // dq of q-row tile i: the block holds Q_i, dO_i, lse_i and delta_i and
@@ -329,6 +340,7 @@ struct DkvShape {
   static constexpr int ACC = KC * D / PREFILL_NT;
   static constexpr int FLOATS = 2 * KC * DP + 2 * QC * DP + 2 * QC * SP + 2 * QC;
   static constexpr size_t BYTES = sizeof(float) * FLOATS;
+  static_assert(BYTES <= SMEM_LIMIT, "a dk/dv key chunk fits a block");
 };
 
 // dk/dv of key-column tile j for kv head hk: the block owns the tile and
@@ -428,14 +440,22 @@ __device__ __forceinline__ void dkv_col_tile(
 
 // Host dispatch over the kernels' template parameters: calls
 // f(TypeTag<T>, BLK, D) with BLK and D as std::integral_constant for
-// dtype 0 (float32) / 1 (bfloat16), blk in 16, 32, 64, 128 and D in DS.
-template <int... DS, typename F>
-inline int dispatch_dims(int dtype, int blk, int D, F&& f) {
+// dtype 0 (float32) / 1 (bfloat16), blk in 16, 32, 64, 128 and D in 16,
+// 32, 64, 128 and nemotron-4's 192 (kernel.HEAD_DIMS): every prefill and
+// backward kernel (tri_fwd.cu, fwd_bb.cu, packed_fwd.cu, tri_bwd.cu,
+// packed_bwd.cu; fused_step.cu and packed_decode.cu switch over the same
+// set).
+template <typename F>
+inline int dispatch_tile(int dtype, int blk, int D, F&& f) {
   auto by_d = [&](auto t, auto b) -> int {
-    int rc = static_cast<int>(cudaErrorInvalidValue);
-    ((D == DS ? (rc = f(t, b, std::integral_constant<int, DS>{}), 0) : 0),
-     ...);
-    return rc;
+    switch (D) {
+      case 16: return f(t, b, std::integral_constant<int, 16>{});
+      case 32: return f(t, b, std::integral_constant<int, 32>{});
+      case 64: return f(t, b, std::integral_constant<int, 64>{});
+      case 128: return f(t, b, std::integral_constant<int, 128>{});
+      case 192: return f(t, b, std::integral_constant<int, 192>{});
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   };
   auto by_blk = [&](auto t) -> int {
     switch (blk) {
@@ -447,20 +467,6 @@ inline int dispatch_dims(int dtype, int blk, int D, F&& f) {
     }
   };
   return dispatch_dtype(dtype, by_blk);
-}
-
-// The backward's head dims (tri_bwd.cu, packed_bwd.cu): its D 192 bodies
-// are not yet held to the plain versions on the card (ROADMAP A.1e).
-template <typename F>
-inline int dispatch_tile(int dtype, int blk, int D, F&& f) {
-  return dispatch_dims<16, 32, 64, 128>(dtype, blk, D, f);
-}
-
-// The forward's (tri_fwd.cu, fwd_bb.cu, packed_fwd.cu; fused_step.cu and
-// packed_decode.cu switch over the same set): nemotron-4's 192 besides.
-template <typename F>
-inline int dispatch_fwd_tile(int dtype, int blk, int D, F&& f) {
-  return dispatch_dims<16, 32, 64, 128, 192>(dtype, blk, D, f);
 }
 
 }  // namespace tri

@@ -214,7 +214,7 @@ extern "C" int fwd_bb_launch(const void* q, const void* k, const void* v,
                              int n, int win, float scale, int dtype,
                              void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  return tri::dispatch_fwd_tile(dtype, blk, D, [&](auto t, auto blk_c, auto d_c) {
+  return tri::dispatch_tile(dtype, blk, D, [&](auto t, auto blk_c, auto d_c) {
     using T = typename decltype(t)::type;
     constexpr int BLK = decltype(blk_c)::value, DD = decltype(d_c)::value;
     if constexpr (std::is_same_v<T, __nv_bfloat16>) {

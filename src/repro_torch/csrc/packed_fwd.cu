@@ -128,7 +128,7 @@ extern "C" int packed_fwd_launch(const void* q, const void* k, const void* v,
   auto st = static_cast<cudaStream_t>(stream);
   const int* tb = static_cast<const int*>(tbl);
   const dim3 grid(total_tiles, H, B);
-  return tri::dispatch_fwd_tile(dtype, blk, D, [&](auto t, auto blk_c, auto d_c) {
+  return tri::dispatch_tile(dtype, blk, D, [&](auto t, auto blk_c, auto d_c) {
     using T = typename decltype(t)::type;
     constexpr int BLK = decltype(blk_c)::value, DD = decltype(d_c)::value;
     if constexpr (std::is_same_v<T, __nv_bfloat16>) {

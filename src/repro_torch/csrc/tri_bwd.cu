@@ -52,13 +52,16 @@
 // one, where a block barrier a step would hold both to the slower.
 // Shared memory at D 128: dq 97 KB (two ring stages, two blocks an SM; a
 // third stage would cost the second block), dk/dv 163 KB (three ring
-// stages, so WG0 may lead by two steps).
+// stages, so WG0 may lead by two steps); at nemotron-4's D 192 dq 145 KB
+// (one block an SM) and dk/dv 227 KB, the whole of a block's limit.
 //
 // float32 at every tile edge, and bf16 at blk 16 and 32, keep the
 // CUDA-core bodies (tri::dq_row_tile / dkv_col_tile, attn_tiles.cuh,
 // scalar f32 FMAs, the same fold): the reference computes in f32 and TF32
 // would compute something else, and no bf16 main path runs the backward
 // at blk 16 or 32. kernel.tile_body(dtype, blk, "bwd") names the body.
+// Head dims 16-128 and 192 (tri::dispatch_tile, kernel.HEAD_DIMS); the f32
+// dq at blk 128 x D 192 takes its keys in chunks of 16 (tri::DqShape).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -51,12 +51,11 @@ DECODE_NO_EMIT = 2 ** 30
 DECODE_CHUNK = 128
 DECODE_HEADS = 8
 
-# head dims of the forward bodies (fwd, fwd_bb, packed_fwd, fused_step_fwd,
-# packed_decode_fwd: csrc/attn_tiles.cuh's dispatch_fwd_tile) and of the
-# backward's (bwd_dq / bwd_dkv, packed_bwd_dq / packed_bwd_dkv:
-# dispatch_tile); the D 192 backward is ROADMAP A.1e
-FWD_HEAD_DIMS = (16, 32, 64, 128, 192)
-BWD_HEAD_DIMS = (16, 32, 64, 128)
+# head dims of every attention body, forward and backward (fwd, fwd_bb,
+# packed_fwd, fused_step_fwd, packed_decode_fwd, bwd_dq / bwd_dkv,
+# packed_bwd_dq / packed_bwd_dkv: csrc/attn_tiles.cuh's dispatch_tile);
+# 192 is nemotron-4's
+HEAD_DIMS = (16, 32, 64, 128, 192)
 SUPPORTED_BLOCKS = (16, 32, 64, 128)
 
 
@@ -240,9 +239,9 @@ def packed_fwd(q, k, v, psched: PackedTriSched, *, sm_scale=None):
     _check(s_len == psched.s_total,
            f"packed_fwd: S={s_len} but the schedule covers "
            f"{psched.s_total}")
-    _check(d in FWD_HEAD_DIMS and psched.blk in SUPPORTED_BLOCKS,
+    _check(d in HEAD_DIMS and psched.blk in SUPPORTED_BLOCKS,
            f"packed_fwd: head_dim {d} / block {psched.blk} unsupported "
-           f"(head_dim in {FWD_HEAD_DIMS}, block in "
+           f"(head_dim in {HEAD_DIMS}, block in "
            f"{SUPPORTED_BLOCKS})")
     lib = BUILD.load("packed_fwd")
     out = torch.empty_like(q)
@@ -358,10 +357,10 @@ def packed_decode_fwd(q, k, v, tbl, *, capacity: int, blk: int, tiles: int,
            "packed_decode_fwd: q, caches and table must be contiguous, "
            "the caches 16-byte aligned")
     _check(s_cache % blk == 0 and blk in SUPPORTED_BLOCKS
-           and d in FWD_HEAD_DIMS,
+           and d in HEAD_DIMS,
            f"packed_decode_fwd: block {blk} must divide S_cache {s_cache}, "
            f"block in {SUPPORTED_BLOCKS}, head_dim {d} in "
-           f"{FWD_HEAD_DIMS}")
+           f"{HEAD_DIMS}")
     lib = BUILD.load("packed_decode")
     out = torch.empty((b + 1, h, d), dtype=q.dtype, device=q.device)
     ws = torch.empty(decode_workspace(n_members, s_cache, h, d),
@@ -460,10 +459,10 @@ def fused_step_fwd(q_pack, k_pack, v_pack, q_dec, k_cache, v_cache, tbl, *,
            "fused_step_fwd: operands and table must be contiguous, the "
            "caches 16-byte aligned")
     _check(s_pack == psched.s_total and s_cache % blk == 0
-           and blk in SUPPORTED_BLOCKS and d in FWD_HEAD_DIMS,
+           and blk in SUPPORTED_BLOCKS and d in HEAD_DIMS,
            f"fused_step_fwd: S_pack {s_pack} (schedule {psched.s_total}) "
            f"and S_cache {s_cache} must be multiples of block {blk}, block "
-           f"in {SUPPORTED_BLOCKS}, head_dim {d} in {FWD_HEAD_DIMS}")
+           f"in {SUPPORTED_BLOCKS}, head_dim {d} in {HEAD_DIMS}")
     lib = BUILD.load("fused_step")
     o_pack = torch.empty_like(q_pack)
     o_dec = torch.empty((b + 1, h, d), dtype=q_dec.dtype,
@@ -507,7 +506,7 @@ def _check_attn(op: str, sched, q, *rest):
     """Raise unless q (B, H, S, D), rest = (k, v) (B, Hkv, S, D) and any
     further q-shaped operands (out, do) lie on one CUDA device in one
     dtype and layout the kernels take, tiled square by ``sched`` (a
-    TriSched or a PackedTriSched), at a head dim op's body takes."""
+    TriSched or a PackedTriSched), at a head dim the bodies take."""
     b, h, s_len, d = q.shape
     k = rest[0]
     hkv = k.shape[1]
@@ -526,11 +525,9 @@ def _check_attn(op: str, sched, q, *rest):
     cover, blk = _cover(sched)
     _check(cover == s_len, f"{op}: S={s_len} but the schedule covers "
            f"{cover} rows in tiles of {blk}")
-    dims = BWD_HEAD_DIMS if op.startswith(("bwd", "packed_bwd")) \
-        else FWD_HEAD_DIMS
-    _check(d in dims and blk in SUPPORTED_BLOCKS,
+    _check(d in HEAD_DIMS and blk in SUPPORTED_BLOCKS,
            f"{op}: head_dim {d} / block {blk} unsupported (head_dim in "
-           f"{dims}, block in {SUPPORTED_BLOCKS})")
+           f"{HEAD_DIMS}, block in {SUPPORTED_BLOCKS})")
 
 
 def _sched_args(sched: TriSched):

@@ -64,19 +64,6 @@ def make_sched(s_len: int, *, block: int, window=None,
                     window=window, prefix=prefix)
 
 
-def _check_backward_head_dim(ctx, op: str, q, impl: str):
-    """Refuse at forward time, before any launch, an operand that needs a
-    grad at a head dim the backward kernels have no body for (the forward
-    bodies take 192, the backward's not yet: ROADMAP A.1e)."""
-    d = q.shape[-1]
-    if impl == "cuda" and any(ctx.needs_input_grad[:3]) \
-            and d not in K.BWD_HEAD_DIMS:
-        raise NotImplementedError(
-            f"{op}: head dim {d} has no backward kernel body (the backward "
-            f"takes head dims {K.BWD_HEAD_DIMS}, ROADMAP A.1e); pass "
-            f"operands that need no grad, or impl='torch'")
-
-
 class _TriAttention(torch.autograd.Function):
     """Custom VJP of the triangular attention (the reference's
     ``_pallas_attention`` / ``make_scan_attention``): impl 'cuda' runs the
@@ -84,7 +71,6 @@ class _TriAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, sched, scale, impl):
-        _check_backward_head_dim(ctx, "triangular_attention", q, impl)
         if impl == "cuda":
             out, lse = K.fwd(q, k, v, sched, sm_scale=scale)
         else:
@@ -179,7 +165,6 @@ class _PackedTriAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, psched, scale, impl):
-        _check_backward_head_dim(ctx, "packed_prefill_attention", q, impl)
         if impl == "cuda":
             out, lse = K.packed_fwd(q, k, v, psched, sm_scale=scale)
         else:

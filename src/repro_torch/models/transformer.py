@@ -34,29 +34,19 @@ def check_supported(cfg):
                 f"{KINDS})")
 
 
-def check_kernel_head_dim(cfg, impl: str, *, backward: bool = False):
+def check_kernel_head_dim(cfg, impl: str):
     """Refuse, before anything is built or launched, an architecture
     whose attention head dim the kernels have no body for: impl "cuda"
-    only, attention layers only. The forward bodies (serving, the prefill
-    step) take nemotron-4's 192; the backward's (``backward``: the train
-    step) do not yet."""
+    only, attention layers only. Every attention body, forward and
+    backward, takes the same head dims (``kernel.HEAD_DIMS``, nemotron-4's
+    192 among them), so serving and training ask the same question."""
     if impl != "cuda" or "attn" not in cfg.layer_pattern:
         return
-    dims = attn_kernel.BWD_HEAD_DIMS if backward \
-        else attn_kernel.FWD_HEAD_DIMS
-    if cfg.head_dim in dims:
-        return
-    if backward and cfg.head_dim in attn_kernel.FWD_HEAD_DIMS:
+    if cfg.head_dim not in attn_kernel.HEAD_DIMS:
         raise NotImplementedError(
-            f"{cfg.name}: head dim {cfg.head_dim} has no attention backward "
-            f"kernel body (the backward takes head dims {dims}; the forward "
-            f"bodies serve it): the D {cfg.head_dim} dq and dk/dv bodies "
-            f"are ROADMAP A.1e; train with attn_impl='torch' (the plain "
-            f"versions) until then")
-    raise NotImplementedError(
-        f"{cfg.name}: head dim {cfg.head_dim} has no attention kernel body "
-        f"(the kernels take head dims {dims}); run impl='torch' (the plain "
-        f"versions)")
+            f"{cfg.name}: head dim {cfg.head_dim} has no attention kernel "
+            f"body (the kernels take head dims {attn_kernel.HEAD_DIMS}); run "
+            f"impl='torch' (the plain versions)")
 
 
 def layer_params(tree, l: int):

@@ -1,4 +1,5 @@
-"""The training step: loss -> grads -> AdamW, with gradient accumulation
+"""The training step: loss -> grads -> AdamW or Adafactor, with gradient
+accumulation
 over microbatches (port of ``repro/train/train_step.py``; the int8 grad
 compression and the activation sharding wait with ``parallel/``, ROADMAP
 queue A).
@@ -32,20 +33,21 @@ from repro_torch.train import optimizer as OPT
 @dataclasses.dataclass
 class TrainState:
     params: dict     # the reference layout: layers stacked
-    opt_state: dict  # {"m", "v"} float32 in the params' layout
+    opt_state: dict  # float32: {"m", "v"} (AdamW) or {"vr", "vc"}
     step: int
 
 
 def init_state(cfg, opt: OPT.OptConfig, *, seed: int = 0,
                device=DEV.DEFAULT_DEVICE) -> TrainState:
     params = MD.init_params(cfg, seed, device)
-    return TrainState(params=params, opt_state=OPT.init_opt_state(params),
-                      step=0)
+    return TrainState(params=params,
+                      opt_state=OPT.init_opt_state(params, opt), step=0)
 
 
 def state_from_jax(np_state, cfg, device=DEV.DEFAULT_DEVICE) -> TrainState:
-    """A reference TrainState whose leaves are numpy arrays (params, AdamW
-    "m"/"v", step) -> the port's, on ``device``."""
+    """A reference TrainState whose leaves are numpy arrays (params, the
+    optimizer's state: AdamW's "m"/"v" or Adafactor's "vr"/"vc", step) ->
+    the port's, on ``device``."""
     dev = DEV.resolve(device)
 
     def f32(t):
@@ -55,8 +57,7 @@ def state_from_jax(np_state, cfg, device=DEV.DEFAULT_DEVICE) -> TrainState:
 
     opt = np_state.opt_state
     return TrainState(params=MD.params_from_jax(np_state.params, cfg, dev),
-                      opt_state={"m": f32(dict(opt["m"])),
-                                 "v": f32(dict(opt["v"]))},
+                      opt_state={k: f32(dict(opt[k])) for k in opt},
                       step=int(np.asarray(np_state.step)))
 
 
@@ -112,14 +113,15 @@ def make_train_step(cfg, opt: OPT.OptConfig, *, microbatches: int = 1,
     as the reference does. ``packed`` (a PackedTriSched) trains on
     bin-packed documents (train/data.PackedDocsLM batches, which carry
     "positions" and "mask"): one static schedule serves every step.
-    Batches may carry "embeds" (the stub frontends). On the kernels an
-    arch whose head dim no attention backward body takes (nemotron-4's
-    192) is refused here (``transformer.check_kernel_head_dim``)."""
+    Batches may carry "embeds" (the stub frontends). The optimizer is
+    ``opt.kind`` (the state must be of that kind: ``init_state``). On the
+    kernels an arch whose head dim no attention body takes is refused
+    here (``transformer.check_kernel_head_dim``)."""
     if packed is not None and microbatches != 1:
         raise ValueError(f"a packed batch is one row (B = 1) of bin-packed "
                          f"documents, so it does not split into "
                          f"{microbatches} microbatches: pass microbatches=1")
-    T.check_kernel_head_dim(cfg, attn_impl, backward=True)
+    T.check_kernel_head_dim(cfg, attn_impl)
     labels = {"impl": attn_impl, "packed": "0" if packed is None else "1"}
 
     def train_step(state: TrainState, batch):

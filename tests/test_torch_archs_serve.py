@@ -7,13 +7,14 @@ equal the JAX MODEL's per-request greedy decode for granite-moe (MoE, top
 past its smoke window of 64 (band members in the admission prefill, a
 rolling slot cache that wraps) and for granite-34b (gelu, one kv head).
 Port alone: one train step of each new arch (finite, params moved, grad
-norm above 0), nemotron-4-340b's head dim 192 taken by the engine and the
-prefill step on the kernels and refused by the trainer (and by the
-attention ops for an operand that needs a grad) before anything is built,
-and each new arch's smoke config through the serving and training CLIs.
+norm above 0), nemotron-4-340b's head dim 192 taken by the engine, the
+prefill step, the trainer and the attention ops on the kernels (a head
+dim outside the kernels' set still refused up front), and each new arch's
+smoke config through the serving and training CLIs.
 """
 
 import copy
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -122,37 +123,48 @@ def test_one_train_step(arch):
 
 
 def test_nemotron_head_dim_is_refused_up_front():
-    """At published widths the engine and the prefill step take head dim
-    192 on the kernels (the forward bodies have a D 192 instantiation):
-    the engine gets past the head-dim check to its device check, the
-    prefill step builds. The trainer refuses it before building or
-    launching anything, naming the dim, the backward's head dims and its
-    ROADMAP item, as the attention ops do for a D 192 operand that needs a
-    grad; the plain versions are not refused."""
+    """At published widths every kernel path takes head dim 192: the
+    engine gets past the head-dim check to its device check, the prefill
+    step and the trainer build on impl "cuda", and both autograd Functions
+    take a D 192 operand that needs a grad (their forward, on a CPU
+    tensor, the plain version). A head dim no kernel body has (96, 256)
+    is still refused up front by the engine, the prefill step and the
+    trainer, naming the dim and the kernels' set; the plain versions are
+    not refused."""
+    from repro_torch.kernels.tri_attn import kernel as K
     from repro_torch.kernels.tri_attn import ops as OPS
 
     cfg = REG.get_config("nemotron-4-340b")
-    assert cfg.head_dim == 192
-    opt = OPT.OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    assert cfg.head_dim == 192 and 192 in K.HEAD_DIMS
+    opt = OPT.OptConfig(kind="adafactor", lr=1e-3, warmup_steps=1,
+                        total_steps=10)
     with pytest.raises(ValueError, match="needs device='cuda'"):
         Engine(None, cfg, slots=2, max_len=64, device="cpu")
     TS.make_prefill_step(cfg, attn_impl="cuda")
-    msg = r"head dim 192 .*backward.*\(16, 32, 64, 128\).*ROADMAP A\.1e"
-    with pytest.raises(NotImplementedError, match=msg):
-        TS.make_train_step(cfg, opt, attn_impl="cuda")
+    TS.make_train_step(cfg, opt, attn_impl="cuda")
     TS.make_train_step(cfg, opt, attn_impl="torch")
-    TS.make_train_step(REG.smoke_config("nemotron-4-340b"), opt,
-                       attn_impl="cuda")
+    for d in (96, 256):
+        odd = dataclasses.replace(cfg, head_dim=d)
+        msg = rf"head dim {d} .*\(16, 32, 64, 128, 192\)"
+        with pytest.raises(NotImplementedError, match=msg):
+            TS.make_train_step(odd, opt, attn_impl="cuda")
+        with pytest.raises(NotImplementedError, match=msg):
+            TS.make_prefill_step(odd, attn_impl="cuda")
+        with pytest.raises(NotImplementedError, match=msg):
+            Engine(None, odd, slots=2, max_len=64, device="cpu")
+        TS.make_train_step(odd, opt, attn_impl="torch")
     q = torch.zeros((1, 2, 32, 192), requires_grad=True)
     kv = torch.zeros((1, 1, 32, 192))
     sched = OPS.make_sched(32, block=16)
     psched = OPS.make_packed_sched([16, 16], block=16)
     for fn, s in ((OPS._TriAttention, sched),
                   (OPS._PackedTriAttention, psched)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.1e"):
-            fn.apply(q, kv, kv, s, 192 ** -0.5, "cuda")
-        out = fn.apply(q, kv, kv, s, 192 ** -0.5, "torch")
-        assert out.shape == q.shape and out.requires_grad
+        for impl in ("cuda", "torch"):
+            out = fn.apply(q, kv, kv, s, 192 ** -0.5, impl)
+            assert out.shape == q.shape and out.requires_grad
+            out.sum().backward()
+            assert q.grad is not None and q.grad.shape == q.shape
+            q.grad = None
 
 
 @pytest.mark.parametrize("arch", NEW_ARCHS)

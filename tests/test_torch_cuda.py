@@ -480,7 +480,7 @@ TRI_KINDS = {"ltm": lambda blk: (None, 0), "band": lambda blk: (blk + 5, 0),
 # body at 64 and 128 (64 x 64 sub-tiles, dk/dv folded); f32 in both
 # directions: the CUDA-core body (kernel.tile_body)
 TRI_GEOMS = [(16, 64), (16, 32), (32, 16), (32, 128), (64, 128), (64, 32),
-             (128, 16), (128, 64)]
+             (128, 16), (128, 64), (32, 192), (64, 192)]
 
 
 def _tri_case(dev, kind, blk, d, g, hkv, dtype, n=5, b=2):
@@ -541,7 +541,9 @@ def test_tri_fwd_is_deterministic(dev, kind, blk, d):
 @pytest.mark.parametrize("kind,blk,d", [("ltm", 64, 128),
                                         ("band_short", 64, 128),
                                         ("ltm", 128, 64),
-                                        ("band_short", 128, 128)])
+                                        ("band_short", 128, 128),
+                                        ("ltm", 64, 192),
+                                        ("band_short", 128, 192)])
 def test_tri_bwd_is_deterministic(dev, kind, blk, d):
     """No atomics: the same inputs give bitwise-equal grads, and finite."""
     sched, q, k, v, do = _tri_case(dev, kind, blk, d, 8, 1, torch.bfloat16)
@@ -1740,13 +1742,17 @@ def test_decode_capacity_padding_is_inert(dev, blk, d):
 
 
 # ---------------------------------------------------------------------------
-# Head dim 192 (nemotron-4-340b) on the forward bodies, beside the D 192
-# cases of the packed_fwd, packed_decode, fused and fwd_bb tests above:
-# tri_fwd (bf16: mma.sync at blk 16 and 32, wgmma at 64 and 128, one K/V
-# stage at 128; f32: the CUDA-core body) at g 1 and nemotron's 12, and the
-# decode body's PV items over 48 f32 or 24 bf16 columns, which no thread
-# count in use divides. The backward keeps head dims 16-128 (ROADMAP
-# A.1e) and refuses 192 before any launch.
+# Head dim 192 (nemotron-4-340b), beside the D 192 cases of the packed_fwd,
+# packed_decode, fused, fwd_bb, tri_fwd / tri_bwd tests above: tri_fwd
+# (bf16: mma.sync at blk 16 and 32, wgmma at 64 and 128, one K/V stage at
+# 128; f32: the CUDA-core body) at g 1 and nemotron's 12, the decode body's
+# PV items over 48 f32 or 24 bf16 columns, which no thread count in use
+# divides, and the backward: tri_bwd and packed_bwd dq and dk/dv (bf16:
+# the CUDA-core body at blk 16 and 32, wgmma m64n192k16 at 64 and 128;
+# f32: the CUDA-core body, whose dq takes its keys 16 at a time at blk
+# 128) at g 1 and 12 against the plain versions at GRAD_TOL, bitwise
+# repeats, autograd through both ops and an Adafactor step on the card
+# against the CPU's.
 # ---------------------------------------------------------------------------
 
 D192_GROUPS = [(1, 2), (12, 1)]  # (g, Hkv)
@@ -1770,11 +1776,63 @@ def test_d192_tri_fwd_matches_plain(dev, kind, blk, g, hkv, dtype):
     want_out, want_lse = SC.fwd_torch(q, k, v, sched, 192 ** -0.5)
     _close(out, want_out, dtype, "out")
     _close(lse, want_lse, dtype, "lse")
-    delta = (do.float() * out.float()).sum(dim=-1)
-    launched = K.bwd_dq.launches
-    with pytest.raises(ValueError, match="head_dim 192"):
-        K.bwd_dq(q, k, v, do, lse, delta, sched)
-    assert K.bwd_dq.launches == launched  # refused before the launch
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,hkv", D192_GROUPS)
+@pytest.mark.parametrize("blk", [16, 32, 64, 128])
+@pytest.mark.parametrize("kind", ["ltm", "prefix", "band_short"])
+def test_d192_tri_bwd_matches_plain(dev, kind, blk, g, hkv, dtype):
+    """tri_bwd dq and dk/dv at D 192 against the plain versions on the
+    kernels' own forward (out, lse), each launched once, twice bitwise."""
+    from repro_torch.kernels.tri_attn import scan_impl as SC
+
+    sched, q, k, v, do = _tri_case(dev, kind, blk, 192, g, hkv, dtype, n=4,
+                                   b=1)
+    out, lse = K.fwd(q, k, v, sched)
+    before = (K.bwd_dq.launches, K.bwd_dkv.launches)
+    got = K.bwd(q, k, v, out, lse, do, sched)
+    again = K.bwd(q, k, v, out, lse, do, sched)
+    torch.cuda.synchronize()
+    assert (K.bwd_dq.launches, K.bwd_dkv.launches) == \
+        (before[0] + 2, before[1] + 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = SC.bwd_torch(q, k, v, out, lse, do, sched, 192 ** -0.5)
+    for x, ref, name in zip(got, want, ("dq", "dk", "dv")):
+        assert x.dtype == ref.dtype and x.shape == ref.shape, name
+        np.testing.assert_allclose(x.float().cpu().numpy(),
+                                   ref.float().cpu().numpy(), err_msg=name,
+                                   **_group_grad_tol(name, dtype, g))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,hkv", D192_GROUPS)
+@pytest.mark.parametrize("blk", [16, 32, 64, 128])
+def test_d192_packed_bwd_matches_plain(dev, blk, g, hkv, dtype):
+    """packed_bwd dq and dk/dv at D 192 on the mixed member zoo (ltm,
+    prefix, band, 3-token band) against the plain versions, twice
+    bitwise."""
+    from repro_torch.kernels.tri_attn import scan_impl as SC
+
+    psched, (q, k, v) = _packed_fwd_case(dev, blk, 192, g, hkv)
+    if dtype == torch.float32:
+        q, k, v = (x.float() for x in (q, k, v))
+    do = _rand(np.random.default_rng(blk + g), q.shape, dtype, dev)
+    out, lse = K.packed_fwd(q, k, v, psched)
+    before = (K.packed_bwd_dq.launches, K.packed_bwd_dkv.launches)
+    got = K.packed_bwd(q, k, v, out, lse, do, psched)
+    again = K.packed_bwd(q, k, v, out, lse, do, psched)
+    torch.cuda.synchronize()
+    assert (K.packed_bwd_dq.launches, K.packed_bwd_dkv.launches) == \
+        (before[0] + 2, before[1] + 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(bool(torch.isfinite(x.float()).all()) for x in got)
+    want = SC.packed_bwd_torch(q, k, v, out, lse, do, psched, 192 ** -0.5)
+    for x, ref, name in zip(got, want, ("dq", "dk", "dv")):
+        assert x.dtype == ref.dtype and x.shape == ref.shape, name
+        np.testing.assert_allclose(x.float().cpu().numpy(),
+                                   ref.float().cpu().numpy(), err_msg=name,
+                                   **_group_grad_tol(name, dtype, g))
 
 
 D192_DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
@@ -1827,25 +1885,75 @@ def _launch_counts():
     return {name: fn.launches for name, fn in K.WRAPPERS.items()}
 
 
-def test_d192_backward_is_refused_before_any_launch(dev):
-    """triangular_attention and packed_prefill_attention refuse, at
-    forward time, a D 192 operand that needs a grad on the kernels; the
-    trainer refuses nemotron-4-340b before building anything."""
-    from repro_torch.configs import registry as REG
-    from repro_torch.train import optimizer as OPT
-    from repro_torch.train import train_step as TS
-
+@pytest.mark.parametrize("op", ["triangular_attention",
+                                "packed_prefill_attention"])
+def test_d192_autograd_runs_the_backward_kernels(dev, op):
+    """triangular_attention and packed_prefill_attention differentiate a
+    bf16 D 192 operand on the kernels: forward, dq and dk/dv launched
+    once each, the grads within the bf16 grad policy of autograd through
+    the port's full-matrix oracle (impl 'ref') in float32."""
     rng = np.random.default_rng(0)
-    q, k, v = (_rand(rng, (1, 2, 128, 192), torch.bfloat16, dev)
-               for _ in range(3))
-    before = _launch_counts()
-    with pytest.raises(NotImplementedError, match="ROADMAP A.1e"):
-        OPS.triangular_attention(q.requires_grad_(), k, v, impl="cuda")
-    psched = OPS.make_packed_sched([64, 64], block=64)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.1e"):
-        OPS.packed_prefill_attention(q, k, v, psched, impl="cuda")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.1e"):
-        TS.make_train_step(REG.get_config("nemotron-4-340b"),
-                           OPT.OptConfig(), attn_impl="cuda")
-    assert _launch_counts() == before
+    q, do = (_rand(rng, (1, 12, 256, 192), torch.bfloat16, dev)
+             for _ in range(2))
+    k, v = (_rand(rng, (1, 1, 256, 192), torch.bfloat16, dev)
+            for _ in range(2))
+    psched = OPS.make_packed_sched([128, 64, 64], block=64)
+    grads = {}
+    for impl in ("cuda", "ref"):
+        dt = torch.bfloat16 if impl == "cuda" else torch.float32
+        leaves = [x.to(dt).clone().requires_grad_() for x in (q, k, v)]
+        before = _launch_counts()
+        if op == "triangular_attention":
+            out = OPS.triangular_attention(*leaves, impl=impl, block=64)
+        else:
+            out = OPS.packed_prefill_attention(*leaves, psched, impl=impl)
+        out.backward(do.to(dt))
+        moved = {n: c - before[n] for n, c in _launch_counts().items()
+                 if c != before[n]}
+        prefix = "tri_attn." + ("" if op == "triangular_attention"
+                                else "packed_")
+        assert moved == ({prefix + "fwd": 1, prefix + "bwd_dq": 1,
+                          prefix + "bwd_dkv": 1} if impl == "cuda" else {}), \
+            moved
+        grads[impl] = [x.grad for x in leaves]
+    for got, want, name in zip(grads["cuda"], grads["ref"], "qkv"):
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(),
+                                   err_msg=f"d{name}",
+                                   **_group_grad_tol(f"d{name}",
+                                                     torch.bfloat16, 12))
 
+
+def test_adafactor_step_on_the_card_matches_the_cpu(dev, monkeypatch):
+    """One Adafactor step of a tree with a stacked (L, d) norm, stacked
+    matrices (grads per layer, as the trainer hands them), a 1-D leaf and
+    a leaf split into row chunks, on the card and on the CPU from the
+    same numpy draws: the f32 tolerance (the card's sums run in another
+    order); two runs on the card bitwise equal."""
+    from repro_torch.train import optimizer as OPT
+
+    rng = np.random.default_rng(1)
+    shapes = {"embed": (300, 48), "final_norm": (48,), "norm1": (3, 48),
+              "wq": (3, 48, 40)}
+    draws = [{k: rng.standard_normal(s).astype(np.float32)
+              for k, s in shapes.items()} for _ in range(2)]
+    opt = OPT.OptConfig(kind="adafactor", lr=1e-2, warmup_steps=1)
+    monkeypatch.setattr(OPT, "CHUNK", 48 * 7)
+    runs = []
+    for where in ("cpu", dev, dev):
+        p = {k: torch.tensor(x, device=where) for k, x in draws[0].items()}
+        g = {k: torch.tensor(x, device=where) for k, x in draws[1].items()}
+        params = {"embed": p["embed"], "final_norm": p["final_norm"],
+                  "layers": {k: p[k] for k in ("norm1", "wq")}}
+        grads = {"embed": g["embed"], "final_norm": g["final_norm"],
+                 "layers": {k: list(g[k]) for k in ("norm1", "wq")}}
+        state = OPT.init_opt_state(params, opt)
+        OPT.apply_updates(opt, params, grads, state, 0)
+        runs.append([p[k] for k in shapes] + [
+            x for key in ("vr", "vc") for x in
+            (state[key]["embed"], state[key]["final_norm"],
+             state[key]["layers"]["norm1"], state[key]["layers"]["wq"])])
+    for a, b, c in zip(*runs):
+        assert torch.equal(b, c)
+        np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), atol=1e-6,
+                                   rtol=1e-5)

@@ -32,8 +32,8 @@ from repro.kernels.tri_attn import kernel as JK
 from repro.kernels.tri_attn import ops as JOPS
 from repro_torch.kernels.tri_attn import kernel as K
 from repro_torch.kernels.tri_attn import ops as OPS
-from test_torch_tri_bwd_numerics import GEOMS, GROUPS, QB, _bf16, _mask, \
-    _p_ds, _tc_dkv, _tc_dq
+from test_torch_tri_bwd_numerics import GEOMS, GROUPS, NEMOTRON_GROUP, QB, \
+    _bf16, _mask, _p_ds, _tc_dkv, _tc_dq
 
 torch.set_num_threads(2)
 
@@ -178,6 +178,51 @@ def test_packed_tensor_core_backward_matches_reference(blk, d, g, hkv):
         for x, a, name in zip(got, alone, ("dq", "dk", "dv")):
             assert torch.equal(x[:, :, at], a), (name, m)
         row0 += m.n
+
+# dk and dv of nemotron's group on the zoo: each element sums g x rows
+# terms (12 heads x up to 320 rows), each with its own bf16 rounding of P
+# or dS (~2^-9 relative). The bf16 attention tolerance was set at the
+# groups of GROUPS (g <= 4); the rounding errors of a sum add as a random
+# walk, so the absolute error of the group's sum grows as the square root
+# of its heads: the absolute part is scaled by sqrt(12 / 4), the relative
+# part is kept. At the standard tolerance the emulation reads 1.03 x on
+# 1 dk element of 135,168 (|err| 0.0207 at |dk| 0.0045, a dk whose
+# elements reach ~8.7), where the absolute part is nearly all the tolerance;
+# the reference's own bf16 run reads 0.785 x here (ROADMAP C)
+NEMOTRON_DKV_ATOL_SCALE = float(np.sqrt(NEMOTRON_GROUP[0]
+                                        / max(g for g, _ in GROUPS)))
+
+
+def test_packed_tensor_core_backward_at_nemotrons_group():
+    """nemotron-4's group (g 12) at its head dim on the zoo, against the
+    reference's interpret-mode ``packed_fwd`` and ``packed_bwd`` in
+    float32 on the same bf16 values (its bf16 run rounds each query
+    head's dk/dv partial before the group's sum: ROADMAP C); dq at the
+    bf16 attention tolerance, dk and dv with its absolute part scaled by
+    NEMOTRON_DKV_ATOL_SCALE."""
+    blk, d, (g, hkv) = 64, 192, NEMOTRON_GROUP
+    jps, tps = _zoo(blk, JOPS.make_packed_sched), _zoo(blk,
+                                                       OPS.make_packed_sched)
+    h, s = g * hkv, tps.s_total
+    rng = np.random.default_rng(blk + d + g)
+    arrs = [rng.standard_normal(shape).astype(np.float32) for shape in
+            ((1, h, s, d), (1, hkv, s, d), (1, hkv, s, d), (1, h, s, d))]
+    q, k, v, do = (torch.as_tensor(x).to(torch.bfloat16) for x in arrs)
+    jq, jk, jv, jdo = (jnp.asarray(x.float().numpy()) for x in (q, k, v, do))
+    jout, jlse = JK.packed_fwd(jq, jk, jv, jps, interpret=True)
+    want = JK.packed_bwd(jq, jk, jv, jout, jlse, jdo, jps, interpret=True)
+    out = torch.from_numpy(_np(jout).copy()).to(torch.bfloat16)
+    lse = torch.from_numpy(_np(jlse).copy())
+    dlt = (do.float() * out.float()).sum(dim=-1)
+    got = (_packed_tc_dq(q, k, v, do, lse, dlt, tps, d ** -0.5),
+           *_packed_tc_dkv(q, k, v, do, lse, dlt, tps, d ** -0.5))
+    for x, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert x.dtype == torch.bfloat16 and tuple(x.shape) == w.shape, name
+        assert torch.isfinite(x.float()).all(), name
+        tol = O.tol("attn", jnp.bfloat16)
+        if name != "dq":
+            tol["atol"] *= NEMOTRON_DKV_ATOL_SCALE
+        np.testing.assert_allclose(_np(x), _np(w), err_msg=name, **tol)
 
 
 def _train_sched(blk):

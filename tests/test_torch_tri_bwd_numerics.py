@@ -37,8 +37,9 @@ QB = 64  # rows of a sub-tile: wgmma's M
 # window / prefix (tokens) of each kind at tile edge blk
 KINDS = {"ltm": lambda blk: (None, 0), "band": lambda blk: (blk + 5, 0),
          "band_short": lambda blk: (3, 0), "prefix": lambda blk: (None, blk + 3)}
-GEOMS = [(64, 64), (64, 128), (128, 64)]  # (blk, D)
+GEOMS = [(64, 64), (64, 128), (128, 64), (64, 192)]  # (blk, D)
 GROUPS = [(1, 2), (4, 1)]  # (g, Hkv)
+NEMOTRON_GROUP = (12, 1)  # at D 192
 
 
 def _mask(qp0, kp0, win, pre):
@@ -161,6 +162,33 @@ def test_tensor_core_backward_matches_reference_bwd(kind, blk, d, g, hkv):
     for x, w, name in zip(got, want, ("dq", "dk", "dv")):
         assert x.dtype == torch.bfloat16 and tuple(x.shape) == w.shape, name
         assert torch.isfinite(x.float()).all(), name
+        O.assert_close(_np(x), _np(w), "attn", jnp.bfloat16, name)
+
+def _f32(x):
+    return jnp.asarray(x, jnp.float32)
+
+
+@pytest.mark.parametrize("kind", sorted(KINDS))
+def test_tensor_core_backward_at_nemotrons_group(kind):
+    """nemotron-4's group (96 query heads over 8 kv heads: g 12) at its
+    head dim, against the reference's interpret-mode ``fwd`` and ``bwd``
+    run in float32 on the same bf16 values. Its bf16 run rounds each of
+    the 12 query heads' dk/dv partials to bf16 before summing them, which
+    alone moves a few elements past the bf16 attention tolerance (ROADMAP
+    C); the kernels sum the group in f32, as the float32 run does."""
+    (jq, jk, jv, jdo), (q, k, v, do), jsched, sched = _case(
+        kind, 64, 192, *NEMOTRON_GROUP)
+    jq, jk, jv, jdo = (_f32(x) for x in (jq, jk, jv, jdo))
+    jout, jlse = JK.fwd(jq, jk, jv, jsched, interpret=True)
+    want = JK.bwd(jq, jk, jv, jout, jlse, jdo, jsched, interpret=True)
+    out = torch.from_numpy(_np(jout).copy()).to(torch.bfloat16)
+    lse = torch.from_numpy(_np(jlse).copy())
+    dlt = (do.float() * out.float()).sum(dim=-1)
+    scale = 192 ** -0.5
+    got = (_tc_dq(q, k, v, do, lse, dlt, sched, scale),
+           *_tc_dkv(q, k, v, do, lse, dlt, sched, scale))
+    for x, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert x.dtype == torch.bfloat16 and tuple(x.shape) == w.shape, name
         O.assert_close(_np(x), _np(w), "attn", jnp.bfloat16, name)
 
 
