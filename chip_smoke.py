@@ -226,7 +226,21 @@ Phases (any failure exits non-zero; nothing is caught):
      6 steps straight and 3 + checkpoint + restore + 3 end in
      bitwise-equal states; 3 packed steps with the kernels and with the
      plain versions agree, and packed and padded losses agree (rtol
-     1e-5).
+     1e-5);
+  9. the roofline: yi-9b's dense step of phase 8 in a fresh process
+     (python -m repro_torch.roofline.attribution): its step times, MFU
+     and max_memory_allocated over ROOFLINE_STEPS steps, the dry-run's
+     count of the same cut cell on meta (its peak within PEAK_RTOL of the
+     measured, its roofline terms and mfu_at_bound), and one profiler
+     window over one more step attributed by region (each compat region,
+     GEMMs, PyTorch's elementwise kernels by module and aten op, other),
+     the window's region launches held to the wrappers' counts; nemotron's
+     1-of-96 dense step of phase 7e reckoned the same way against the
+     peak and step times it read (its check tensors named and added),
+     and the attribution of the window phase 7e took over a fourth step
+     in the smoke's own process; the dry-run's tri_3body cell at the
+     reference's defaults and rows 13-14's bounds through
+     roofline/model.py.
 The last lines are the {"kernels": [...]} line (rows 1-9 carry their
 nemotron D 192 readings under "at_d192"), the card line and
 {"ok": true, "device": {...}}.
@@ -250,8 +264,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, no TF32
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+try:
+    # the card's peaks and every bound below (H100 SXM5 80GB, 700 W)
+    from repro_torch.roofline import model as RF
+except ImportError:  # main() fails: the package is not beside the script
+    RF = None
 # bf16 outputs of ~0.05-1 differ by at most a bf16 ulp; a skipped 64-key
 # tile moves out by ~1e-2 and lse by ~6e-2, so both limits catch it
 OUT_TOL = dict(atol=4e-3, rtol=1e-2)
@@ -293,12 +311,6 @@ def _median_ms(fn, reps: int, warmup: int = 2) -> float:
         t1.synchronize()
         times.append(t0.elapsed_time(t1))
     return statistics.median(times)
-
-
-def _bound(nbytes: float, flops: float, dtype) -> tuple:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def _reset_launches(K):
@@ -602,12 +614,9 @@ def kernel_phase(dev, K, OPS, SC, h=32, hkv=4, d=128, tag="kernels"):
                                      for _ in range(20)], 20, "packed_fwd")
     fwd_plain = _median_ms(
         lambda: SC.packed_fwd_torch(q, k, v, psched, d ** -0.5), 3, 1)
-    fwd_bytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel()) \
-        + 4 * lse.numel()
     # QK^T and PV: 2 * D multiply-adds per head for each unmasked pair
     pairs = int(mask.sum())
-    fwd_flops = 4 * d * h * pairs
-    fwd_bound, fwd_by = _bound(fwd_bytes, fwd_flops, dt)
+    fwd_bound, fwd_by = RF.attn_bounds(q, k, h * pairs)["fwd"]
 
     # decode round: 4 skewed slots over a 2048-token f32 cache
     b, s_cache = 4, 2048
@@ -677,10 +686,10 @@ def kernel_phase(dev, K, OPS, SC, h=32, hkv=4, d=128, tag="kernels"):
     del caches
     # each slot reads its [kv_first, kv_len) rows of K and V once
     kv_tokens = int((tbl_np[3] - tbl_np[4]).sum())
-    dec_bytes = (qd.numel() + b * h * d) * qd.element_size() \
-        + tbl.numel() * 4 + kv_tokens * hkv * d * kc.element_size() * 2
-    dec_flops = 4 * h * d * kv_tokens
-    dec_bound, dec_by = _bound(dec_bytes, dec_flops, torch.float32)
+    dec_bound, dec_by = RF.bound(*RF.decode_work(
+        q_elems=qd.numel(), b=b, h=h, d=d, elt=qd.element_size(),
+        tbl_elems=tbl.numel(), kv_tokens=kv_tokens, hkv=hkv,
+        cache_elt=kc.element_size()), torch.float32)
     dec_grid = K.decode_grid(needed, b + 1, blk, hkv, h // hkv)
     dec_path = (f"fma_f32, chunks of {K.DECODE_CHUNK} tokens split over "
                 f"the SMs, merged in the launch")
@@ -813,15 +822,13 @@ def fused_kernel_phase(dev, K, OPS, SC, D, ctx, tag="fused"):
         3, 1)
     lib_ms = _median_ms(library, 10)
     hkv = kp.shape[1]
-    elt = qp.element_size()
-    nbytes = elt * (2 * qp.numel() + kp.numel() + vp.numel()) \
-        + elt * 2 * len(live) * h * d + tbl.numel() * 4 \
-        + ctx["kv_tokens"] * hkv * d * kc.element_size() * 2
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (4 * d * h * ctx["pairs"] / PEAK_FLOPS[torch.bfloat16]
-             + 4 * h * d * ctx["kv_tokens"] / PEAK_FLOPS[torch.float32]) * 1e3
-    bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else \
-        (t_ops, "operations")
+    work = dict(pack_q_elems=qp.numel(), pack_k_elems=kp.numel(),
+                pack_v_elems=vp.numel(), elt=qp.element_size(),
+                live=len(live), h=h, d=d, tbl_elems=tbl.numel(),
+                kv_tokens=ctx["kv_tokens"], hkv=hkv,
+                cache_elt=kc.element_size(), pairs=ctx["pairs"])
+    nbytes = RF.fused_step_work(**work)[0]
+    bound, by = RF.fused_step_bound(**work)
     path = K.tile_body(qp.dtype, blk, BODY_DIR["fused_step_kernel"][1])
     grid = K.decode_grid(needed - psched.steps, n_members - len(psched.members),
                          blk, hkv, h // hkv)
@@ -1258,7 +1265,7 @@ def train_kernel_phase(dev, K, OPS, SC):
                                                     sched, scale), 3, 1)}
     lib_fwd, lib_bwd = turns["sdpa"][0], bturns["sdpa"][0]
     pairs = h * s * (s + 1) // 2  # unmasked (query, key) pairs, ltm
-    bounds = _attn_bounds(q, k, pairs)
+    bounds = RF.attn_bounds(q, k, pairs)
     names = {"fwd": ("tri_attn.fwd", "src/repro_torch/csrc/tri_fwd.cu",
                      "src/repro/kernels/tri_attn/kernel.py:293",
                      "SDPA is_causal forward"),
@@ -1314,7 +1321,7 @@ def train_kernel_phase(dev, K, OPS, SC):
                 "against": "plain version" if plain else "SDPA",
                 "ms": at["fwd"][0], "ms_turns": at["fwd"][1],
                 "library_ms": at["sdpa"][0], "library_ms_turns": at["sdpa"][1],
-                "bound_ms": _attn_bounds(q, k, b * h * s * (s + 1) // 2)[
+                "bound_ms": RF.attn_bounds(q, k, b * h * s * (s + 1) // 2)[
                     "fwd"][0]}
 
     # jamba-1.5-large's attention layer on a 4 x 2048 prefill; training at
@@ -1350,23 +1357,6 @@ def train_kernel_phase(dev, K, OPS, SC):
         f"{lib_err['dkv']:.3g}; dq + dk/dv {ms['dq'] + ms['dkv']:.4f} ms",
         flush=True)
     return out_rows
-
-
-def _attn_bounds(q, k, pairs: int) -> dict:
-    """Bounds of the forward, dq and dk/dv over ``pairs`` unmasked
-    (query, key) pairs summed over heads: each input read once and each
-    output written once (q, k, v, out, lse; + do, delta; dq or dk and dv)
-    against 4, 6 and 8 x D flops a pair (S and PV; S, dP and dS K; S, dP,
-    P^T dO and dS^T Q) at the bf16 tensor-core rate."""
-    d, elt = q.shape[-1], q.element_size()
-    qkv = q.numel() + 2 * k.numel()
-    rows = q.numel() // d * 4  # one f32 per (b, h, row): lse, delta
-    return {"fwd": _bound(elt * (qkv + q.numel()) + rows, 4 * d * pairs,
-                          q.dtype),
-            "dq": _bound(elt * (qkv + 2 * q.numel()) + 2 * rows,
-                         6 * d * pairs, q.dtype),
-            "dkv": _bound(elt * (qkv + q.numel() + 2 * k.numel())
-                          + 2 * rows, 8 * d * pairs, q.dtype)}
 
 
 def packed_train_kernel_phase(dev, K, OPS, SC):
@@ -1474,7 +1464,7 @@ def packed_train_kernel_phase(dev, K, OPS, SC):
                                                     psched)
                                    for _ in range(20)], 20, "packed_bwd_dkv")}
     pairs = h * int(mask.sum())  # unmasked (query, key) pairs
-    bounds = _attn_bounds(q, k, pairs)
+    bounds = RF.attn_bounds(q, k, pairs)
     shape = {"B": 1, "H": h, "Hkv": hkv, "D": d, "blk": blk, "docs":
              list(TRAIN_DOCS), "member_lens": lens, "S": s, "kind": "ltm",
              "steps": psched.steps, "pairs": pairs}
@@ -1791,18 +1781,15 @@ def paper_phase(dev, K, OPS, SC):
                                    PAPER_REPS, PAPER_WARMUP)
                 t_bb = _median_ms(lambda: EOPS.edm(x, e_blk, impl="bb"),
                                   PAPER_REPS, PAPER_WARMUP)
-            e_n = e_rows // e_blk
-            flops = (2 * e_d + 4) * M.tri(e_n) * e_blk * e_blk
             sweep.append({
                 "N": e_rows, "d": e_d, "blk": e_blk, "ltm_ms": t_ltm,
                 "bb_ms": t_bb, "I_edm": t_bb / t_ltm,
                 "I_struct": OBS.kernel_summary(cfg_reg)["tri_edm.ltm"][
                     "improvement_vs_bb"],
-                "ltm_bound_ms": _bound(
-                    4 * M.tri(e_n) * e_blk * e_blk + 4 * x.numel(), flops,
-                    torch.float32)[0],
-                "bb_bound_ms": _bound(4 * e_rows * e_rows + 4 * x.numel(),
-                                      flops, torch.float32)[0]})
+                "ltm_bound_ms": RF.bound(*RF.edm_work(
+                    "ltm", e_rows, e_d, e_blk), torch.float32)[0],
+                "bb_bound_ms": RF.bound(*RF.edm_work(
+                    "bb", e_rows, e_d, e_blk), torch.float32)[0]})
             del x
         dummy_ms = {n: _median_ms(lambda: EK.dummy_ltm(n, device=dev),
                                   PAPER_REPS, PAPER_WARMUP)
@@ -1825,7 +1812,7 @@ def paper_phase(dev, K, OPS, SC):
     # the partials' round trip, which tri_fwd does not pay: written once,
     # read once, B H tri(n) (blk D + 2 blk) f32
     part_floor = 2 * 4 * b * h * M.tri(n_attn) * (blk * d + 2 * blk) \
-        / HBM_BYTES_PER_S * 1e3
+        / RF.HBM_BYTES_PER_S * 1e3
     for row in sweep:
         print(f"paper: edm N={row['N']} d={row['d']} blk={row['blk']}: LTM "
               f"{row['ltm_ms']:.4f} ms (bound {row['ltm_bound_ms']:.4f}), "
@@ -1850,20 +1837,18 @@ def paper_phase(dev, K, OPS, SC):
           f"{turns['sdpa'][1]} ms ({K.tile_body(q.dtype, blk)})", flush=True)
 
     head = next(r for r in sweep if (r["N"], r["d"], r["blk"]) == EDM_HEADLINE)
-    n_h = EDM_HEADLINE[0] // EDM_HEADLINE[2]
-    x_bytes = 4 * EDM_HEADLINE[0] * EDM_HEADLINE[1]
-    flops_h = (2 * EDM_HEADLINE[1] + 4) * M.tri(n_h) * EDM_HEADLINE[2] ** 2
     shape = {"N": EDM_HEADLINE[0], "d": EDM_HEADLINE[1],
              "blk": EDM_HEADLINE[2], "dtype": "float32"}
     lib_edm = ("torch.cdist(x, x): the full N x N f32 matrix (no PyTorch "
                "call gives the packed output)")
     bounds = {
-        "tri_edm.ltm": _bound(4 * M.tri(n_h) * EDM_HEADLINE[2] ** 2 + x_bytes,
-                              flops_h, torch.float32),
-        "tri_edm.bb": _bound(4 * EDM_HEADLINE[0] ** 2 + x_bytes, flops_h,
-                             torch.float32),
-        "tri_edm.dummy_ltm": _bound(4 * M.tri(n_env), 0, torch.float32),
-        "tri_attn.fwd_bb": _attn_bounds(q, k, h * s * (s + 1) // 2)["fwd"]}
+        "tri_edm.ltm": RF.bound(*RF.edm_work("ltm", *EDM_HEADLINE),
+                                torch.float32),
+        "tri_edm.bb": RF.bound(*RF.edm_work("bb", *EDM_HEADLINE),
+                               torch.float32),
+        "tri_edm.dummy_ltm": RF.bound(*RF.dummy_work(M.tri(n_env)),
+                                      torch.float32),
+        "tri_attn.fwd_bb": RF.attn_bounds(q, k, h * s * (s + 1) // 2)["fwd"]}
     rows = [
         {"name": "tri_edm.ltm", "source": "src/repro_torch/csrc/tri_edm.cu",
          "replaces": "src/repro/kernels/tri_edm/kernel.py:50",
@@ -1985,11 +1970,6 @@ def _check_three_body(TK, TR, x, blk, strict):
     return err, ulps
 
 
-def _tb_flops(n_rows: int, d: int, blk: int) -> int:
-    """Operations of the live tiles: 2 b^3 + 6 b^2 d each, tet(n)."""
-    return _tet64(n_rows // blk) * (2 * blk ** 3 + 6 * blk * blk * d)
-
-
 def three_body_phase(dev):
     """The 3-body workload on the card: dummy_tet over the whole certified
     tet_map envelope; three_body_tet and three_body_bb3 against their
@@ -2063,15 +2043,15 @@ def three_body_phase(dev):
             t_bb3 = _median_ms(lambda: TOPS.three_body(x, c_blk, impl="bb3"),
                                PAPER_REPS, PAPER_WARMUP)
             n = c_rows // c_blk
-            flops = _tb_flops(c_rows, c_d, c_blk)
+            flops = RF.three_body_flops(c_rows, c_d, c_blk)
             cells.append({
                 "N": c_rows, "d": c_d, "blk": c_blk, "tet_ms": t_tet,
                 "bb3_ms": t_bb3, "I_3body": t_bb3 / t_tet,
                 "I_struct": n ** 3 / M.tet(n),
-                "tet_bound_ms": _bound(4 * x.numel() + 4 * M.tet(n), flops,
-                                       torch.float32)[0],
-                "bb3_bound_ms": _bound(4 * x.numel() + 4 * n ** 3, flops,
-                                       torch.float32)[0],
+                "tet_bound_ms": RF.bound(*RF.three_body_work(
+                    "tet", c_rows, c_d, c_blk), torch.float32)[0],
+                "bb3_bound_ms": RF.bound(*RF.three_body_work(
+                    "bb3", c_rows, c_d, c_blk), torch.float32)[0],
                 "tet_tflops": flops / t_tet / 1e9})
             del x
         x = points(n_rows, d_h)
@@ -2109,18 +2089,17 @@ def three_body_phase(dev):
           flush=True)
 
     head = next(c for c in cells if (c["N"], c["d"], c["blk"]) == TB_HEADLINE)
-    n_h = n_rows // blk_h
     shape = {"N": n_rows, "d": d_h, "blk": blk_h, "dtype": "float32"}
     lib = ("torch.einsum('ab,bc,ac->', G, G, G) on the f32 Gram matrix, TF32 "
            "off: the total over all N^3 ordered triples (no PyTorch call "
            "gives the packed per-tile output)")
-    flops_h = _tb_flops(*TB_HEADLINE)
     bounds = {
-        "tri_3body.tet": _bound(4 * n_rows * d_h + 4 * M.tet(n_h), flops_h,
-                                torch.float32),
-        "tri_3body.bb3": _bound(4 * n_rows * d_h + 4 * n_h ** 3, flops_h,
-                                torch.float32),
-        "tri_3body.dummy_tet": _bound(4 * M.tet(n_env), 0, torch.float32)}
+        "tri_3body.tet": RF.bound(*RF.three_body_work("tet", *TB_HEADLINE),
+                                  torch.float32),
+        "tri_3body.bb3": RF.bound(*RF.three_body_work("bb3", *TB_HEADLINE),
+                                  torch.float32),
+        "tri_3body.dummy_tet": RF.bound(*RF.dummy_work(M.tet(n_env)),
+                                        torch.float32)}
     rows = [
         {"name": "tri_3body.tet", "source": "src/repro_torch/csrc/tri_3body.cu",
          "replaces": "src/repro/kernels/tri_3body/kernel.py:82",
@@ -2347,8 +2326,7 @@ def wkv_kernel_phase(dev):
                                      for _ in range(5)], 5, "wkv_kernel")
         plain_ms = _median_ms(lambda: WK.wkv_torch(r, k, v, lw, u, s0), 3, 1)
     n = b * l * h * hd
-    nbytes = 5 * 4 * n + 4 * h * hd + 2 * 4 * b * h * hd * hd
-    bound = _bound(nbytes, 4 * hd * hd * b * l * h, torch.float32)
+    bound = RF.bound(*RF.wkv_work(b, l, h, hd), torch.float32)
     blocks = b * h * -(-l // WK.WKV_CHUNK)
     print(f"wkv: B={b} L={l} H={h} hd={hd} f32 {ms:.4f} ms (bound "
           f"{bound[0]:.4f} by {bound[1]}, plain {plain_ms:.2f}), bf16 inputs "
@@ -2595,8 +2573,6 @@ SSM_REL = 1e-4  # f32 kernel against its plain version, relative
 # bf16 inputs: both run in f32 and round y to bf16 once (the reference
 # test's bf16 tolerance)
 SSM_BF16_TOL = dict(atol=5e-2, rtol=5e-2)
-SFU_EXP_PER_CLOCK_SM = 16  # ex2 a clock on one SM (compute capability 9.0)
-H100_SMS = 132
 # jamba-1.5-large-398b at its published widths, cut to one superlayer
 # (7 Mamba + 1 attention layers) and 4 of its 16 experts (the
 # reference's reduced() expert cut): 32.26 GB of bf16 weights
@@ -2702,14 +2678,10 @@ def ssm_kernel_phase(dev):
     # the least time: x, dt, y (B, L, D) and Bt, Ct, A, h0, h_L once each,
     # against 6 N + 1 f32 flops and N exponentials a (b, t, d) on the
     # SFUs at the card's largest SM clock
-    nbytes = 4 * (3 * b * l * d + 2 * b * l * n + d * n + 2 * b * d * n)
-    bound_bytes, _ = _bound(nbytes, 0, torch.float32)
-    bound_flops = b * l * d * (6 * n + 1) / PEAK_FLOPS[torch.float32] * 1e3
     clock = _max_sm_clock_hz()
-    bound_exp = b * l * d * n / (SFU_EXP_PER_CLOCK_SM * H100_SMS * clock) \
-        * 1e3
-    bound = max(bound_bytes, bound_flops, bound_exp)
-    bound_by = "bytes" if bound == bound_bytes else "operations"
+    sb = RF.ssm_bound(b, l, d, n, clock)
+    bound_bytes, bound_flops, bound_exp = sb["bytes"], sb["flops"], sb["exp"]
+    bound, bound_by = sb["bound"], sb["by"]
     print(f"ssm: B={b} L={l} D={d} N={n} f32 {ms:.4f} ms (bound "
           f"{bound:.4f} by {bound_by}: bytes {bound_bytes:.4f}, f32 flops "
           f"{bound_flops:.4f}, exponentials on the SFUs at "
@@ -3546,7 +3518,7 @@ def nemotron_dense_rows(dev, K, SC, h, hkv, d, s_len):
     scale = d ** -0.5
     lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                  enable_gqa=True)
-    bound, by = _attn_bounds(q, k, h * s_len * (s_len + 1) // 2)["fwd"]
+    bound, by = RF.attn_bounds(q, k, h * s_len * (s_len + 1) // 2)["fwd"]
     rows = {}
     for name, fn, plain in (
             ("tri_attn.fwd", K.fwd, SC.fwd_torch),
@@ -3668,7 +3640,7 @@ def nemotron_train_rows(dev, K, SC, h, hkv, d, s_len):
         sdpa_bwd = lambda: torch.autograd.grad(o_lib, bw, do,
                                                retain_graph=True)
         turns = _in_turns(dict(run, sdpa=sdpa_bwd), 10)
-        bounds = _attn_bounds(q, k, pairs)
+        bounds = RF.attn_bounds(q, k, pairs)
         for key in ("dq", "dkv"):
             row_name = f"{name}_{key}"
             rows[row_name] = {
@@ -3884,13 +3856,15 @@ def nemotron_training(dev, card, K, full):
     grads against the kernels' first step at the bf16 policy. Launches
     asserted, losses finite and falling, step times, real tokens/s and
     peak memory, a profiler window over a fourth step (outside the
-    launch counts); then the first step's chunked Adafactor update of the
-    layer's attention wo against a whole-leaf float32 Adafactor on the
-    card. Returns the readings."""
+    launch counts; the dense run's attributed by region,
+    roofline/attribution.py); then the first step's chunked Adafactor
+    update of the layer's attention wo against a whole-leaf float32
+    Adafactor on the card. Returns the readings."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.kernels.tri_attn import ops as OPS
     from repro_torch.models import model as MD
     from repro_torch.obs import metrics as MET
+    from repro_torch.roofline import attribution as ATTR
     from repro_torch.train import data as DATA
     from repro_torch.train import fault_tolerance as FT
     from repro_torch.train import optimizer as OPT
@@ -3954,6 +3928,12 @@ def nemotron_training(dev, card, K, full):
         seen.pop("grads", None)
         reg = MET.Registry(f"nemotron_train_{run}")
         OPT.apply_updates = spy
+        # the peak since the phase began (the oracle pass's included), and
+        # the steps' own, which the dry-run reckons (roofline_phase); of
+        # this script's check tensors, the oracle's grads and the spy's
+        # copies live through the steps beside the step's own (checks_gb)
+        before = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         try:
             _reset_launches(K)
             with MET.scope(reg):
@@ -3962,6 +3942,11 @@ def nemotron_training(dev, card, K, full):
             launches = _check_launches(f"nemotron {run} train", K, reg, want)
         finally:
             OPT.apply_updates = real_apply
+        steps_peak = torch.cuda.max_memory_allocated() / 1e9
+        peak = max(before / 1e9, steps_peak)
+        checks = sum(x.numel() * x.element_size() for x in
+                     [*ref_grads.values(), *seen["grads"].values(),
+                      *seen["wo"][:2]])
         losses = [m["loss"] for m in log]
         if len(losses) != steps or not all(np.isfinite(losses)) or not all(
                 b < a for a, b in zip(losses, losses[1:])):
@@ -3979,13 +3964,14 @@ def nemotron_training(dev, card, K, full):
                                seen["grads"][key], want_g, tol) / scale
         del ref_grads
         seen.pop("grads")
-        peak = torch.cuda.max_memory_allocated() / 1e9
         readings[run] = {
             "losses": losses, "oracle_first_loss": ref_loss,
             "grad_norms": [m["grad_norm"] for m in log],
             "step_s": times, "real_tokens": real,
             "tokens_per_s": real / statistics.median(times),
-            "peak_gb": peak, "launches": launches,
+            "peak_gb": peak, "steps_peak_gb": steps_peak,
+            "checks_gb": checks / 1e9,
+            "launches": launches,
             "attn_grad_err_over_max": errs}
         print(f"nemotron {run} train: {steps} Adafactor steps on one "
               f"{batch['tokens'].shape[1]}-token row ({real} real tokens"
@@ -3996,11 +3982,24 @@ def nemotron_training(dev, card, K, full):
               f"first-step attention grads vs the oracle's, max abs err / "
               f"max |grad|: { {k: round(v, 5) for k, v in errs.items()} }; "
               f"step times {times} s, {readings[run]['tokens_per_s']:.1f} "
-              f"real tokens/s (median step); peak memory {peak:.2f} GB of "
+              f"real tokens/s (median step); peak memory {peak:.2f} GB "
+              f"(the steps' own {steps_peak:.2f}) of "
               f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f};"
               f" launches {launches}; card {card}", flush=True)
-        profile_window(lambda: step(state, batch), 1, "step",
-                       f"nemotron {run} training step", card)
+        if run == "dense":
+            # the attribution of one more step, in this process (the
+            # window is held to the wrappers' launches or refused)
+            prof, counts, wall_ms = ATTR.window(lambda: step(state, batch),
+                                                K.WRAPPERS)
+            try:
+                readings[run]["attribution"] = ATTR.attribute(prof, counts,
+                                                              wall_ms)
+            except ATTR.WindowRefused as e:
+                _fail(f"nemotron dense train: attribution refused: {e}")
+            del prof
+        else:
+            profile_window(lambda: step(state, batch), 1, "step",
+                           f"nemotron {run} training step", card)
     p0, g0, step0 = seen.pop("wo")
     del state
     torch.cuda.empty_cache()
@@ -4081,7 +4080,7 @@ def smoke_archs_phase(dev):
 
 def other_archs_phase(dev, card, K, tc_build):
     """Phase 7e: the registry's other seven architectures on the card.
-    Returns nemotron's D 192 kernel readings."""
+    Returns nemotron's D 192 kernel readings and its training's."""
     t0 = time.perf_counter()
     moe_errs = granite_moe_phase(dev, card, K)
     mix_errs = mixtral_phase(dev, card, K)
@@ -4097,7 +4096,7 @@ def other_archs_phase(dev, card, K, tc_build):
             **{f"nemotron {m}": e for m, e in nem_errs.items()},
             **wide_errs), "mixtral_window_max_abs_err": mix_errs,
         "nemotron_train": nem_train}}), flush=True)
-    return d192
+    return d192, nem_train
 
 
 def arch_cli_phase(K):
@@ -4414,6 +4413,142 @@ def smoke_packed_training(dev, cfg, opt, base):
           f"{packed} == pad-to-max {padded} (rtol 1e-5)", flush=True)
 
 
+# the dry-run's reckoned peak against the card's max_memory_allocated of
+# the same step: within this share of the measured
+PEAK_RTOL = 0.10
+# the yi-9b dense step of the train phase, reckoned and measured in a
+# fresh process (roofline/attribution.py): its timed steps before the
+# profiler window
+ROOFLINE_STEPS = 3
+
+
+def _split_gb(split: dict) -> str:
+    return ", ".join(f"{k} {v / 1e9:.2f}" for k, v in split.items() if v)
+
+
+def _peak_line(label, reckoned: dict, measured: float, card,
+               checks: float = 0.0) -> float:
+    """Print the reckoned and the measured peak; fail past PEAK_RTOL.
+    ``checks``: bytes of this script's own check tensors that lived
+    through the measured steps beside the step's (added to the
+    reckoning)."""
+    peak = reckoned["peak_bytes_per_device"]
+    ratio = (peak + checks) / measured
+    own = f" + the checks' own tensors {checks / 1e9:.2f} GB" \
+        if checks else ""
+    print(f"roofline: {label}: the dry-run's peak {peak / 1e9:.2f} GB "
+          f"({_split_gb(reckoned['peak_split'])}){own} against "
+          f"max_memory_allocated over the steps {measured / 1e9:.2f} GB, "
+          f"ratio {ratio:.4f}; card {card}", flush=True)
+    if abs(ratio - 1) > PEAK_RTOL:
+        _fail(f"roofline: {label}: reckoned peak {peak} against measured "
+              f"{measured}: ratio {ratio:.4f} past {PEAK_RTOL}")
+    return ratio
+
+
+def _attribution_lines(label, att: dict, card):
+    """Print a window's attribution (roofline/attribution.py): its groups,
+    then the elementwise time by port module and the top aten ops."""
+    print(f"roofline: {label}: busy {att['busy_ms']:.1f} of "
+          f"{att['wall_ms']:.1f} ms; " + "; ".join(
+              f"{g} {v['ms']:.2f} ms x{v['launches']} ({v['share']:.1%})"
+              for g, v in att["groups"].items())
+          + f"; region launches held to the wrappers' {att['launches_held']}"
+          f"; card {card}", flush=True)
+    print(f"roofline: {label}: elementwise by module (linked to their ops: "
+          f"{att['elementwise_linked_ms']:.2f} ms): " + "; ".join(
+        f"{m} {ms:.2f} ms" for m, ms in att["elementwise_by_module"].items())
+        + "; top ops: " + "; ".join(
+            f"{r['module']} {r['op']} {r['ms']:.2f} ms x{r['launches']}"
+            for r in att["elementwise_by_op"][:8]), flush=True)
+
+
+def roofline_phase(card, layers: int, nem_train: dict):
+    """Phase 9: the dry-run's reckonings against what the card's training
+    steps take. yi-9b's dense step of the train phase (``layers`` deep,
+    seq 4096, batch 1, remat, AdamW) in a fresh process
+    (``python -m repro_torch.roofline.attribution``): its steps' time and
+    peak, the dry-run's count of the same cell on meta, and one profiler
+    window over one more step attributed by region (the window's region
+    launches held to the wrappers' counts, or the process fails); then
+    nemotron's 1-of-96 dense step, reckoned here and set against the peak
+    and step times nemotron_training read, and the attribution of its
+    window (taken in this process); then the dry-run's tri_3body
+    cell at the reference's defaults and rows 13-14's bounds through
+    roofline/model.py."""
+    from repro_torch.configs import registry as REG
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import compat
+    from repro_torch.launch import dryrun as DRY
+    from repro_torch.train import optimizer as OPT
+
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    out = root / "build" / "roofline"
+    out.mkdir(parents=True, exist_ok=True)
+    reading = out / "yi_9b_dense.json"
+    reading.unlink(missing_ok=True)
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.roofline.attribution", "--arch",
+         "yi-9b", "--n-layers", str(layers), "--seq", "4096", "--batch", "1",
+         "--steps", str(ROOFLINE_STEPS), "--json", str(reading)],
+        capture_output=True, text=True,
+        env=dict(os.environ, PYTHONPATH=str(root / "src")))
+    if run.returncode or not reading.exists():
+        _fail(f"roofline: the yi-9b window failed (rc {run.returncode}): "
+              f"{run.stderr[-3000:]}")
+    rec = json.loads(reading.read_text())
+    rk = rec["reckoned"]
+    _peak_line(f"yi-9b {layers}L dense step", rk["memory"], rec["peak_bytes"],
+               card)
+    rf = rk["roofline"]
+    step_s = statistics.median(rec["step_s"])
+    print(f"roofline: yi-9b {layers}L dense step: model_flops "
+          f"{rec['model_flops']:.6g} (6 N D), step {step_s:.4f} s (times "
+          f"{rec['step_s']}), MFU {rec['mfu']:.4f}; reckoned compute "
+          f"{rf['compute_s']:.4f} s, memory {rf['memory_s']:.4f} s, "
+          f"dominant {rf['dominant']}, mfu_at_bound {rf['mfu_at_bound']:.4f}"
+          f", useful flops {rf['useful_flops_ratio']:.4f}; the dry-run's "
+          f"count {rk['seconds']:.1f} s on the host; card {card}", flush=True)
+    _attribution_lines("yi-9b window", rec["attribution"], card)
+
+    # nemotron's 1-of-96 dense step, as nemotron_training ran it
+    cfg = dataclasses.replace(REG.get_config("nemotron-4-340b"),
+                              n_layers=NEMOTRON_TRAIN_CUT)
+    shape = ShapeConfig("nemotron_train", NEMOTRON_SEQ, 1, "train")
+    cnt = DRY.count_cell(cfg, shape, opt=OPT.OptConfig(**NEMOTRON_OPT))
+    dense = nem_train["dense"]
+    _peak_line(f"nemotron {NEMOTRON_TRAIN_CUT} of 96 layers dense step",
+               cnt["analysis"]["memory"], dense["steps_peak_gb"] * 1e9, card,
+               checks=dense["checks_gb"] * 1e9)
+    mf = RF.model_flops(cfg, shape)
+    terms = RF.terms_from_analysis(cnt["analysis"], n_chips=1,
+                                   model_flops=mf)
+    nem_s = statistics.median(dense["step_s"])
+    print(f"roofline: nemotron dense step: model_flops {mf:.6g}, step "
+          f"{nem_s:.4f} s, MFU {RF.mfu(mf, nem_s):.4f}; reckoned compute "
+          f"{terms.compute_s:.4f} s, memory {terms.memory_s:.4f} s, "
+          f"dominant {terms.dominant}, mfu_at_bound "
+          f"{terms.mfu_at_bound:.4f}; card {card}", flush=True)
+    _attribution_lines("nemotron window (in the smoke's process)",
+                       dense["attribution"], card)
+
+    # the reference's tri_3body dry-run cell, and rows 13-14's bounds
+    tb = DRY.run_tri_3body_cell(str(out), force=True)
+    if not tb.get("ok"):
+        _fail(f"roofline: the tri_3body cell failed: {tb.get('error')}")
+    rows = {name: compat.work(name, *TB_HEADLINE).bound_ms
+            for name in ("tri_3body.tet", "tri_3body.bb3")}
+    print(f"roofline: tri_3body cell N {tb['n_rows']} blk {tb['block']} d "
+          f"{tb['d']}: tiles {tb['tiles_tet']} / {tb['tiles_bb3']}, launched "
+          f"flops bb3 / tet {tb['flops_ratio_bb3_over_tet']:.4f}, bounds "
+          f"{tb['tet']['bound_ms']:.6f} / {tb['bb3']['bound_ms']:.6f} ms; "
+          f"rows 13-14 at N {TB_HEADLINE[0]} d {TB_HEADLINE[1]} blk "
+          f"{TB_HEADLINE[2]}: " + ", ".join(f"{n} {ms:.4f} ms"
+                                            for n, ms in rows.items())
+          + f"; roofline phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=48,
@@ -4425,7 +4560,8 @@ def main():
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is False: no CUDA card")
     src = Path(__file__).resolve().parent / "src"
-    sys.path.insert(0, str(src))
+    if RF is None:
+        _fail(f"cannot load the repro_torch package from {src}")
     try:
         from repro_torch.kernels import build as BUILD
         from repro_torch.kernels.tri_attn import kernel as K
@@ -4487,7 +4623,7 @@ def main():
         dev, card)
     jamba_cli_phase()
     torch.cuda.empty_cache()
-    d192 = other_archs_phase(dev, card, K, tc_build)
+    d192, nem_train = other_archs_phase(dev, card, K, tc_build)
     d192["tri_attn.packed_decode_fwd"]["ptxas"] = dec_build[
         ("bf16", "f32", 64, 192)]
     for k in kernels:
@@ -4509,6 +4645,7 @@ def main():
                      if n != "tri_attn.packed_fwd"})
     packed_fwd_train["launches"] = packed["tri_attn.packed_fwd"]
     smoke_training(dev)
+    roofline_phase(card, args.train_layers, nem_train)
     for k in kernels:
         if "launches" in k:  # the paper and 3-body phases counted theirs
             continue

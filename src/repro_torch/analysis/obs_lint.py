@@ -184,26 +184,16 @@ def lint_static_coverage(root: pathlib.Path = PKG) -> List[CheckResult]:
 # ---------------------------------------------------------------------------
 
 
-def kernel_names() -> Set[str]:
-    """Every ``__global__`` function of the port's csrc."""
-    names = set()
-    for src in sorted(CSRC.glob("*.cu*")):
-        names |= set(re.findall(
-            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)",
-            src.read_text(encoding="utf-8")))
-    return names
-
-
-def _port_kernels(prof, names: Set[str]) -> List[str]:
+def _port_kernels(prof) -> List[str]:
     """Names of the device kernels of ``prof`` that the port's csrc
-    defines."""
-    pat = re.compile(r"\b(" + "|".join(sorted(names)) + r")\b")
-    out = []
-    for ev in prof.events():
-        if str(getattr(ev, "device_type", "")).endswith("CUDA") and \
-                pat.search(ev.name):
-            out.append(ev.name)
-    return out
+    defines: every ``__global__`` of the table of kernel regions
+    (``launch/compat.py``), which a test holds to csrc."""
+    from repro_torch.launch import compat
+
+    pat = compat.kernel_regex()
+    return [ev.name for ev in prof.events()
+            if str(getattr(ev, "device_type", "")).endswith("CUDA")
+            and pat.search(ev.name)]
 
 
 def lint_counter_fidelity(device="cpu") -> List[CheckResult]:
@@ -226,7 +216,6 @@ def lint_counter_fidelity(device="cpu") -> List[CheckResult]:
         return out
     from torch.profiler import ProfilerActivity, profile
 
-    names = kernel_names()
     for call in LL.op_calls(device):
         LL.run_op(call, kernel=True)  # builds, first-use buffers
         torch.cuda.synchronize()
@@ -234,7 +223,7 @@ def lint_counter_fidelity(device="cpu") -> List[CheckResult]:
             reg, _ = LL.run_op(call, kernel=True)
             torch.cuda.synchronize()
         emitted = int(reg.counter_total("launches_total"))
-        seen = _port_kernels(prof, names)
+        seen = _port_kernels(prof)
         out.append(_res(
             f"obs.counters.{call.name}",
             len(seen) == emitted == sum(LL.EXPECTED[call.name].values()),

@@ -1,6 +1,6 @@
-"""Architecture registry of the port (port of ``repro/configs/registry.py``
-without the dry-run's input specs): --arch <id> -> ModelConfig, the shape
-cells and their support matrix.
+"""Architecture registry of the port (port of ``repro/configs/registry.py``):
+--arch <id> -> ModelConfig, the shape cells, their support matrix, and the
+dry-run's input specs: meta tensors, the port's ``ShapeDtypeStruct``.
 
 All ten of the reference's architectures, in its order: dense GQA
 (yi-9b, llama3-405b, nemotron-4-340b, granite-34b), MoE (mixtral-8x7b
@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import importlib
 from typing import Dict, Tuple
+
+import torch
 
 from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig, reduced
 
@@ -64,6 +66,67 @@ def runnable_cells():
             ok, why = supported(cfg, shape)
             out.append((arch, sname, ok, why))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Input specs (meta tensors: shapes and dtypes, no storage)
+# ---------------------------------------------------------------------------
+
+
+def _sds(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def batch_specs(cfg: ModelConfig, shape: ShapeConfig,
+                act_dtype=torch.bfloat16) -> dict:
+    """Train/prefill batch: the model inputs for one global step."""
+    b, s = shape.global_batch, shape.seq_len
+    if cfg.frontend == "audio_frames":
+        # EnCodec frame embeddings precomputed by the stub frontend.
+        return {"embeds": _sds((b, s, cfg.d_model), act_dtype),
+                "labels": _sds((b, s), torch.int32)}
+    if cfg.frontend == "vision_patches":
+        p = cfg.n_patches
+        return {"embeds": _sds((b, p, cfg.d_model), act_dtype),
+                "tokens": _sds((b, s - p), torch.int32),
+                "labels": _sds((b, s), torch.int32),
+                "mask": _sds((b, s), torch.float32)}
+    return {"tokens": _sds((b, s), torch.int32),
+            "labels": _sds((b, s), torch.int32)}
+
+
+def cache_specs(cfg: ModelConfig, shape: ShapeConfig,
+                cache_dtype=torch.bfloat16) -> dict:
+    """Decode-state tree spec (KV cache of seq_len / recurrent states)."""
+    from repro_torch.models import model as MD
+
+    return MD.init_cache(cfg, shape.global_batch, shape.seq_len, cache_dtype,
+                         device="meta")
+
+
+def decode_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    b = shape.global_batch
+    return {"tokens": _sds((b, 1), torch.int32),
+            "pos": _sds((), torch.int32)}
+
+
+def params_specs(cfg: ModelConfig):
+    from repro_torch.models import model as MD
+
+    return MD.init_params(cfg, device="meta")
+
+
+def input_specs(arch: str, shape_name: str) -> dict:
+    """Everything the dry-run needs for one cell, as meta tensors."""
+    cfg = get_config(arch)
+    shape = get_shape(shape_name)
+    specs = {"params": params_specs(cfg)}
+    if shape.is_decode:
+        specs["cache"] = cache_specs(cfg, shape)
+        specs.update(decode_specs(cfg, shape))
+    else:
+        specs["batch"] = batch_specs(cfg, shape)
+    return specs
 
 
 def smoke_config(arch: str, **kw) -> ModelConfig:

@@ -13,7 +13,9 @@ raises; only for tensors on the CPU does it run the plain version,
 launch recorded with impl "torch"). Either way it refuses inputs that
 need a gradient: the kernel has no backward, as the reference's has
 none. Launches are counted in ``selective_scan.launches``
-(``WRAPPERS``).
+(``WRAPPERS``). On meta tensors it launches nothing: it returns empty
+outputs and records its work for the dry-run
+(``roofline/dispatch_count.record_region``).
 
 The launch record is the reference's Pallas one: grid (L / block_l,)
 chunks of block_l steps over B * (D / block_d) cells. The reference
@@ -34,6 +36,7 @@ from repro_torch.kernels.build import check as _check
 from repro_torch.kernels.build import stream_ptr as _stream_ptr
 from repro_torch.kernels.ssm_scan import ref as R
 from repro_torch.obs import launch as OBS
+from repro_torch.roofline import dispatch_count as DC
 
 STATE_SIZES = (4, 8, 16, 32)  # the kernel's register tilings of a channel
 
@@ -120,6 +123,12 @@ def selective_scan(x, dt, A, Bt, Ct, h0=None, *, block_d: int = 256,
     in x's dtype, h_L (B, D, N) f32), h_L written into ``state_out``
     (which may be h0) when given."""
     _refuse_grad((x, dt, A, Bt, Ct, h0, state_out))
+    if x.is_meta:
+        b, l, d = x.shape
+        DC.record_region("ssm_scan.selective_scan", b, l, d, A.shape[-1])
+        if state_out is None:
+            state_out = x.new_empty((b, d, A.shape[-1]), dtype=torch.float32)
+        return torch.empty_like(x), state_out
     if not x.is_cuda:
         return selective_scan_torch(x, dt, A, Bt, Ct, h0, block_d=block_d,
                                     block_l=block_l, state_out=state_out)

@@ -15,6 +15,7 @@ reference's chunked associative-scan formulation.
 
 from __future__ import annotations
 
+from repro_torch import device as DEV
 from repro_torch.kernels.ssm_scan import kernel as K
 from repro_torch.kernels.ssm_scan import ref as R
 
@@ -28,7 +29,7 @@ def selective_scan(x, dt, A, Bt, Ct, h0=None, *, impl: str = "cuda",
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; known {IMPLS}")
     if impl == "cuda":
-        if not x.is_cuda:
+        if not DEV.kernel_device(x):
             raise ValueError(f"selective_scan: impl='cuda' needs CUDA "
                              f"tensors, got {x.device}; pass impl='torch' "
                              "for the plain PyTorch version")

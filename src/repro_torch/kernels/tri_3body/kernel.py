@@ -10,7 +10,10 @@ through ``obs.launch.instrumented_launch`` or raises; it runs the plain
 version (``three_body_tet_torch``, ``three_body_bb3_torch``,
 ``dummy_tet_torch``) only for a tensor on the CPU (``dummy_tet``, which
 takes no tensor, for ``device="cpu"``). Each wrapper counts its launches
-in ``.launches`` (``WRAPPERS`` lists them).
+in ``.launches`` (``WRAPPERS`` lists them). On meta tensors (``device="meta"`` for the
+dummy) a wrapper launches nothing: it returns empty outputs of the
+kernel's shapes and records its work for the dry-run
+(``roofline/dispatch_count.record_region``), ``.launches`` untouched.
 
 The tiles are independent, so the plain versions compute any set of
 them at once (``triplet_tiles``) with batched f32 products, TF32 off:
@@ -31,6 +34,7 @@ from repro_torch.kernels.build import check as _check
 from repro_torch.kernels.build import stream_ptr as _stream_ptr
 from repro_torch.kernels.tri_3body import ref as R
 from repro_torch.obs import launch as OBS
+from repro_torch.roofline import dispatch_count as DC
 
 SUPPORTED_BLOCKS = (64, 128)
 
@@ -169,6 +173,10 @@ def three_body_tet(x: torch.Tensor, block: int, *,
                    strict: bool = False) -> torch.Tensor:
     """Tet launch: x (N, d) f32 or bf16 -> packed (tet(n), 1) f32, one
     block per unique tile triple, lambda = blockIdx.x."""
+    if x.is_meta:
+        DC.record_region("tri_3body.tet", x.shape[0], x.shape[1], block)
+        return x.new_empty((M.tet(x.shape[0] // block), 1),
+                           dtype=torch.float32)
     if not x.is_cuda:
         return three_body_tet_torch(x, block, strict=strict)
     n = _check_kernel_input("three_body_tet", x, block)
@@ -189,6 +197,10 @@ def three_body_bb3(x: torch.Tensor, block: int, *,
                    strict: bool = False) -> torch.Tensor:
     """BB-3D: x (N, d) -> (n, n, n) f32 over an n x n x n grid; blocks
     outside k <= j <= i write their zero and do nothing else."""
+    if x.is_meta:
+        DC.record_region("tri_3body.bb3", x.shape[0], x.shape[1], block)
+        n = x.shape[0] // block
+        return x.new_empty((n, n, n), dtype=torch.float32)
     if not x.is_cuda:
         return three_body_bb3_torch(x, block, strict=strict)
     # the tet_map envelope (n <= 1624) keeps n within gridDim.y/z
@@ -211,6 +223,9 @@ def dummy_tet(n: int, device=DEV.DEFAULT_DEVICE) -> torch.Tensor:
     (i, j, k) and writes i + j + k. Returns (tet(n), 1) f32 on
     ``device``."""
     dev = DEV.resolve(device)
+    if dev.type == "meta":
+        DC.record_region("tri_3body.dummy_tet", n)
+        return torch.empty((M.tet(n), 1), dtype=torch.float32, device=dev)
     if dev.type != "cuda":
         return dummy_tet_torch(n, dev)
     _check(n >= 1, f"dummy_tet: n must be >= 1, got {n}")

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import device as DEV
 from repro_torch.kernels.tri_3body import kernel as K
 from repro_torch.kernels.tri_3body import ref as R
 
@@ -37,7 +38,7 @@ def three_body(x: torch.Tensor, block: int = 128, *, impl: str = "cuda",
     if x.shape[0] % block:
         raise ValueError(f"n_rows={x.shape[0]} must be a multiple of "
                          f"block={block}")
-    if impl in ("cuda", "bb3") and not x.is_cuda:
+    if impl in ("cuda", "bb3") and not DEV.kernel_device(x):
         raise ValueError(
             f"three_body: impl={impl!r} needs CUDA tensors, got {x.device}; "
             f"pass impl={'torch' if impl == 'cuda' else 'bb3_torch'!r} for "

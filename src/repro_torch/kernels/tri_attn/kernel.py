@@ -21,7 +21,11 @@ its kernel, through ``obs.launch.instrumented_launch``, or raises; it
 runs the plain PyTorch version (scan_impl.py) only when its inputs lie
 on the CPU. Each wrapper counts its launches in a plain integer
 attribute (``.launches``), incremented where the kernel is launched and
-nowhere else (``WRAPPERS`` lists them).
+nowhere else (``WRAPPERS`` lists them). On meta tensors (the dry-run) a
+wrapper launches nothing and runs no plain version: it returns empty
+outputs of the kernel's shapes and dtypes, records its work in the active
+count (``roofline/dispatch_count.record_region``) and leaves
+``.launches`` as it is.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from repro_torch.kernels.build import arrival_counters
 from repro_torch.kernels.build import check as _check
 from repro_torch.kernels.build import stream_ptr as _stream_ptr
 from repro_torch.obs import launch as OBS
+from repro_torch.roofline import dispatch_count as DC
 
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 
@@ -221,6 +226,10 @@ def packed_fwd(q, k, v, psched: PackedTriSched, *, sm_scale=None):
     b, h, s_len, d = q.shape
     scale = float(sm_scale if sm_scale is not None else 1.0 / (d ** 0.5))
     check_prefix_bound("packed_fwd", psched)
+    if q.is_meta:
+        DC.record_region("tri_attn.packed_fwd", q, k, psched)
+        return torch.empty_like(q), q.new_empty((b, h, s_len),
+                                                dtype=torch.float32)
     if not q.is_cuda:
         from repro_torch.kernels.tri_attn import scan_impl as SC
 
@@ -330,6 +339,9 @@ def packed_decode_fwd(q, k, v, tbl, *, capacity: int, blk: int, tiles: int,
     b, h, d = q.shape
     s_cache, hkv = k.shape[1], k.shape[2]
     scale = float(sm_scale if sm_scale is not None else 1.0 / (d ** 0.5))
+    if q.is_meta:
+        DC.record_region("tri_attn.packed_decode_fwd", q, k, tbl, tiles, blk)
+        return q.new_empty((b + 1, h, d))
     if not q.is_cuda:
         from repro_torch.kernels.tri_attn import scan_impl as SC
 
@@ -422,6 +434,10 @@ def fused_step_fwd(q_pack, k_pack, v_pack, q_dec, k_cache, v_cache, tbl, *,
     s_cache, hkv = k_cache.shape[1], k_cache.shape[2]
     blk = psched.blk
     scale = float(sm_scale if sm_scale is not None else 1.0 / (d ** 0.5))
+    if q_pack.is_meta:
+        DC.record_region("tri_attn.fused_step_fwd", q_pack, k_pack, v_pack,
+                         q_dec, k_cache, tbl, psched, tiles)
+        return torch.empty_like(q_pack), q_dec.new_empty((b + 1, h, d))
     if not q_pack.is_cuda:
         from repro_torch.kernels.tri_attn import scan_impl as SC
 
@@ -545,6 +561,10 @@ def fwd(q, k, v, sched: TriSched, *, sm_scale=None):
     b, h, s_len, d = q.shape
     scale = float(sm_scale if sm_scale is not None else 1.0 / (d ** 0.5))
     check_prefix_bound("fwd", sched)
+    if q.is_meta:
+        DC.record_region("tri_attn.fwd", q, k, sched)
+        return torch.empty_like(q), q.new_empty((b, h, s_len),
+                                                dtype=torch.float32)
     if not q.is_cuda:
         from repro_torch.kernels.tri_attn import scan_impl as SC
 
@@ -646,6 +666,10 @@ def fwd_bb(q, k, v, sched: TriSched, *, sm_scale=None):
     b, h, s_len, d = q.shape
     scale = float(sm_scale if sm_scale is not None else 1.0 / (d ** 0.5))
     check_bb_sched(sched)
+    if q.is_meta:
+        DC.record_region("tri_attn.fwd_bb", q, k, sched)
+        return torch.empty_like(q), q.new_empty((b, h, s_len),
+                                                dtype=torch.float32)
     if not q.is_cuda:
         from repro_torch.kernels.tri_attn import scan_impl as SC
 
@@ -712,6 +736,9 @@ def bwd_dq(q, k, v, do, lse, delta, sched: TriSched, *, sm_scale=None):
     scale = float(sm_scale if sm_scale is not None
                   else 1.0 / (q.shape[-1] ** 0.5))
     check_prefix_bound("bwd_dq", sched)
+    if q.is_meta:
+        DC.record_region("tri_attn.bwd_dq", q, k, sched)
+        return torch.empty_like(q)
     if not q.is_cuda:
         from repro_torch.kernels.tri_attn import scan_impl as SC
 
@@ -733,6 +760,9 @@ def bwd_dkv(q, k, v, do, lse, delta, sched: TriSched, *, sm_scale=None):
     scale = float(sm_scale if sm_scale is not None
                   else 1.0 / (q.shape[-1] ** 0.5))
     check_prefix_bound("bwd_dkv", sched)
+    if q.is_meta:
+        DC.record_region("tri_attn.bwd_dkv", q, k, sched)
+        return torch.empty_like(k), torch.empty_like(v)
     if not q.is_cuda:
         from repro_torch.kernels.tri_attn import scan_impl as SC
 
@@ -766,6 +796,9 @@ def packed_bwd_dq(q, k, v, do, lse, delta, psched: PackedTriSched, *,
     scale = float(sm_scale if sm_scale is not None
                   else 1.0 / (q.shape[-1] ** 0.5))
     check_prefix_bound("packed_bwd_dq", psched)
+    if q.is_meta:
+        DC.record_region("tri_attn.packed_bwd_dq", q, k, psched)
+        return torch.empty_like(q)
     if not q.is_cuda:
         from repro_torch.kernels.tri_attn import scan_impl as SC
 
@@ -789,6 +822,9 @@ def packed_bwd_dkv(q, k, v, do, lse, delta, psched: PackedTriSched, *,
     scale = float(sm_scale if sm_scale is not None
                   else 1.0 / (q.shape[-1] ** 0.5))
     check_prefix_bound("packed_bwd_dkv", psched)
+    if q.is_meta:
+        DC.record_region("tri_attn.packed_bwd_dkv", q, k, psched)
+        return torch.empty_like(k), torch.empty_like(v)
     if not q.is_cuda:
         from repro_torch.kernels.tri_attn import scan_impl as SC
 

@@ -34,6 +34,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import device as DEV
 from repro_torch.kernels.tri_attn import kernel as K
 from repro_torch.kernels.tri_attn import ref as R
 from repro_torch.kernels.tri_attn import scan_impl as SC
@@ -44,7 +45,7 @@ IMPLS = ("cuda", "torch", "ref", "bb", "bb_torch")
 
 
 def _require_cuda(impl: str, t: torch.Tensor, op: str):
-    if impl in ("cuda", "bb") and not t.is_cuda:
+    if impl in ("cuda", "bb") and not DEV.kernel_device(t):
         raise ValueError(
             f"{op}: impl={impl!r} needs CUDA tensors, got {t.device}; pass "
             f"impl={'torch' if impl == 'cuda' else 'bb_torch'!r} for the "

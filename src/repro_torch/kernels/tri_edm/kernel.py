@@ -10,7 +10,10 @@ through ``obs.launch.instrumented_launch`` or raises; it runs the plain
 version (``edm_ltm_torch``, ``edm_bb_torch``, ``dummy_ltm_torch``) only
 for a tensor on the CPU (``dummy_ltm``, which takes no tensor, for
 ``device="cpu"``). Each wrapper counts its launches in ``.launches``
-(``WRAPPERS`` lists them).
+(``WRAPPERS`` lists them). On meta tensors (``device="meta"`` for the
+dummy) a wrapper launches nothing: it returns empty outputs of the
+kernel's shapes and records its work for the dry-run
+(``roofline/dispatch_count.record_region``), ``.launches`` untouched.
 
 The tiles are independent, so the plain versions compute any set of
 them at once (``edm_tiles``), with the kernel's arithmetic: squared
@@ -32,6 +35,7 @@ from repro_torch.kernels.build import check as _check
 from repro_torch.kernels.build import stream_ptr as _stream_ptr
 from repro_torch.kernels.tri_edm import ref as R
 from repro_torch.obs import launch as OBS
+from repro_torch.roofline import dispatch_count as DC
 
 SUPPORTED_BLOCKS = (8, 16, 32, 64, 128)
 # tiles a plain version computes at once (bounds its temporaries)
@@ -162,6 +166,10 @@ def edm_ltm(x: torch.Tensor, block: int, *,
             squared: bool = False) -> torch.Tensor:
     """LTM EDM: x (N, d) f32 or bf16 -> packed (tri(n), block, block) f32,
     one block per tile, lambda = blockIdx.x."""
+    if x.is_meta:
+        DC.record_region("tri_edm.ltm", x.shape[0], x.shape[1], block)
+        n = x.shape[0] // block
+        return x.new_empty((M.tri(n), block, block), dtype=torch.float32)
     if not x.is_cuda:
         return edm_ltm_torch(x, block, squared=squared)
     n = _check_kernel_input("edm_ltm", x, block)
@@ -184,6 +192,9 @@ def edm_bb(x: torch.Tensor, block: int, *,
            squared: bool = False) -> torch.Tensor:
     """BB EDM: x (N, d) -> full (N, N) f32 over an n x n grid; blocks with
     j > i write their zero tile and do nothing else."""
+    if x.is_meta:
+        DC.record_region("tri_edm.bb", x.shape[0], x.shape[1], block)
+        return x.new_empty((x.shape[0], x.shape[0]), dtype=torch.float32)
     if not x.is_cuda:
         return edm_bb_torch(x, block, squared=squared)
     n = _check_kernel_input("edm_bb", x, block)
@@ -206,6 +217,9 @@ def dummy_ltm(n: int, device=DEV.DEFAULT_DEVICE) -> torch.Tensor:
     """The paper's dummy kernel: grid tri(n), block lambda maps itself to
     (i, j) and writes i + j. Returns (tri(n), 1) f32 on ``device``."""
     dev = DEV.resolve(device)
+    if dev.type == "meta":
+        DC.record_region("tri_edm.dummy_ltm", n)
+        return torch.empty((M.tri(n), 1), dtype=torch.float32, device=dev)
     if dev.type != "cuda":
         return dummy_ltm_torch(n, dev)
     _check(n >= 1, f"dummy_ltm: n must be >= 1, got {n}")

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import device as DEV
 from repro_torch.kernels.tri_edm import kernel as K
 from repro_torch.kernels.tri_edm import ref as R
 
@@ -30,7 +31,7 @@ def edm(x: torch.Tensor, block: int = 128, *, squared: bool = False,
     'cuda' / 'torch', full (N, N) for 'bb' / 'bb_torch' / 'ref'."""
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; known {IMPLS}")
-    if impl in ("cuda", "bb") and not x.is_cuda:
+    if impl in ("cuda", "bb") and not DEV.kernel_device(x):
         raise ValueError(
             f"edm: impl={impl!r} needs CUDA tensors, got {x.device}; pass "
             f"impl={'torch' if impl == 'cuda' else 'bb_torch'!r} for the "

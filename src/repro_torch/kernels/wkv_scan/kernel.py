@@ -15,7 +15,9 @@ stream, bitwise equal to L one-step calls. The kernel takes head sizes
 through ``obs.launch.instrumented_launch`` or raises; only for tensors
 on the CPU does it run the plain version, ``wkv_torch`` (the sequential
 oracle of ref.py, the same launch recorded with impl "torch"). Launches
-are counted in ``wkv.launches`` (``WRAPPERS``).
+are counted in ``wkv.launches`` (``WRAPPERS``). On meta tensors it
+launches nothing: it returns empty outputs and records its work for the
+dry-run (``roofline/dispatch_count.record_region``).
 
 The launch record is the reference's Pallas one: grid (L / block_l,)
 chunks of block_l time steps, B * H cells. The reference asserts that
@@ -41,6 +43,7 @@ from repro_torch.kernels.build import check as _check
 from repro_torch.kernels.build import stream_ptr as _stream_ptr
 from repro_torch.kernels.wkv_scan import ref as R
 from repro_torch.obs import launch as OBS
+from repro_torch.roofline import dispatch_count as DC
 
 HEAD_SIZES = (8, 16, 32, 64)  # the kernel's register tilings of a column
 WKV_CHUNK = 64  # steps a block takes of its stream (csrc/wkv_scan.cu)
@@ -114,6 +117,16 @@ def wkv(r, k, v, lw, u, s0=None, *, block_l: int = 64, state_out=None):
     hd, hd) f32 or None (zeros). Returns (out (B, L, H, hd) in r's dtype,
     s_L (B, H, hd, hd) f32), s_L written into ``state_out`` (which may be
     s0) when given."""
+    if r.is_meta:
+        _check(not any(t is not None and t.requires_grad
+                       for t in (r, k, v, lw, u, s0, state_out)),
+               "wkv: the kernel has no backward; differentiate through the "
+               "plain version (impl='torch')")
+        b, l, h, hd = r.shape
+        DC.record_region("wkv_scan.wkv", b, l, h, hd)
+        if state_out is None:
+            state_out = r.new_empty((b, h, hd, hd), dtype=torch.float32)
+        return torch.empty_like(r), state_out
     if not r.is_cuda:
         return wkv_torch(r, k, v, lw, u, s0, block_l=block_l,
                          state_out=state_out)

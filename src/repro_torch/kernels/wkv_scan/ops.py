@@ -13,6 +13,7 @@ reference's chunked formulation.
 
 from __future__ import annotations
 
+from repro_torch import device as DEV
 from repro_torch.kernels.wkv_scan import kernel as K
 from repro_torch.kernels.wkv_scan import ref as R
 
@@ -26,7 +27,7 @@ def wkv(r, k, v, lw, u, s0=None, *, impl: str = "cuda", block_l: int = 64,
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; known {IMPLS}")
     if impl == "cuda":
-        if not r.is_cuda:
+        if not DEV.kernel_device(r):
             raise ValueError(f"wkv: impl='cuda' needs CUDA tensors, got "
                              f"{r.device}; pass impl='torch' for the plain "
                              "PyTorch version")

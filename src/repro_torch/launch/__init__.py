@@ -1,1 +1,3 @@
-"""Entry points of the port (``python -m repro_torch.launch.train``)."""
+"""Entry points of the port (``python -m repro_torch.launch.train``,
+``serve``, ``dryrun``), its abstract meshes and the table of kernel
+regions."""

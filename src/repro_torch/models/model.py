@@ -49,11 +49,14 @@ def param_dtype(cfg) -> torch.dtype:
 def init_params(cfg, seed: int = 0, device=DEV.DEFAULT_DEVICE):
     """Random weights from a seeded ``torch.Generator`` on ``device``.
     They are not the reference's draws: tests carry reference weights
-    over with ``params_from_jax``."""
+    over with ``params_from_jax``. On ``"meta"`` (the dry-run's params
+    specs) the leaves hold shapes and dtypes only and nothing is drawn: a
+    meta device has no generator."""
     T.check_supported(cfg)
     dev = DEV.resolve(device)
     dtype = param_dtype(cfg)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = None if dev.type == "meta" else \
+        torch.Generator(device=dev).manual_seed(seed)
     d, vp, n = cfg.d_model, cfg.padded_vocab, cfg.n_superlayers
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     ones = lambda *s: torch.ones(s, dtype=torch.float32, device=dev)
@@ -127,13 +130,13 @@ def embed_inputs(params, cfg, batch):
 def forward(params, cfg, batch, *, attn_impl: str = "cuda",
             collect_state: bool = False, positions=None, packed=None,
             remat: bool = False, block: int = 64,
-            full_capacity: bool = False):
+            full_capacity: bool = False, scan_impl: str | None = None):
     """Returns (hidden (B, S, d), aux, states_or_None); aux sums the MoE
     layers' load-balance losses; states stack each layer's state leaves
     (an attention layer's rotated k/v, a mamba layer's h and conv carry,
     an rwkv layer's shifts and WKV state) on a leading superlayer axis,
     as the reference's scan does; ``attn_impl`` also picks the WKV and
-    selective-scan impl; ``full_capacity`` keeps every MoE slot, no
+    selective-scan impl unless ``scan_impl`` is given; ``full_capacity`` keeps every MoE slot, no
     token dropped at the capacity factor (serving semantics).
     Serving prefill passes the packed schedule and positions restarting
     per request. ``remat`` recomputes each layer in the
@@ -159,7 +162,8 @@ def forward(params, cfg, batch, *, attn_impl: str = "cuda",
                     lp[f"l{p}"], x, cfg, kind, p, positions=positions,
                     attn_impl=attn_impl, packed=packed,
                     collect_state=collect_state, block=block,
-                    full_capacity=full_capacity, prefix=prefix)
+                    full_capacity=full_capacity, prefix=prefix,
+                    scan_impl=scan_impl)
                 if a is not None:
                     aux = aux + a
             return x, aux, states
@@ -204,7 +208,7 @@ def cross_entropy(logits, labels, mask, vocab_size: int):
 
 def loss_fn(params, cfg, batch, *, attn_impl: str = "cuda",
             remat: bool = True, aux_weight: float = 0.01, block: int = 64,
-            packed=None):
+            packed=None, scan_impl: str | None = None):
     """Next-token loss of a batch ("tokens" and/or "embeds", "labels"
     (B, S), an optional "mask" of loss weights, 0 on a vision prefix).
     Returns (loss, {"ce", "aux"}).
@@ -218,7 +222,7 @@ def loss_fn(params, cfg, batch, *, attn_impl: str = "cuda",
     hidden, aux, _ = forward(params, cfg, batch, attn_impl=attn_impl,
                              remat=remat, block=block,
                              positions=batch.get("positions"),
-                             packed=packed)
+                             packed=packed, scan_impl=scan_impl)
     logits = logits_from_hidden(params, cfg, hidden)
     labels = batch["labels"]
     mask = batch.get("mask")

@@ -102,6 +102,18 @@ def _wkv_chunked(r, k, v, lw, u, s0):
     chunk = min(CHUNK, s)
     while s % chunk:
         chunk //= 2
+    if r.is_meta:
+        # the dry-run's count (no values to carry): every chunk in one
+        # batched pass, the same work as the loop below in S / chunk times
+        # fewer ops
+        b, n = r.shape[0], s // chunk
+        out, s_end = _wkv_chunk(
+            s0[:, None].expand((b, n) + s0.shape[1:]).reshape(
+                (b * n,) + s0.shape[1:]),
+            *(t.reshape((b * n, chunk) + t.shape[2:]) for t in (r, k, v, lw)),
+            u)
+        return out.reshape(r.shape), \
+            s_end.reshape((b, n) + s_end.shape[1:])[:, -1]
     outs = []
     for c in range(0, s, chunk):
         out_c, s0 = _wkv_chunk(s0, r[:, c:c + chunk], k[:, c:c + chunk],

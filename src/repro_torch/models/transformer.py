@@ -66,7 +66,8 @@ def _ffn(p, x, cfg, p_idx: int, full_capacity: bool):
 
 def layer_fwd(p, x, cfg, kind: str, p_idx: int, *, positions,
               attn_impl: str, packed, collect_state: bool, block: int = 64,
-              full_capacity: bool = False, prefix: int = 0):
+              full_capacity: bool = False, prefix: int = 0,
+              scan_impl: str | None = None):
     """One layer over a full sequence (packed prefill batch or training
     rows). Returns (x, aux, state): aux the MoE load-balance loss (None
     without MoE); with collect_state an attention layer's rotated {"k",
@@ -74,17 +75,19 @@ def layer_fwd(p, x, cfg, kind: str, p_idx: int, *, positions,
     "shift_c"}. full_capacity: drop-free MoE (serving semantics: a
     prefill that drops tokens diverges from the decode it seeds).
     prefix: the prefix-causal rows of a non-packed attention (a vision
-    prefix)."""
+    prefix). scan_impl: the rwkv and mamba layers' scan impl, attn_impl
+    unless given."""
+    scan_impl = scan_impl or attn_impl
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
     if kind == "rwkv":
-        out, st = RW.rwkv_time_mix(p["mixer"], h, cfg, impl=attn_impl)
+        out, st = RW.rwkv_time_mix(p["mixer"], h, cfg, impl=scan_impl)
         x = x + out
         h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
         out2, shift_c = RW.rwkv_channel_mix(p["mixer"], h2, cfg)
         return x + out2, None, (dict(st, shift_c=shift_c) if collect_state
                                 else None)
     if kind == "mamba":
-        out, st = MB.mamba_mix(p["mixer"], h, cfg, impl=attn_impl)
+        out, st = MB.mamba_mix(p["mixer"], h, cfg, impl=scan_impl)
     else:
         out, k, v = L.attention(p["mixer"], h, cfg, positions=positions,
                                 attn_impl=attn_impl, packed=packed,

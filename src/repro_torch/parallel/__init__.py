@@ -1,1 +1,2 @@
-"""Layout hints (port of ``repro/parallel/hints.py``; one device)."""
+"""Layout hints and sharding rules (ports of ``repro/parallel/hints.py``
+and ``sharding.py``)."""

@@ -105,7 +105,8 @@ def _take_f32_grad(view):
 
 def make_train_step(cfg, opt: OPT.OptConfig, *, microbatches: int = 1,
                     attn_impl: str = "cuda", remat: bool = True,
-                    aux_weight: float = 0.01, block: int = 64, packed=None):
+                    aux_weight: float = 0.01, block: int = 64, packed=None,
+                    scan_impl: str | None = None):
     """Returns train_step(state, batch) -> (state, metrics).
 
     microbatches M > 1 splits the batch's leading dim into M sequential
@@ -116,7 +117,10 @@ def make_train_step(cfg, opt: OPT.OptConfig, *, microbatches: int = 1,
     Batches may carry "embeds" (the stub frontends). The optimizer is
     ``opt.kind`` (the state must be of that kind: ``init_state``). On the
     kernels an arch whose head dim no attention body takes is refused
-    here (``transformer.check_kernel_head_dim``)."""
+    here (``transformer.check_kernel_head_dim``). The rwkv and mamba
+    layers' scans take ``attn_impl`` unless ``scan_impl`` is given: their
+    kernels have no backward, so these archs train with scan_impl
+    "torch", the plain chunked scans."""
     if packed is not None and microbatches != 1:
         raise ValueError(f"a packed batch is one row (B = 1) of bin-packed "
                          f"documents, so it does not split into "
@@ -138,7 +142,8 @@ def make_train_step(cfg, opt: OPT.OptConfig, *, microbatches: int = 1,
         for mb in mbs:
             l, met = MD.loss_fn(views, cfg, mb, attn_impl=attn_impl,
                                 remat=remat, aux_weight=aux_weight,
-                                block=block, packed=packed)
+                                block=block, packed=packed,
+                                scan_impl=scan_impl)
             l.backward()
             if views["embed"].grad is None:
                 # an "embeds"-only batch (audio frames) reads no token

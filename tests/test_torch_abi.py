@@ -166,6 +166,15 @@ SLICES = {
              "repro_torch.models.model, repro_torch.train.data; "
              "from repro_torch.configs.registry import all_configs; "
              "assert len(all_configs()) == 10",
+    "roofline": "import repro_torch.roofline.model, "
+                "repro_torch.roofline.dispatch_count, "
+                "repro_torch.roofline.attribution, "
+                "repro_torch.launch.dryrun, repro_torch.launch.mesh, "
+                "repro_torch.launch.compat, repro_torch.parallel.sharding; "
+                "import tempfile; "
+                "from repro_torch.launch.dryrun import run_cell; "
+                "assert run_cell('yi-9b', 'train_4k', 'card', "
+                "tempfile.mkdtemp(), n_layers=1, batch=1)['ok']",
 }
 
 
@@ -182,6 +191,9 @@ def test_slice_modules_import_with_jax_blocked(name):
 
 def test_checker_modules_are_scanned_for_jax_imports():
     files = {str(f.relative_to(PKG)) for f in PKG.rglob("*.py")}
+    assert {"roofline/model.py", "roofline/dispatch_count.py",
+            "roofline/attribution.py", "launch/dryrun.py", "launch/mesh.py",
+            "launch/compat.py", "parallel/sharding.py"} <= files
     assert {"core/schedule.py", "analysis/contracts.py",
             "analysis/verifier.py", "analysis/envelope.py",
             "analysis/launch_lint.py", "analysis/obs_lint.py",

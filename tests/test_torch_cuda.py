@@ -1957,3 +1957,110 @@ def test_adafactor_step_on_the_card_matches_the_cpu(dev, monkeypatch):
         assert torch.equal(b, c)
         np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), atol=1e-6,
                                    rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The dry-run's meta branches and reckoning against the card
+# ---------------------------------------------------------------------------
+
+import torch_wrapper_cases as WC  # noqa: E402
+
+
+@pytest.mark.parametrize("name", WC.NAMES)
+def test_meta_branch_matches_the_kernels_outputs(dev, name):
+    """Each wrapper's meta branch returns the shapes and dtypes its
+    kernel returns (the attention wrappers in bf16), and launches
+    nothing."""
+    attn = name.startswith("tri_attn.")
+    dtype = torch.bfloat16 if attn else torch.float32
+    before = {n: f.launches for n, f in WC.WRAPPERS.items()}
+    meta = WC.call(name, "meta", dtype)
+    assert {n: f.launches for n, f in WC.WRAPPERS.items()} == before
+    got = WC.call(name, dev, dtype)
+    torch.cuda.synchronize()
+    assert WC.WRAPPERS[name].launches == before[name] + 1
+    assert [(tuple(t.shape), t.dtype) for t in meta] == \
+        [(tuple(t.shape), t.dtype) for t in got]
+    assert all(t.is_meta for t in meta)
+
+
+@pytest.fixture(scope="module")
+def cut_step_reading(dev, tmp_path_factory):
+    """yi-9b at full width cut to 2 layers, seq 1024, batch 1, AdamW:
+    ``python -m repro_torch.roofline.attribution`` in a fresh process (a
+    window late in a process drops launches): 2 timed steps, their peak,
+    the dry-run's count of the same cell, one attributed window."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    out = tmp_path_factory.mktemp("roofline") / "reading.json"
+    src = Path(__file__).resolve().parents[1] / "src"
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.roofline.attribution", "--arch",
+         "yi-9b", "--n-layers", "2", "--seq", "1024", "--batch", "1",
+         "--steps", "2", "--json", str(out)], capture_output=True, text=True,
+        env=dict(os.environ, PYTHONPATH=str(src)), timeout=600)
+    assert run.returncode == 0, run.stderr[-3000:]
+    return json.loads(out.read_text())
+
+
+def test_reckoned_peak_of_a_cut_train_step(cut_step_reading):
+    """The dry-run's peak of the cut step within 10% of the card's
+    max_memory_allocated over its steps, its split summing to it."""
+    mem = cut_step_reading["reckoned"]["memory"]
+    peak = mem["peak_bytes_per_device"]
+    assert sum(mem["peak_split"].values()) == peak
+    assert abs(peak / cut_step_reading["peak_bytes"] - 1) <= 0.10, \
+        (peak, cut_step_reading["peak_bytes"])
+
+
+def test_attribution_window_holds_the_wrappers_counts(cut_step_reading):
+    """The window's region launches equal the wrappers' .launches over the
+    step (2 layers: fwd 4 with the remat recompute, dq 2, dk/dv 2), and
+    every kernel falls in a group."""
+    att = cut_step_reading["attribution"]
+    held = {n: c for n, c in att["launches_held"].items() if c}
+    assert held == {"tri_attn.fwd": 4, "tri_attn.bwd_dq": 2,
+                    "tri_attn.bwd_dkv": 2}
+    for name, count in held.items():
+        assert att["groups"][name]["launches"] == count
+    assert "gemm" in att["groups"] and "elementwise" in att["groups"]
+    assert abs(sum(g["share"] for g in att["groups"].values()) - 1) < 1e-9
+
+
+@pytest.mark.parametrize("arch,wrapper", [
+    ("rwkv6-1.6b", "wkv_scan"), ("jamba-1.5-large-398b", "ssm_scan")])
+def test_recurrent_training_on_the_card_refuses_the_scan_kernels(dev, arch,
+                                                                 wrapper):
+    """A smoke-size rwkv6 or jamba train step on the card: with the scans
+    on the kernels (no backward) the step raises; with scan_impl "torch"
+    it trains through the plain chunked scans, and the scan kernel is
+    launched no time."""
+    import importlib
+
+    from repro_torch.configs import registry as REG
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.train import data as DATA
+    from repro_torch.train import optimizer as OPT
+    from repro_torch.train import train_step as TS
+
+    cfg = REG.smoke_config(arch)
+    opt = OPT.OptConfig()
+    batch = DATA.SyntheticLM(cfg, ShapeConfig("t", 32, 2, "train"), seed=0,
+                             device=dev).batch(0)
+    kern = importlib.import_module(f"repro_torch.kernels.{wrapper}.kernel")
+    for f in kern.WRAPPERS.values():
+        f.launches = 0
+    state = TS.init_state(cfg, opt, seed=0, device=dev)
+    step = TS.make_train_step(cfg, opt, attn_impl="cuda", block=16)
+    with pytest.raises(ValueError, match="backward"):
+        step(state, batch)
+    state = TS.init_state(cfg, opt, seed=0, device=dev)
+    step = TS.make_train_step(cfg, opt, attn_impl="cuda", block=16,
+                              scan_impl="torch")
+    _, met = step(state, batch)
+    assert np.isfinite(float(met["loss"]))
+    assert all(f.launches == 0 for f in kern.WRAPPERS.values())
