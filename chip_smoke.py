@@ -227,6 +227,24 @@ Phases (any failure exits non-zero; nothing is caught):
      bitwise-equal states; 3 packed steps with the kernels and with the
      plain versions agree, and packed and padded losses agree (rtol
      1e-5);
+  8b. data-parallel training with the int8 error-feedback grad all-reduce
+     (parallel/compression.py) over an NCCL group of one rank
+     (launch/mesh.init_data_group): the dry-run's reckoning of yi-9b at
+     full width cut to COMPRESSED_LAYERS (16) of 48 layers (seq 4096,
+     batch 1, remat, AdamW, err_state) printed first, failing past
+     COMPRESSED_FIT_BYTES; 3 plain then 3 compressed steps on one state
+     with launches of exactly 2 x layers (fwd) and layers (dq, dk/dv) a
+     step in both modes and no plain version; on the first compressed
+     step the codes of one stacked attention and one MLP leaf (each
+     dequantized grad q x max|g + err| / 127 over the stack, bitwise, |new err| <= scale / 2, dequant +
+     new err == g + err within an ulp); finite losses, a nonzero
+     err_state, the compressed steps' peak within PEAK_RTOL of the
+     reckoning; median step times of both modes and the codec's ms a
+     step (CUDA events around the hook); smoke-size float32: compressed
+     steps on the kernels and the plain versions agree, the one-rank
+     group and no group bitwise equal, 3 + save_async + restore + 3 == 6
+     straight bitwise (err_state included); the trainer CLI with
+     --compress-grads; the phase's seconds;
   9. the roofline: yi-9b's dense step of phase 8 in a fresh process
      (python -m repro_torch.roofline.attribution): its step times, MFU
      and max_memory_allocated over ROOFLINE_STEPS steps, the dry-run's
@@ -4413,6 +4431,277 @@ def smoke_packed_training(dev, cfg, opt, base):
           f"{packed} == pad-to-max {padded} (rtol 1e-5)", flush=True)
 
 
+# phase 8b: yi-9b's depth for compressed training, cut to this many of
+# its 48 layers; the dry-run must reckon the compressed step within
+# COMPRESSED_FIT_BYTES of the card's 80 GB (bf16 params, float32 grads
+# (the hook takes float32 grads), AdamW moments and err_state: 18 bytes a
+# parameter), or the script fails
+COMPRESSED_LAYERS = 16
+COMPRESSED_FIT_BYTES = 72e9
+# the stacked leaves whose codes the first compressed step checks: one
+# attention and one MLP leaf
+CODEC_LEAVES = ("layers.l0.mixer.wk", "layers.l0.ffn.wo")
+
+
+def _leaf(tree, key: str):
+    for part in key.split("."):
+        tree = tree[part]
+    return tree
+
+
+class _CodecSpy:
+    """A compressed_allreduce hook around ``hook``: CUDA events around
+    each call (the codec and its all-reduce), and on the first call host
+    copies of CODEC_LEAVES' grads and errors before it and of their
+    dequantized grads and new errors after it (on the host, so the
+    device's peak is the step's own)."""
+
+    def __init__(self, hook):
+        self.hook, self.events, self.copies = hook, [], None
+
+    def __call__(self, grads, err):
+        first = self.copies is None
+        if first:
+            self.copies = {k: {"g": [g.to("cpu", copy=True)
+                                     for g in _leaf(grads, k)],
+                               "e": _leaf(err, k).to("cpu", copy=True)}
+                           for k in CODEC_LEAVES}
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        grads, err = self.hook(grads, err)
+        ev[1].record()
+        self.events.append(ev)
+        if first:
+            for k, c in self.copies.items():
+                c["deq"] = [g.to("cpu", copy=True) for g in _leaf(grads, k)]
+                c["new_e"] = _leaf(err, k).to("cpu", copy=True)
+        return grads, err
+
+    def ms(self) -> list:
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+def _check_codes(key: str, c: dict, dev) -> dict:
+    """The first compressed step's code of one stacked leaf, layer by
+    layer on the card from the host copies, with the scale max|g + err|
+    over the whole stack / 127: every dequantized grad is q x that scale
+    (bitwise) for an integer q within +-127 (127 reached; so the leaf was
+    coded with that one scale), |new err| <= scale / 2 (+ the rounding of
+    q x scale), and dequant + new err equals g + err within one float32
+    ulp."""
+    amax = None
+    for g, e in zip(c["g"], c["e"]):
+        m = torch.max(torch.abs(g.to(dev) + e.to(dev)))
+        amax = m if amax is None else torch.maximum(amax, m)
+    scale = torch.clamp(amax, min=1e-30) / 127.0
+    s = float(scale)
+    bound = s / 2 + float(np.finfo(np.float32).eps) * 127 * s
+    q_max, err_max, ulps = 0.0, 0.0, 0.0
+    for g, e, deq, ne in zip(c["g"], c["e"], c["deq"], c["new_e"]):
+        t = g.to(dev) + e.to(dev)
+        deq, ne = deq.to(dev), ne.to(dev)
+        q = torch.round(deq / scale)
+        if not torch.equal(q * scale, deq) or float(q.abs().max()) > 127:
+            _fail(f"compressed train: {key}: a dequantized grad is not q x "
+                  f"scale for an integer q within +-127")
+        q_max = max(q_max, float(q.abs().max()))
+        err_max = max(err_max, float(ne.abs().max()))
+        ulp = torch.nextafter(t.abs(), torch.tensor(float("inf"),
+                                                    device=dev)) - t.abs()
+        ulps = max(ulps, float(((deq + ne - t).abs() / ulp).max()))
+    if q_max != 127 or err_max > bound or ulps > 1:
+        _fail(f"compressed train: {key}: max |q| {q_max}, max |new err| "
+              f"{err_max} against {bound}, dequant + new err off g + err "
+              f"by {ulps} ulps")
+    return {"scale": s, "layers": len(c["g"]), "max_err_over_scale":
+            err_max / s, "max_ulps": ulps}
+
+
+def compressed_train_phase(dev, card, K) -> dict:
+    """Phase 8b: data-parallel training over an NCCL group of one rank
+    (launch/mesh.init_data_group) with the int8 error-feedback grad
+    all-reduce (parallel/compression.py): yi-9b at full width, cut to
+    COMPRESSED_LAYERS (the dry-run's reckoning printed first), 3 plain then
+    3 compressed steps on one state; the launches, the first compressed
+    step's codes, the peak against the dry-run's; then smoke-size float32
+    runs and the trainer CLI with --compress-grads. Returns the compressed
+    steps' launches."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import yi_9b
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun as DRY
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.obs import metrics as MET
+    from repro_torch.parallel import compression as C
+    from repro_torch.train import data as DATA
+    from repro_torch.train import fault_tolerance as FT
+    from repro_torch.train import optimizer as OPT
+    from repro_torch.train import train_step as TS
+
+    t0 = time.perf_counter()
+    seq, steps = 4096, 3
+    shape = ShapeConfig("train_4k", seq, 1, "train")
+    opt = OPT.OptConfig()
+    layers = COMPRESSED_LAYERS
+    cfg = dataclasses.replace(yi_9b.CONFIG, n_layers=layers)
+    reckoned = DRY.count_cell(cfg, shape, opt=opt,
+                              compression=True)["analysis"]["memory"]
+    print(f"compressed train: the dry-run reckons yi-9b {layers} of "
+          f"{yi_9b.CONFIG.n_layers} layers, seq {seq}, batch 1, AdamW, int8 "
+          f"EF at {reckoned['peak_bytes_per_device'] / 1e9:.2f} GB "
+          f"({_split_gb(reckoned['peak_split'])})", flush=True)
+    if reckoned["peak_bytes_per_device"] > COMPRESSED_FIT_BYTES:
+        _fail(f"compressed train: the dry-run reckons "
+              f"{reckoned['peak_bytes_per_device'] / 1e9:.2f} GB, over "
+              f"{COMPRESSED_FIT_BYTES / 1e9:.0f} GB")
+    group = MESH.init_data_group(dev)
+    try:
+        torch.cuda.empty_cache()
+        state = TS.init_state(cfg, opt, seed=0, device=dev, compression=True)
+        n_params = sum(x.numel() for x in _leaves(state.params))
+        ds = DATA.SyntheticLM(cfg, shape, seed=0, device=dev)
+        spy = _CodecSpy(C.make_compressed_allreduce(group))
+        runs = {}
+        want = {"tri_attn.fwd": 2 * layers * steps,
+                "tri_attn.bwd_dq": layers * steps,
+                "tri_attn.bwd_dkv": layers * steps}
+        for mode, hook in (("plain", None), ("compressed", spy)):
+            step = TS.make_train_step(cfg, opt, attn_impl="cuda",
+                                      remat=True, block=64,
+                                      compressed_allreduce=hook)
+            times = []
+            reg = MET.Registry(f"{mode}_dp_train")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_launches(K)
+            with MET.scope(reg):
+                state, log = FT.run_training(state, _timed(step, times),
+                                             ds.batch, state.step + steps)
+            launches = _check_launches(f"{mode} DP train", K, reg, want)
+            losses = [m["loss"] for m in log]
+            if len(losses) != steps or not all(np.isfinite(losses)):
+                _fail(f"{mode} DP train: losses {losses}")
+            runs[mode] = {"times": times, "losses": losses,
+                          "peak": torch.cuda.max_memory_allocated(),
+                          "launches": launches}
+        codes = {k: _check_codes(k, spy.copies[k], dev)
+                 for k in CODEC_LEAVES}
+        spy.copies = {}
+        if not any(float(t.abs().max()) > 0
+                   for t in _leaves(state.err_state)):
+            _fail("compressed train: the error state stayed zero")
+        codec_ms = spy.ms()
+        del state
+        torch.cuda.empty_cache()
+        comp = runs["compressed"]
+        ratio = _peak_line(f"yi-9b {layers}L compressed DP step", reckoned,
+                           comp["peak"], card)
+        print(f"compressed train: yi-9b {layers}L, {n_params / 1e9:.3f} B "
+              f"params, NCCL group of {dist.get_world_size(group)}: median "
+              f"step {statistics.median(runs['plain']['times']):.4f} s plain "
+              f"(times {runs['plain']['times']}), "
+              f"{statistics.median(comp['times']):.4f} s compressed (times "
+              f"{comp['times']}; the first copies two leaves to the host); "
+              f"the codec and its all-reduce {statistics.median(codec_ms):.2f}"
+              f" ms a step (CUDA events, {codec_ms}); losses "
+              f"{runs['plain']['losses']} then {comp['losses']}; peak "
+              f"{runs['plain']['peak'] / 1e9:.2f} / {comp['peak'] / 1e9:.2f} "
+              f"GB (ratio {ratio:.4f}); launches {comp['launches']} a mode, "
+              f"no plain version; codes {codes}; card {card}", flush=True)
+        smoke_compressed_training(dev, group)
+    finally:
+        dist.destroy_process_group()
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--compress-grads",
+         "--steps", "4"], capture_output=True, text=True,
+        env=dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                            / "src")))
+    if run.returncode or "[int8-EF grad AR]" not in run.stdout or \
+            "done: 4 steps" not in run.stdout:
+        _fail(f"train CLI --compress-grads failed (rc {run.returncode}): "
+              f"{run.stdout[-2000:]} {run.stderr[-3000:]}")
+    print(f"train CLI: python -m repro_torch.launch.train --compress-grads "
+          f"--steps 4 on the kernels: {run.stdout.strip().splitlines()[-1]}; "
+          f"compressed train phase {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return comp["launches"]
+
+
+def smoke_compressed_training(dev, group):
+    """Smoke-size float32 compressed training on the card: 3 steps on the
+    kernels and on the plain versions agree (rtol 1e-5); over the
+    one-rank group and over no group the states end bitwise equal; 3 +
+    save_async (with extra) + restore + 3 equals 6 straight, err_state
+    included."""
+    from repro_torch.configs import registry as REG
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.parallel import compression as C
+    from repro_torch.train import checkpoint as CKPT
+    from repro_torch.train import data as DATA
+    from repro_torch.train import fault_tolerance as FT
+    from repro_torch.train import optimizer as OPT
+    from repro_torch.train import train_step as TS
+
+    cfg = REG.smoke_config("yi-9b")
+    opt = OPT.OptConfig(lr=3e-3, warmup_steps=2, total_steps=20)
+    ds = DATA.SyntheticLM(cfg, ShapeConfig("t", 64, 4, "train"), seed=0,
+                          device=dev)
+    base = TS.init_state(cfg, opt, seed=0, device=dev, compression=True)
+
+    def step(impl, g=group):
+        return TS.make_train_step(
+            cfg, opt, attn_impl=impl, block=16,
+            compressed_allreduce=C.make_compressed_allreduce(g))
+
+    losses = {impl: [m["loss"] for m in FT.run_training(
+        copy.deepcopy(base), step(impl), ds.batch, 3)[1]]
+        for impl in ("cuda", "torch")}
+    # f32 on both sides, sums in other orders: 1e-5 relative at most
+    if not np.allclose(losses["cuda"], losses["torch"], rtol=1e-5, atol=0):
+        _fail(f"smoke compressed training: kernel losses {losses['cuda']} "
+              f"!= plain {losses['torch']}")
+
+    def trees(st):
+        return list(_leaves({"p": st.params, "o": st.opt_state,
+                             "e": st.err_state}))
+
+    def same(a, b):
+        return a.step == b.step and all(
+            torch.equal(x, y) for x, y in zip(trees(a), trees(b)))
+
+    grouped, _ = FT.run_training(copy.deepcopy(base), step("cuda"),
+                                 ds.batch, 3)
+    alone, _ = FT.run_training(copy.deepcopy(base), step("cuda", None),
+                               ds.batch, 3)
+    if not same(grouped, alone):
+        _fail("smoke compressed training: the one-rank group's states "
+              "differ from no group's")
+    ckpt = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    straight, _ = FT.run_training(copy.deepcopy(base), step("cuda"),
+                                  ds.batch, 6)
+    half, _ = FT.run_training(copy.deepcopy(base), step("cuda"), ds.batch,
+                              3)
+    mgr = CKPT.CheckpointManager(str(ckpt))
+    mgr.save_async(half, 3, extra={"compressed": True})
+    mgr.wait()
+    resumed, manifest = CKPT.restore(str(ckpt), base, device=dev)
+    resumed, _ = FT.run_training(resumed, step("cuda"), ds.batch, 6)
+    shutil.rmtree(ckpt)
+    if manifest["extra"] != {"compressed": True} or \
+            not same(straight, resumed):
+        _fail("smoke compressed training: 3 + save_async + restore + 3 "
+              "steps differ from 6 straight steps (err_state included)")
+    print(f"smoke compressed training: float32, 3 steps kernels "
+          f"{losses['cuda']} vs plain {losses['torch']}; one-rank NCCL "
+          f"group == no group, bitwise; 6 steps straight == 3 + save_async "
+          f"(extra) + restore + 3, bitwise over {len(trees(straight))} "
+          f"tensors (err_state included)", flush=True)
+
+
 # the dry-run's reckoned peak against the card's max_memory_allocated of
 # the same step: within this share of the measured
 PEAK_RTOL = 0.10
@@ -4640,6 +4929,7 @@ def main():
     smoke_identity(dev)
     serve_cli_phase()
     dense, packed = train_phase(dev, args.train_layers, card, K, OPS)
+    compressed = compressed_train_phase(dev, card, K)
     launches.update(dense)
     launches.update({n: c for n, c in packed.items()
                      if n != "tri_attn.packed_fwd"})
@@ -4650,6 +4940,8 @@ def main():
         if "launches" in k:  # the paper and 3-body phases counted theirs
             continue
         k["launches"] = launches[k["name"]]
+        if k["name"] in compressed:
+            k["launches_compressed_dp"] = compressed[k["name"]]
         if k["name"] == "tri_attn.packed_fwd":
             # its serving reading and launches above, its packed-training
             # ones here

@@ -48,6 +48,7 @@ import traceback
 
 from repro_torch.configs import registry as REG
 from repro_torch.launch import mesh as MESH
+from repro_torch.parallel import compression as C
 from repro_torch.parallel import hints as HN
 from repro_torch.parallel import sharding as SH
 from repro_torch.roofline import dispatch_count as DC
@@ -136,11 +137,14 @@ def microbatches_for(arch: str, shape, opts=()) -> int:
     return max(1, mb)
 
 
-def build_cell(cfg, shape, *, opt=None, microbatches: int = 1):
+def build_cell(cfg, shape, *, opt=None, microbatches: int = 1,
+               compression: bool = False):
     """(fn, args, state) of one cell on meta tensors: ``fn(*args)`` is the
     step the port runs (a train cell's optimizer ``opt``, AdamW unless
-    given), ``state`` the trees that exist before it, by their category
-    of the memory split ("params", "optimizer", "cache")."""
+    given; with ``compression``, the int8 error-feedback grad all-reduce
+    over one rank, and its float32 err_state), ``state`` the trees that
+    exist before it, by their category of the memory split ("params",
+    "optimizer", "err_state", "cache")."""
     import torch
 
     from repro_torch.serve import decode as DEC
@@ -173,11 +177,18 @@ def build_cell(cfg, shape, *, opt=None, microbatches: int = 1):
         return fn, (params, batch), {"params": params}
     opt = opt or OPT.OptConfig()
     opt_state = OPT.init_opt_state(params, opt)
-    state = TS.TrainState(params=params, opt_state=opt_state, step=0)
-    fn = TS.make_train_step(cfg, opt, microbatches=microbatches,
-                            attn_impl="cuda", remat=True, block=ATTN_BLOCK,
-                            scan_impl=train_scan_impl(cfg))
-    return fn, (state, batch), {"params": params, "optimizer": opt_state}
+    err = C.init_error_state(params) if compression else None
+    state = TS.TrainState(params=params, opt_state=opt_state, step=0,
+                          err_state=err)
+    fn = TS.make_train_step(
+        cfg, opt, microbatches=microbatches, attn_impl="cuda", remat=True,
+        block=ATTN_BLOCK, scan_impl=train_scan_impl(cfg),
+        compressed_allreduce=C.make_compressed_allreduce()
+        if compression else None)
+    trees = {"params": params, "optimizer": opt_state}
+    if compression:
+        trees["err_state"] = err
+    return fn, (state, batch), trees
 
 
 def train_scan_impl(cfg):
@@ -190,13 +201,14 @@ def train_scan_impl(cfg):
 
 
 def count_cell(cfg, shape, *, opt=None, microbatches: int = 1,
-               hints=None) -> dict:
+               hints=None, compression: bool = False) -> dict:
     """The counted pass of one cell: ``dispatch_count.analyze``'s record,
     with the state trees (for the sharding rules) and the seconds."""
     t0 = time.time()
     with HN.hints(**(hints or {})):
         fn, args, trees = build_cell(cfg, shape, opt=opt,
-                                     microbatches=microbatches)
+                                     microbatches=microbatches,
+                                     compression=compression)
         t1 = time.time()
         an = DC.analyze(fn, *args, categories=trees)
     return {"analysis": an, "trees": trees,

@@ -5,11 +5,13 @@ Runs real steps: on the card by default (the tri_attn kernels), or with
 ``--arch`` (any of the registry's ten; musicgen-large and internvl2-1b
 on their audio and VLM batches) unless ``--full-config``;
 checkpointing, the preemption guard and deterministic restart as in the
-reference.
+reference. ``--compress-grads`` trains with the int8 error-feedback grad
+all-reduce (``parallel/compression.py``) over the local data-parallel
+group: one rank, gloo on the CPU, NCCL on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 4
     PYTHONPATH=src python -m repro_torch.launch.train --steps 50 \\
-        --batch 8 --seq 128 --ckpt-dir <dir>
+        --batch 8 --seq 128 --ckpt-dir <dir> --compress-grads
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import time
 from repro_torch import device as DEV
 from repro_torch.configs import registry as REG
 from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import mesh as MESH
+from repro_torch.parallel import compression as C
 from repro_torch.train import checkpoint as CKPT
 from repro_torch.train import data as DATA
 from repro_torch.train import fault_tolerance as FT
@@ -49,8 +53,25 @@ def main(argv=None):
     ap.add_argument("--log-every", type=int, default=5)
     ap.add_argument("--device", default="cuda",
                     help="cuda: the kernels; cpu: their plain versions")
+    ap.add_argument("--compress-grads", action="store_true",
+                    help="int8 error-feedback gradient all-reduce over the "
+                         "local data-parallel group "
+                         "(parallel/compression.py)")
     args = ap.parse_args(argv)
+    if not args.compress_grads:
+        return _train(args, None)
+    import torch.distributed as dist
 
+    group = MESH.init_data_group(DEV.resolve(args.device))
+    try:
+        return _train(args, C.make_compressed_allreduce(group))
+    finally:
+        dist.destroy_process_group()
+
+
+def _train(args, compressed_ar):
+    """Train as ``args`` say, the grads through ``compressed_ar`` (None:
+    uncompressed)."""
     cfg = (REG.get_config(args.arch) if args.full_config
            else REG.smoke_config(args.arch))
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
@@ -58,15 +79,18 @@ def main(argv=None):
                         total_steps=args.steps)
     impl = DEV.attn_impl(args.device)
 
-    state = TS.init_state(cfg, opt, seed=args.seed, device=args.device)
+    state = TS.init_state(cfg, opt, seed=args.seed, device=args.device,
+                          compression=args.compress_grads)
     n_params = _numel(state.params)
     print(f"arch={cfg.name} (reduced={not args.full_config}) "
           f"params={n_params / 1e6:.2f}M steps={args.steps} "
-          f"device={args.device} attention={impl}")
+          f"device={args.device} attention={impl}"
+          + (" [int8-EF grad AR]" if args.compress_grads else ""))
 
     ds = DATA.SyntheticLM(cfg, shape, seed=args.seed, device=args.device)
     step_fn = TS.make_train_step(cfg, opt, microbatches=args.microbatches,
-                                 attn_impl=impl, remat=True)
+                                 attn_impl=impl, remat=True,
+                                 compressed_allreduce=compressed_ar)
     manager = (CKPT.CheckpointManager(args.ckpt_dir, every=args.ckpt_every)
                if args.ckpt_dir else None)
     if manager is not None and CKPT.latest_step(args.ckpt_dir) is not None:

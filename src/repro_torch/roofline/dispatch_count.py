@@ -72,7 +72,8 @@ _SCATTER = {aten.index_add_.default, aten.index_put_.default,
             aten.index_add.default, aten.index_put.default,
             aten.scatter_add.default}
 
-_CATEGORIES = ("params", "grads", "optimizer", "cache", "activations")
+_CATEGORIES = ("params", "grads", "optimizer", "err_state", "cache",
+               "activations")
 _MUTABLE: Dict[object, bool] = {}  # an op's schema mutates an argument
 
 

@@ -1,10 +1,9 @@
-"""Atomic checkpoints of a TrainState (port of ``repro/train/checkpoint.py``,
-one card: the reference's elastic re-sharding has no meaning here).
+"""Atomic checkpoints of a TrainState (port of ``repro/train/checkpoint.py``).
 
 Layout (one directory per step), as the reference's:
 
     <dir>/step_00000420.tmp/        # written first
-        manifest.json               # step + {key: {file, shape, dtype}}
+        manifest.json               # step, extra, {key: {file, shape, dtype}}
         <flat.key.path>.npy         # one file per leaf
     <dir>/step_00000420/            # atomic os.replace of the .tmp dir
     <dir>/LATEST                    # atomic pointer file, written LAST
@@ -14,7 +13,15 @@ write (os.replace of a tmp file) both completed; a crash mid-save leaves a
 .tmp directory that restore ignores and the next save overwrites.
 bfloat16 leaves, which numpy cannot hold, are stored as their uint16 bit
 patterns and the manifest's dtype says "bfloat16": a round trip is
-bitwise.
+bitwise. A state's ``err_state`` (the int8 compression's error feedback)
+is saved beside its params and optimizer state; a state without one
+saves and restores as before.
+
+Elastic restore: every rank holds the whole model, so any one process's
+checkpoint restores on every rank of a data-parallel group, of any size,
+each onto its own device. ``CheckpointManager.save_async`` copies the
+state to the host on the caller's thread and leaves only the file IO to
+a background thread; ``wait`` joins it.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import threading
 from typing import Optional
 
 import numpy as np
@@ -50,27 +58,44 @@ def _unflatten(flat: dict, like):
 
 
 def _state_tree(state: TrainState) -> dict:
-    return {"params": state.params, "opt_state": state.opt_state,
+    tree = {"params": state.params, "opt_state": state.opt_state,
             "step": torch.tensor(state.step, dtype=torch.int32)}
+    if state.err_state is not None:
+        tree["err_state"] = state.err_state
+    return tree
 
 
-def save(ckpt_dir: str, state: TrainState, step: int) -> str:
-    """Blocking atomic save of ``state`` as step ``step``."""
+def _host_leaves(state: TrainState) -> dict:
+    """{key: (numpy array, dtype name)} of ``state``, copied to the host
+    (a copy even of a CPU leaf, which the next step updates in place)."""
+    out = {}
+    for key, leaf in _flatten(_state_tree(state)).items():
+        t = leaf.detach().to("cpu", copy=True)
+        dtype = str(t.dtype).replace("torch.", "")
+        out[key] = (t.view(torch.uint16).numpy() if t.dtype == torch.bfloat16
+                    else t.numpy(), dtype)
+    return out
+
+
+def save(ckpt_dir: str, state: TrainState, step: int, *,
+         extra: Optional[dict] = None) -> str:
+    """Blocking atomic save of ``state`` as step ``step``; ``extra`` (a
+    JSON-able dict) goes into the manifest."""
+    return _write(ckpt_dir, _host_leaves(state), step, extra)
+
+
+def _write(ckpt_dir: str, leaves: dict, step: int, extra) -> str:
     os.makedirs(ckpt_dir, exist_ok=True)
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    manifest = {"step": step, "leaves": {}}
-    for key, leaf in _flatten(_state_tree(state)).items():
-        t = leaf.detach().cpu()
-        dtype = str(t.dtype).replace("torch.", "")
-        arr = t.view(torch.uint16).numpy() if t.dtype == torch.bfloat16 \
-            else t.numpy()
+    manifest = {"step": step, "extra": extra or {}, "leaves": {}}
+    for key, (arr, dtype) in leaves.items():
         fname = key + ".npy"
         np.save(os.path.join(tmp, fname), arr)
-        manifest["leaves"][key] = {"file": fname, "shape": list(t.shape),
+        manifest["leaves"][key] = {"file": fname, "shape": list(arr.shape),
                                    "dtype": dtype}
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
@@ -101,13 +126,16 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def restore(ckpt_dir: str, target: TrainState, device=DEV.DEFAULT_DEVICE):
-    """Load the latest step into a new TrainState with ``target``'s
-    structure, shapes and dtypes, on ``device``. Returns (state,
+def restore(ckpt_dir: str, target: TrainState, device=DEV.DEFAULT_DEVICE,
+            step: Optional[int] = None):
+    """Load ``step`` (default: the latest) into a new TrainState with
+    ``target``'s structure, shapes and dtypes, on ``device`` (its
+    err_state too where ``target`` has one). Returns (state,
     manifest)."""
-    step = latest_step(ckpt_dir)
     if step is None:
-        raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
+        step = latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
@@ -127,23 +155,50 @@ def restore(ckpt_dir: str, target: TrainState, device=DEV.DEFAULT_DEVICE):
         loaded[key] = t.to(device=dev, dtype=like.dtype)
     tree = _unflatten(loaded, _state_tree(target))
     return TrainState(params=tree["params"], opt_state=tree["opt_state"],
-                      step=int(tree["step"])), manifest
+                      step=int(tree["step"]),
+                      err_state=tree.get("err_state")), manifest
 
 
 class CheckpointManager:
-    """Cadenced saves with retention of the last ``keep`` steps."""
+    """Cadenced saves with retention of the last ``keep`` steps; one
+    writer at a time (a save waits for the save before it)."""
 
     def __init__(self, ckpt_dir: str, *, every: int = 100, keep: int = 3):
         self.ckpt_dir = ckpt_dir
         self.every = every
         self.keep = keep
+        self._thread: Optional[threading.Thread] = None
 
     def should_save(self, step: int) -> bool:
         return step > 0 and step % self.every == 0
 
-    def save_sync(self, state: TrainState, step: int) -> str:
-        path = save(self.ckpt_dir, state, step)
+    def save_async(self, state: TrainState, step: int, *,
+                   extra: Optional[dict] = None):
+        """Copy ``state`` to the host here, then write it on a background
+        thread (``wait`` joins it)."""
+        leaves = _host_leaves(state)
+        self.wait()
+
+        def work():
+            _write(self.ckpt_dir, leaves, step, extra)
+            self._gc()
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()
+
+    def save_sync(self, state: TrainState, step: int, *,
+                  extra: Optional[dict] = None) -> str:
+        self.wait()
+        path = save(self.ckpt_dir, state, step, extra=extra)
+        self._gc()
+        return path
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    def _gc(self):
         for s in _steps_on_disk(self.ckpt_dir)[:-self.keep]:
             shutil.rmtree(os.path.join(self.ckpt_dir, f"step_{s:08d}"),
                           ignore_errors=True)
-        return path

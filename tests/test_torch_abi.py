@@ -7,8 +7,9 @@
   JAX package (an AST scan of every import statement).
 * every slice's modules (serving, training, the fused step and fleet,
   the paper's experiment, the 3-body workload and the serving CLI, the
-  schedule registry and the checker) import in a process where importing
-  jax is impossible, one parametrised case a slice.
+  schedule registry and the checker, data-parallel training with the
+  int8 grad compression) import in a process where importing jax is
+  impossible, one parametrised case a slice.
 * Every ``extern "C"`` entry point of ``src/repro_torch/csrc/*.cu`` is
   bound in ``kernels/build.py`` with one ctypes type per parameter, of
   the right kind (pointer, int or float): the check nvcc and the card
@@ -175,6 +176,19 @@ SLICES = {
                 "from repro_torch.launch.dryrun import run_cell; "
                 "assert run_cell('yi-9b', 'train_4k', 'card', "
                 "tempfile.mkdtemp(), n_layers=1, batch=1)['ok']",
+    "data_parallel": "import repro_torch.parallel.compression, "
+                     "repro_torch.launch.mesh, repro_torch.launch.train, "
+                     "repro_torch.train.train_step, "
+                     "repro_torch.train.checkpoint, "
+                     "repro_torch.train.fault_tolerance, "
+                     "repro_torch.resilience.health, "
+                     "repro_torch.models.model; "
+                     "import torch; "
+                     "from repro_torch.parallel.compression import "
+                     "compressed_psum; "
+                     "g, e = compressed_psum({'w': torch.ones(3)}, "
+                     "{'w': torch.zeros(3)}); "
+                     "assert torch.equal(g['w'], torch.ones(3))",
 }
 
 
@@ -193,7 +207,9 @@ def test_checker_modules_are_scanned_for_jax_imports():
     files = {str(f.relative_to(PKG)) for f in PKG.rglob("*.py")}
     assert {"roofline/model.py", "roofline/dispatch_count.py",
             "roofline/attribution.py", "launch/dryrun.py", "launch/mesh.py",
-            "launch/compat.py", "parallel/sharding.py"} <= files
+            "launch/compat.py", "parallel/sharding.py",
+            "parallel/compression.py", "train/fault_tolerance.py",
+            "resilience/health.py"} <= files
     assert {"core/schedule.py", "analysis/contracts.py",
             "analysis/verifier.py", "analysis/envelope.py",
             "analysis/launch_lint.py", "analysis/obs_lint.py",

@@ -1959,6 +1959,102 @@ def test_adafactor_step_on_the_card_matches_the_cpu(dev, monkeypatch):
                                    rtol=1e-5)
 
 
+def test_compressed_code_and_step_on_the_card_match_the_cpu(dev,
+                                                            monkeypatch):
+    """The int8 error-feedback code (parallel/compression.py) of a tree
+    with stacked leaves handed per layer, on the card and on the CPU from
+    the same numpy draws, in one chunk and in chunks of 7 elements:
+    bitwise (a max, an IEEE division, round half to even). Then one
+    compressed train step of the smoke yi-9b in float32, on the kernels
+    and on the CPU's plain versions from one state: loss and grad norm at
+    the f32 policy; each new error within 2e-4 x 127 scales (the f32 grad
+    policy's absolute part at the leaf's largest target) of the CPU's or
+    exactly one step off (a target within f32 noise of a half step rounds
+    either way), at most 1% of a leaf's elements so; every other param at
+    the f32 policy."""
+    import torch_dp_worker as W
+    from repro_torch.configs import registry as REG
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.parallel import compression as C
+    from repro_torch.train import data as DATA
+    from repro_torch.train import optimizer as OPT
+    from repro_torch.train import train_step as TS
+
+    rng = np.random.default_rng(4)
+    draws = {k: rng.standard_normal(s).astype(np.float32) * m for k, s, m in
+             (("embed", (300, 48), 1.0), ("wq", (3, 48, 40), 10.0),
+              ("norm1", (3, 48), 0.1))}
+    errs = {k: rng.standard_normal(x.shape).astype(np.float32) * 1e-2
+            for k, x in draws.items()}
+    for chunk in (OPT.CHUNK, 7):
+        monkeypatch.setattr(OPT, "CHUNK", chunk)
+        runs = []
+        for where in ("cpu", dev):
+            g = {"embed": torch.tensor(draws["embed"], device=where),
+                 "layers": {k: list(torch.tensor(draws[k], device=where))
+                            for k in ("wq", "norm1")}}
+            e = {"embed": torch.tensor(errs["embed"], device=where),
+                 "layers": {k: torch.tensor(errs[k], device=where)
+                            for k in ("wq", "norm1")}}
+            mean, e = C.compressed_psum(g, e)
+            runs.append([mean["embed"], torch.stack(mean["layers"]["wq"]),
+                         torch.stack(mean["layers"]["norm1"]), e["embed"],
+                         e["layers"]["wq"], e["layers"]["norm1"]])
+        for a, b in zip(*runs):
+            assert torch.equal(a, b.cpu())
+    monkeypatch.undo()
+
+    cfg = REG.smoke_config("yi-9b")
+    opt = OPT.OptConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    out = {}
+    for where, impl in (("cpu", "torch"), (dev, "cuda")):
+        state = TS.init_state(cfg, opt, seed=0, device="cpu",
+                              compression=True)
+        state = TS.TrainState(
+            params=_to(state.params, where),
+            opt_state=_to(state.opt_state, where), step=0,
+            err_state=_to(state.err_state, where))
+        scales = {}
+        step = TS.make_train_step(
+            cfg, opt, attn_impl=impl, block=16,
+            compressed_allreduce=W.noting_scales(
+                C.make_compressed_allreduce(), scales))
+        batch = DATA.SyntheticLM(cfg, ShapeConfig("t", 64, 2, "train"),
+                                 device=where).batch(0)
+        state, m = step(state, batch)
+        out[impl] = (state, m, scales)
+    (cs, cm, sc), (gs, gm, _) = out["torch"], out["cuda"]
+    np.testing.assert_allclose(float(gm["loss"]), float(cm["loss"]),
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(gm["grad_norm"]),
+                               float(cm["grad_norm"]), rtol=1e-4)
+    for key, want in _flat_leaves(cs.err_state).items():
+        got = _flat_leaves(gs.err_state)[key]
+        steps = (got.cpu() - want).abs() / float(sc[key])
+        off = steps > 2e-4 * 127
+        assert float(off.float().mean()) <= 1e-2, key
+        assert torch.all((steps[off] - 1).abs() <= 2e-4 * 127), key
+        p_got = _flat_leaves(gs.params)[key].cpu()
+        p_want = _flat_leaves(cs.params)[key]
+        np.testing.assert_allclose(p_got[~off].numpy(), p_want[~off].numpy(),
+                                   atol=2e-5, rtol=2e-4, err_msg=key)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def _flat_leaves(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}.{k}" if prefix else k
+        out.update(_flat_leaves(v, key) if isinstance(v, dict)
+                   else {key: v})
+    return out
+
+
 # ---------------------------------------------------------------------------
 # The dry-run's meta branches and reckoning against the card
 # ---------------------------------------------------------------------------
