@@ -57,7 +57,35 @@ Phases (any failure exits non-zero; nothing is caught):
      window over a few more decode rounds (device busy share, top
      kernels); then a smoke-size float32 engine with the kernels and with
      the plain versions, which must emit identical greedy tokens; the
-     serving CLI (launch/serve.py) at smoke size in both step modes;
+     serving CLI (launch/serve.py) at smoke size in both step modes on
+     its default decode mode (auto), and in split mode with
+     --decode-mode packed, whose rounds must launch packed_decode_fwd;
+  4b. the decode auto-mode, the engine's default, on the serving weights
+     (48 layers unless --layers cuts them): the reference's skew harness
+     (benchmarks/bench_packed.py run_decode: slot 0 at 2048 tokens, the
+     other three at 2048 / K, K = 1, 4, 16, blk 64), each mode forced on
+     one engine round over a random cache, in turns: the medians of 7
+     rounds' host wall time and CUDA events, the seconds a tile of each,
+     the measured ratio, the mode the rule picks at
+     PACKED_TILE_COST_RATIO and the faster one, both modes' logits
+     compared; one attention layer in each mode's function
+     (layers.packed_decode_attention, layers.decode_attention) on the
+     device, every kernel of each call summed, beside row 2's kernel
+     alone (the kernel held to its plain version, the two layers to each
+     other); then with the defaults the split traffic above on a plain
+     engine (tokens/s), and on packed and auto probe engines that keep
+     each token's logits (tokens equal to the packed engine's; a stream
+     that differs must differ first where both engines' logits agree
+     within the bf16 policy, and in float32 only at a near-tie of the
+     packed engine's top two logits within OUT_TOL), a uniform batch
+     (every round lockstep, so no hand-written decode kernel: no
+     packed_decode_kernel in a profiler window and no launch in
+     launches_total) and a straggler batch (packed rounds, each one
+     packed_decode_fwd launch a layer, the profiler's
+     count within them); the phase's seconds;
+  4c. the nine examples/torch_*.py, each main() on the card with its own
+     assertions, each timed; every tri_attn kernel but the fused step and
+     fwd_bb launched by them;
   5. training kernels: tri_attn.fwd and its dq and dk/dv backward at the
      train phase's attention shape (B 1, H 32, Hkv 4, S 4096, D 128, ltm,
      blk 64, bf16) against their plain versions on the same inputs
@@ -908,8 +936,9 @@ def _serve(eng, prompts, max_new):
 
 
 def serving_phase(dev, layers: int, card: str, K):
-    """Split then fused serving at full width on one set of random
-    weights; returns each kernel's launches on its path."""
+    """Split serving, the decode auto-mode (phase 4b), then fused serving
+    at full width on one set of random weights; returns each kernel's
+    launches on its path, and rows 1-2's on the default (auto) path."""
     import dataclasses
 
     from repro_torch.configs import yi_9b
@@ -971,6 +1000,7 @@ def serving_phase(dev, layers: int, card: str, K):
     eng.round()  # admit + first decode round, outside the window
     profile_rounds(eng, 4, "packed decode rounds", card)
     eng.run()
+    auto = auto_phase(params, cfg, kw, prompts, max_new, results, card, K)
     del eng
 
     # fused mode: 12 prompts with staggered budgets, so that admit rounds
@@ -1026,7 +1056,8 @@ def serving_phase(dev, layers: int, card: str, K):
     snapshot_phase(params, cfg, kw, rng, card)
     del params
     torch.cuda.empty_cache()
-    return dict(launches, **{"tri_attn.fused_step_fwd": fused_launches})
+    return dict(launches, **{"tri_attn.fused_step_fwd": fused_launches}), \
+        auto
 
 
 def snapshot_phase(params, cfg, kw, rng, card):
@@ -1055,6 +1086,449 @@ def snapshot_phase(params, cfg, kw, rng, card):
           f"tokens for {len(first)} requests; card {card}", flush=True)
 
 
+# phase 4b, the decode auto-mode: the reference's skew harness
+# (benchmarks/bench_packed.py, run_decode) at the serving cell, slot 0 at
+# AUTO_BASE tokens and the other three at AUTO_BASE / K
+AUTO_BASE = 2048
+AUTO_SKEWS = (1, 4, 16)
+AUTO_ROUNDS = 7      # timed rounds a mode a K (medians), after 2 warm-up
+AUTO_LAYER_CALLS = 20  # one layer's attention calls in a profiler window
+AUTO_UNIFORM = (700, 700, 700, 700)   # equal prompts, equal budgets
+AUTO_STRAGGLER = (1900, 60, 60, 60)   # tiles (30, 1, 1, 1) at blk 64
+AUTO_NEW = 12
+AUTO_WINDOW = 4  # rounds in the batches' profiler windows
+
+
+def _window_kernels(fn) -> dict:
+    """{device kernel name: [launches, device ms]} of one torch.profiler
+    window (host and device activity) over ``fn()``; device kernels only,
+    since host ops carry their kernels' time too."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+        if us > 0 and str(ev.device_type).endswith("CUDA"):
+            out[ev.key] = [ev.count, us / 1e3]
+    return out
+
+
+def _auto_round_times(eng, kv_lens) -> dict:
+    """Both decode modes forced on one engine round at ``kv_lens`` (all
+    slots live, positions kv_len - 1), in turns: the medians of the host
+    wall time and of CUDA events over the round, ms; the last logits."""
+    live = list(range(eng.B))
+    eng.pos = torch.as_tensor([k - 1 for k in kv_lens], dtype=torch.int32,
+                              device=eng.device)
+    host = {"packed": [], "lockstep": []}
+    events = {"packed": [], "lockstep": []}
+    last = {}
+    for r in range(2 + AUTO_ROUNDS):
+        for mode in (("packed", "lockstep") if r % 2 == 0
+                     else ("lockstep", "packed")):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            e0.record()
+            logits, _ = eng._decode_round(live, kv_lens, 0, mode)
+            e1.record()
+            e1.synchronize()
+            t1 = time.perf_counter()
+            last[mode] = logits[:, 0, :eng.cfg.vocab_size].float()
+            if r >= 2:
+                host[mode].append((t1 - t0) * 1e3)
+                events[mode].append(e0.elapsed_time(e1))
+    return {"host": {m: statistics.median(v) for m, v in host.items()},
+            "events": {m: statistics.median(v) for m, v in events.items()},
+            "logits": last}
+
+
+def _per_call_ms(kernels: dict, calls: int) -> float:
+    """Device ms a call from a _window_kernels reading over ``calls``
+    calls: each kernel's mean launch times its launches a call (its count
+    over ``calls``, rounded, so a launch the trace missed does not read
+    low), summed over every kernel the calls launched."""
+    return sum(ms / n * max(1, round(n / calls))
+               for n, ms in kernels.values())
+
+
+def _auto_layer_ms(eng, kv_lens, OPS, D, SC):
+    """One attention layer of a decode round at ``kv_lens`` on the serving
+    cell's shapes (layer 0's bf16 weights and f32 cache, a random bf16
+    hidden state), in the function each mode's round runs a layer with:
+    layers.packed_decode_attention (row 2's kernel) for packed and
+    layers.decode_attention (the full-cache einsum) for lockstep. Each
+    mode's device ms a call is the sum over every kernel the call
+    launches (projections, rope, the cache write, attention and wo alike,
+    _per_call_ms), read in one profiler window of AUTO_LAYER_CALLS calls;
+    row 2's kernel alone is read from the packed window. The kernel is
+    held to its plain version, the two layers' outputs to each other at
+    the bf16 policy."""
+    from repro_torch.models import layers as LY
+    from repro_torch.models import transformer as T
+
+    cfg, dev, b = eng.cfg, eng.device, eng.B
+    lp = T.layer_params(eng.params["layers"], 0)["l0"]["mixer"]
+    kc, vc = eng.cache["l0"]["k"][0], eng.cache["l0"]["v"][0]
+    gen = torch.Generator(device=dev).manual_seed(6)
+    q = torch.randn((b, cfg.n_heads, cfg.head_dim), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    x = torch.randn((b, 1, cfg.d_model), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    pos = torch.as_tensor([k - 1 for k in kv_lens], dtype=torch.int32,
+                          device=dev)
+    tbl_np, needed = OPS.make_decode_table(
+        kv_lens, list(range(b)), blk=eng.decode_block, n_members=b + 1,
+        n_slots=b, s_cache=eng.s_cache)
+    tbl = torch.as_tensor(tbl_np, device=dev)
+    spec = OPS.DecodeRoundSpec(
+        n_members=b + 1, capacity=D.round_capacity(needed),
+        blk=eng.decode_block, impl="cuda", tiles=needed)
+    got = OPS.packed_decode_attention(q, kc, vc, tbl, spec)
+    err = _close("auto: packed_decode_fwd", got, SC.packed_decode_torch(
+        q, kc, vc, tbl, capacity=spec.capacity, blk=eng.decode_block,
+        tiles=needed, scale=cfg.head_dim ** -0.5))
+    layer = {
+        "packed": lambda: LY.packed_decode_attention(
+            lp, x, cfg, cache_k=kc, cache_v=vc, pos=pos, decode_tbl=tbl,
+            decode_spec=spec)[0],
+        "lockstep": lambda: LY.decode_attention(
+            lp, x, cfg, cache_k=kc, cache_v=vc, pos=pos)[0]}
+    out = {m: f() for m, f in layer.items()}
+    err_layer = _close("auto: one layer, packed vs lockstep", out["packed"],
+                       out["lockstep"], _logit_tol(out["lockstep"]))
+    windows = {m: _window_kernels(lambda f=f: [
+        f() for _ in range(AUTO_LAYER_CALLS)]) for m, f in layer.items()}
+    dec = {k: v for k, v in windows["packed"].items()
+           if "packed_decode_kernel" in k}
+    if any(["packed_decode_kernel" in k for k in windows["lockstep"]]) or \
+            not dec:
+        _fail(f"auto: packed_decode_kernel in the lockstep layer's window "
+              f"or missing from the packed one: {sorted(windows['packed'])}"
+              f" / {sorted(windows['lockstep'])}")
+    return {"kernel_ms": _per_call_ms(dec, AUTO_LAYER_CALLS),
+            "layer_ms": {m: _per_call_ms(w, AUTO_LAYER_CALLS)
+                         for m, w in windows.items()},
+            "layer_kernels": {m: len(w) for m, w in windows.items()},
+            "tiles": needed, "err": err, "err_layer": err_layer}
+
+
+def _auto_tokens_match(label, probe, packed, cfg, strict) -> list:
+    """The tokens of ``probe`` == those of ``packed`` (two _probe_engine
+    runs of the same traffic, the second with decode_mode "packed")
+    request by request, or the first token where a stream differs is a
+    near-tie. With ``strict`` (float32) a near-tie is the packed engine's
+    top two logits within OUT_TOL of each other. In bf16 the two paths' attention outputs round
+    to bf16 apart (the kernel's f32 chunks against the einsum's f32 sum)
+    and 48 bf16 layers carry that to the logits, so a flip must instead
+    come where the two engines' logits of that round agree within the
+    bf16 policy (_logit_tol): the flip's margin is then under their
+    rounding. Returns the flips (uid, token, packed top-two gap, max
+    |logit difference|)."""
+    got = {r.uid: r.out for r in probe.finished}
+    want = {r.uid: r.out for r in packed.finished if r.uid in got}
+    if sorted(want) != sorted(got):
+        _fail(f"{label}: requests {sorted(got)} against {sorted(want)}")
+    bad = [u for u in want if got[u] != want[u]]
+    ties = []
+    for u in bad:
+        step = next(i for i, (a, b) in enumerate(zip(got[u], want[u]))
+                    if a != b)
+        lp = packed.logits[u, step][:cfg.vocab_size]
+        la = probe.logits[u, step][:cfg.vocab_size]
+        top = torch.topk(lp, 2).values
+        gap = float(top[0] - top[1])
+        diff = float((la - lp).abs().max())
+        if strict and gap > OUT_TOL["atol"] + \
+                OUT_TOL["rtol"] * float(top[0].abs()):
+            _fail(f"{label}: request {u} token {step} differs from the "
+                  f"packed engine's, and its top two logits are {gap:.4g} "
+                  f"apart: not a near-tie")
+        _close(f"{label}: request {u} logits at token {step}", la[None],
+               lp[None], _logit_tol(lp))
+        ties.append((u, step, round(gap, 6), round(diff, 6)))
+    if ties:
+        how = ("a near-tie within OUT_TOL" if strict
+               else "within the bf16 logit policy")
+        print(f"{label}: streams that differ from the packed engine's, at "
+              f"(uid, token, packed top-two gap, max |logit diff|) {ties}: "
+              f"each {how} there; every token before it and every other "
+              f"stream equal", flush=True)
+    return ties
+
+
+def auto_phase(params, cfg, kw, prompts, max_new, packed_results, card,
+               K):
+    """Phase 4b: the engine's default decode mode ("auto") at full width.
+    The crossover: each mode forced on one round at K = 1, 4, 16 (host
+    wall and CUDA-event medians, seconds a tile, the measured ratio, the
+    rule's pick at PACKED_TILE_COST_RATIO and the faster mode), all K
+    before any profiler window (a window slows the host's later
+    launches), then one attention layer in each mode's own function on
+    the device, all kernels of each call, beside row 2's kernel alone;
+    the split mix served with the defaults on a plain engine (tokens/s,
+    launches), then on packed and auto probe engines (each probe's tokens
+    == the plain engine's of its mode, auto's == packed's but flips as
+    _auto_tokens_match says), and in float32 too; a uniform batch (every
+    round lockstep, no decode kernel in a profiler window or in
+    launches_total) and a straggler batch (packed rounds, one decode
+    launch a layer each). ``packed_results`` are the serving phase's
+    plain packed engine's tokens on the same traffic. Returns the default
+    path's launches of rows 1 and 2."""
+    from repro_torch.kernels.tri_attn import ops as OPS
+    from repro_torch.kernels.tri_attn import scan_impl as SC
+    from repro_torch.models import model as MD
+    from repro_torch.obs import metrics as MET
+    from repro_torch.serve import decode as D
+    from repro_torch.serve import engine as E
+
+    t_phase = time.perf_counter()
+    auto_kw = {k: v for k, v in kw.items() if k != "decode_mode"}
+    n_l = cfg.n_layers
+    eng = E.Engine(params, cfg, **auto_kw)
+    if eng.decode_mode != "auto":
+        _fail(f"auto: the engine's default decode mode is "
+              f"{eng.decode_mode!r}")
+    gen = torch.Generator(device=eng.device).manual_seed(5)
+    for leaves in eng.cache.values():
+        for t in leaves.values():
+            t.normal_(generator=gen)
+    eng.last_tok = torch.randint(1, cfg.vocab_size, (eng.B, 1), generator=gen,
+                                 device=eng.device)
+    rows = []
+    for skew in AUTO_SKEWS:
+        kv_lens = [AUTO_BASE] + [AUTO_BASE // skew] * (eng.B - 1)
+        tiles = [-(-k // eng.decode_block) for k in kv_lens]
+        done = {"packed": sum(tiles), "lockstep": eng.B * max(tiles)}
+        t = _auto_round_times(eng, kv_lens)
+        tile_us = {src: {m: 1e3 * t[src][m] / done[m] for m in done}
+                   for src in ("host", "events")}
+        lg = t["logits"]
+        rows.append({
+            "K": skew, "kv_lens": kv_lens, "tiles": tiles,
+            "done_tiles": done, "host_ms": t["host"],
+            "events_ms": t["events"], "us_a_tile": tile_us,
+            "ratio": {src: tile_us[src]["packed"] / tile_us[src]["lockstep"]
+                      for src in tile_us},
+            "rule_2_3": eng._round_mode(tiles),
+            "faster": min(t["host"], key=t["host"].get),
+            "logits_max_diff": float((lg["packed"] - lg["lockstep"])
+                                     .abs().max()),
+            "argmax_agree": int((lg["packed"].argmax(-1)
+                                 == lg["lockstep"].argmax(-1)).sum())})
+    for row in rows:
+        row["layer"] = layer = _auto_layer_ms(eng, row["kv_lens"], OPS, D, SC)
+        host, ev, us = row["host_ms"], row["events_ms"], row["us_a_tile"]
+        print(f"auto crossover K={row['K']}: kv_lens {row['kv_lens']}, tiles "
+              f"{row['tiles']} (packed {row['done_tiles']['packed']}, "
+              f"lockstep {row['done_tiles']['lockstep']}); round host ms "
+              f"packed {host['packed']:.3f} lockstep {host['lockstep']:.3f}, "
+              f"CUDA events packed {ev['packed']:.3f} lockstep "
+              f"{ev['lockstep']:.3f} (medians of {AUTO_ROUNDS}); us a tile "
+              f"(host) packed {us['host']['packed']:.3f} lockstep "
+              f"{us['host']['lockstep']:.3f}, measured ratio "
+              f"{row['ratio']['host']:.4f} (events "
+              f"{row['ratio']['events']:.4f}); the rule at "
+              f"{E.PACKED_TILE_COST_RATIO} picks {row['rule_2_3']}, faster: "
+              f"{row['faster']}; logits max |packed - lockstep| "
+              f"{row['logits_max_diff']:.4g}, argmax equal in "
+              f"{row['argmax_agree']}/{eng.B} slots; one layer on the "
+              f"device, all kernels of each call: packed "
+              f"(layers.packed_decode_attention, "
+              f"{layer['layer_kernels']['packed']} kernel names) "
+              f"{layer['layer_ms']['packed']:.4f} ms, of which "
+              f"packed_decode_fwd {layer['kernel_ms']:.4f} ms; lockstep "
+              f"(layers.decode_attention, the full-cache einsum, "
+              f"{layer['layer_kernels']['lockstep']} kernel names) "
+              f"{layer['layer_ms']['lockstep']:.4f} ms (kernel vs plain "
+              f"err {layer['err']:.3g}, the layers' outputs "
+              f"{layer['err_layer']:.3g} apart); card {card}", flush=True)
+    print(json.dumps({"auto_crossover": rows}, default=float), flush=True)
+    del eng
+    torch.cuda.empty_cache()
+
+    launches = dict.fromkeys(("tri_attn.packed_fwd",
+                              "tri_attn.packed_decode_fwd"), 0)
+
+    def serve(label, lens_prompts, budgets, window=False):
+        """One default engine over the traffic, counted from 0; with
+        ``window`` the rounds after the first in a profiler window."""
+        eng = E.Engine(params, cfg, **auto_kw)
+        reg = MET.Registry(label)
+        _reset_launches(K)
+        kernels, packed0 = {}, 0
+        with MET.scope(reg):
+            if window:
+                for uid, (p, m) in enumerate(zip(lens_prompts, budgets)):
+                    eng.submit(p, max_new=m, uid=uid)
+                eng.round()
+                packed0 = eng.stats["decode_packed_launches"]
+                kernels = _window_kernels(
+                    lambda: [eng.round() for _ in range(AUTO_WINDOW)])
+                packed0 -= eng.stats["decode_packed_launches"]
+                eng.run()
+                results, wall = {r.uid: r.out for r in eng.finished}, None
+            else:
+                results, wall = _serve(eng, lens_prompts, budgets)
+        st = _check_served(label, eng, results, range(len(lens_prompts)),
+                           budgets, cfg)
+        if st["decode_packed_launches"] + st["decode_lockstep_launches"] != \
+                st["decode_rounds"]:
+            _fail(f"{label}: rounds {st['decode_rounds']} != packed "
+                  f"{st['decode_packed_launches']} + lockstep "
+                  f"{st['decode_lockstep_launches']}")
+        got = _check_launches(label, K, reg, {
+            "tri_attn.packed_fwd": n_l * st["prefill_launches"],
+            "tri_attn.packed_decode_fwd": n_l * st["decode_packed_launches"]})
+        cuda = reg.counter_value("launches_total", {
+            "name": "tri_attn.packed_decode_fwd", "impl": "cuda"})
+        if cuda != got["tri_attn.packed_decode_fwd"]:
+            _fail(f"{label}: launches_total {cuda} != the wrapper's "
+                  f"{got['tri_attn.packed_decode_fwd']}")
+        for name, n in got.items():
+            launches[name] += n
+        return eng, results, wall, st, kernels, -packed0
+
+    # the serving cell's split mix with the defaults, on a plain engine
+    # (the tokens/s reading, like the serving phase's packed line)
+    eng, results, wall, st, _, _ = serve("auto serving", prompts, max_new)
+    new_tokens = sum(len(v) for v in results.values())
+    print(f"auto serving: {len(results)} requests, {new_tokens} generated "
+          f"tokens in {wall:.3f} s: {new_tokens / wall:.1f} generated "
+          f"tokens/s (a plain engine); decode rounds {st['decode_rounds']}: "
+          f"packed {st['decode_packed_launches']}, lockstep "
+          f"{st['decode_lockstep_launches']}; tiles "
+          f"{st['decode_tiles_packed']} packed vs "
+          f"{st['decode_tiles_padded']} padded; card {card}", flush=True)
+    del eng
+    # the same traffic on two probe engines, packed and auto, which keep
+    # each token's logits: a probe's tokens equal the plain engine's of
+    # its mode, and auto's equal packed's but for flips as
+    # _auto_tokens_match says
+    probes, walls = {}, {}
+    for mode, want in (("packed", packed_results), ("auto", results)):
+        probes[mode] = _probe_engine(E.Engine, params, cfg, **dict(
+            auto_kw, decode_mode=mode))
+        got, walls[mode] = _serve(probes[mode], prompts, max_new)
+        _check_served(f"auto serving, probe ({mode})", probes[mode], got,
+                      range(len(prompts)), max_new, cfg)
+        if got != want:
+            _fail(f"auto serving: the {mode} probe's tokens differ from "
+                  f"the plain {mode} engine's")
+    ties = _auto_tokens_match("auto serving", probes["auto"],
+                              probes["packed"], cfg, strict=False)
+    print(f"auto serving, probes: tokens == the packed engine's but "
+          f"{len(ties)} streams from a flip within the bf16 logit policy; "
+          f"generated tokens/s of the recording probes (logits cloned "
+          f"every token) packed {new_tokens / walls['packed']:.1f}, auto "
+          f"{new_tokens / walls['auto']:.1f}; card {card}", flush=True)
+    del probes
+
+    # the same traffic in float32 at full width and depth, where the two
+    # decode paths agree to f32 rounding: tokens equal but near-ties
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = MD.init_params(cfg32, seed=0, device=params["embed"].device)
+    run32 = {}
+    for mode, e_kw in (("packed", {"decode_mode": "packed"}), ("auto", {})):
+        run32[mode] = _probe_engine(E.Engine, params32, cfg32,
+                                    **dict(auto_kw, **e_kw))
+        got, _ = _serve(run32[mode], prompts, max_new)
+        st32 = _check_served(f"auto serving float32 ({mode})", run32[mode],
+                             got, range(len(prompts)), max_new, cfg)
+    ties = _auto_tokens_match("auto serving, float32", run32["auto"],
+                              run32["packed"], cfg32, strict=True)
+    print(f"auto serving, float32 (full width and depth, "
+          f"{sum(p.numel() for p in _leaves(params32)) / 1e9:.2f} B "
+          f"parameters): decode rounds packed "
+          f"{st32['decode_packed_launches']}, lockstep "
+          f"{st32['decode_lockstep_launches']}; tokens == the packed "
+          f"engine's for {len(prompts) - len(ties)} of {len(prompts)} "
+          f"streams, the rest from a near-tie within OUT_TOL; card {card}",
+          flush=True)
+    del params32, run32
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(32)
+    for label, lens in (("auto uniform batch", AUTO_UNIFORM),
+                        ("auto straggler batch", AUTO_STRAGGLER)):
+        batch = [rng.integers(1, cfg.vocab_size, size=n) for n in lens]
+        budgets = [AUTO_NEW] * len(batch)
+        eng, _, _, st, kernels, in_window = serve(label, batch, budgets,
+                                                  window=True)
+        seen = sum(n for name, (n, _) in kernels.items()
+                   if "packed_decode_kernel" in name)
+        if not kernels:
+            _fail(f"{label}: the profiler window saw no device kernel")
+        if lens == AUTO_UNIFORM:
+            if st["decode_packed_launches"] or seen or \
+                    st["decode_lockstep_launches"] != st["decode_rounds"]:
+                _fail(f"{label}: packed rounds {st['decode_packed_launches']}"
+                      f" of {st['decode_rounds']}, packed_decode_kernel "
+                      f"{seen} times in the profiler window")
+        else:
+            in_window *= n_l
+            if not st["decode_packed_launches"] or not 0 < seen <= in_window:
+                _fail(f"{label}: packed rounds {st['decode_packed_launches']}"
+                      f", packed_decode_kernel {seen} times in a window of "
+                      f"{in_window} launches")
+        print(f"{label}: prompts {lens}, {AUTO_NEW} new each: decode rounds "
+              f"{st['decode_rounds']} (packed {st['decode_packed_launches']}"
+              f", lockstep {st['decode_lockstep_launches']}); "
+              f"packed_decode_fwd launches {n_l} x packed rounds; a "
+              f"profiler window over rounds 2-{AUTO_WINDOW + 1}: "
+              f"packed_decode_kernel x{seen}, {len(kernels)} kernel names; "
+              f"card {card}", flush=True)
+        del eng
+    secs = time.perf_counter() - t_phase
+    print(f"auto: phase {secs:.1f} s; default-path launches {launches}",
+          flush=True)
+    return launches
+
+
+EXAMPLES = ("quickstart", "triangular_attention", "edm_pairwise",
+            "tet_3body", "packed_prefill", "packed_decode", "packed_train",
+            "serve_demo", "fleet_serve")
+
+
+def examples_phase(K):
+    """The nine examples/torch_*.py, each main() on the card (their own
+    assertions), with the tri_attn kernels they launch counted."""
+    import importlib.util
+
+    root = Path(__file__).resolve().parent / "examples"
+    t0 = time.perf_counter()
+    secs = {}
+    _reset_launches(K)
+    for name in EXAMPLES:
+        path = root / f"torch_{name}.py"
+        spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        t = time.perf_counter()
+        mod.main("cuda")
+        torch.cuda.synchronize()
+        secs[name] = round(time.perf_counter() - t, 2)
+        print(f"examples: torch_{name}.py main() on the card in "
+              f"{secs[name]} s", flush=True)
+    ran = {n: c for n, c in _launches(K).items() if c}
+    missing = set(K.WRAPPERS) - set(ran) - {"tri_attn.fused_step_fwd",
+                                            "tri_attn.fwd_bb"}
+    if missing:
+        _fail(f"examples: no launch of {sorted(missing)}")
+    total = time.perf_counter() - t0
+    print(json.dumps({"examples": {"seconds": secs, "total_s": round(
+        total, 2), "tri_attn_launches": ran}}), flush=True)
+
+
 def profile_rounds(eng, rounds: int, label: str, card):
     """torch.profiler over ``rounds`` engine rounds."""
     profile_window(lambda: [eng.round() for _ in range(rounds)], rounds,
@@ -1064,24 +1538,17 @@ def profile_rounds(eng, rounds: int, label: str, card):
 def profile_window(fn, count: int, unit: str, label: str, card):
     """torch.profiler over ``fn()`` (``count`` rounds or steps): device
     busy time against wall time, and the kernels that take it."""
-    from torch.profiler import ProfilerActivity, profile
+    wall = []
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        time.sleep(PROFILE_PAD_S)
+    def timed():
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        time.sleep(PROFILE_PAD_S)
-    rows = []  # device kernels only: host ops carry their kernels' time too
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0))
-        if dev_us > 0 and str(ev.device_type).endswith("CUDA"):
-            rows.append((dev_us / 1e3, ev.count, ev.key))
-    rows.sort(reverse=True)
+        wall.append((time.perf_counter() - t0) * 1e3)
+
+    rows = sorted(((ms, n, name) for name, (n, ms)
+                   in _window_kernels(timed).items()), reverse=True)
+    wall_ms = wall[0]
     busy = sum(r[0] for r in rows)
     n_kernels = sum(r[1] for r in rows)
     top = "; ".join(f"{name[:60]} {ms:.2f} ms x{n}" for ms, n, name in rows[:6])
@@ -2461,8 +2928,8 @@ def rwkv_serving_phase(dev, card):
         """Keeps each request's first-token logits."""
         first = {}
 
-        def _decode_round(self, live, kv_lens, rnd):
-            logits, cache = super()._decode_round(live, kv_lens, rnd)
+        def _decode_round(self, live, kv_lens, rnd, mode):
+            logits, cache = super()._decode_round(live, kv_lens, rnd, mode)
             for s in live:
                 req = self.slot_req[s]
                 if not req.out:
@@ -2837,8 +3304,8 @@ def jamba_serving_phase(dev, card):
                 for name, leaves in self.cache.items()
                 for leaf, t in leaves.items()}
 
-        def _decode_round(self, live, kv_lens, rnd):
-            logits, cache = super()._decode_round(live, kv_lens, rnd)
+        def _decode_round(self, live, kv_lens, rnd, mode):
+            logits, cache = super()._decode_round(live, kv_lens, rnd, mode)
             for s in live:
                 req = self.slot_req[s]
                 if not req.out:
@@ -2945,7 +3412,8 @@ def jamba_cli_phase():
 # phase 4, depth cuts with dataclasses.replace (never reduced(), which
 # shrinks the widths)
 ARCH_ENGINE = dict(slots=4, max_len=2048, prefill_block=64, decode_block=64,
-                   prefill_impl="cuda", decode_impl="cuda")
+                   prefill_impl="cuda", decode_impl="cuda",
+                   decode_mode="packed")
 ARCH_PROMPTS = (1000, 90, 500, 250, 700, 60, 380, 150)
 ARCH_BUDGETS = (8, 40, 16, 32, 24, 12, 36, 20)  # fused mode, staggered
 MIXTRAL_CUT = 8  # of 32 layers: 23.7 GB of bf16 weights (all 32: 93.4 GB)
@@ -3077,11 +3545,12 @@ def _probe_engine(Engine, *args, **kw):
             for (_, req), st in zip(pairs, starts):
                 self._routes(req, 0, r.calls, slice(st, st + len(req.feed)))
 
-        def _decode_round(self, live, kv_lens, rnd):
+        def _decode_round(self, live, kv_lens, rnd, mode):
             if not self.record:
-                return super()._decode_round(live, kv_lens, rnd)
+                return super()._decode_round(live, kv_lens, rnd, mode)
             with _Routing() as r:
-                logits, cache = super()._decode_round(live, kv_lens, rnd)
+                logits, cache = super()._decode_round(live, kv_lens, rnd,
+                                                      mode)
             self._decoded(live, logits[:, 0], r.calls)
             return logits, cache
 
@@ -4083,7 +4552,8 @@ def smoke_archs_phase(dev):
         got = {}
         for impl in ("cuda", "torch"):
             eng = Engine(params, cfg, slots=2, max_len=128,
-                         prefill_impl=impl, decode_impl=impl, device=dev)
+                         prefill_impl=impl, decode_impl=impl,
+                         decode_mode="packed", device=dev)
             got[impl], _ = _serve(eng, prompts, budgets)
             _check_served(f"{arch} smoke engine ({impl})", eng, got[impl],
                           range(len(prompts)), budgets, cfg)
@@ -4136,27 +4606,46 @@ def arch_cli_phase(K):
 
 
 def serve_cli_phase():
-    """The serving CLI (launch/serve.py) on the card at smoke size, in both
-    step modes: every request done through the kernels, no plain
-    version."""
+    """The serving CLI (launch/serve.py) on the card at smoke size: in both
+    step modes on its default decode mode (auto), and in split mode with
+    --decode-mode packed. Every request done, admission through the
+    kernels, one packed_decode_fwd launch a layer for each round sent
+    packed (the others on the lockstep einsum); the packed run must
+    launch the decode kernel every round; no plain version. Prints each
+    run's packed and lockstep rounds."""
     from repro_torch.kernels.tri_attn import kernel as K
     from repro_torch.launch import serve as SERVE
 
-    for mode, kernel in (("split", "tri_attn.packed_fwd"),
-                         ("fused", "tri_attn.fused_step_fwd")):
+    rounds = {}
+    for mode, decode, kernel in (
+            ("split", "auto", "tri_attn.packed_fwd"),
+            ("fused", "auto", "tri_attn.fused_step_fwd"),
+            ("split", "packed", "tri_attn.packed_fwd")):
+        label = f"serve CLI ({mode}, decode {decode})"
         _reset_launches(K)
         results, eng = SERVE.main(["--requests", "6", "--max-new", "8",
-                                   "--step-mode", mode])
+                                   "--step-mode", mode]
+                                  + (["--decode-mode", decode]
+                                     if decode != "auto" else []))
         report = eng.report()
+        st = eng.stats
         if sorted(results) != list(range(6)) or any(
                 r["status"] != "done" or r["tokens"] != 8
                 for r in report.values()):
-            _fail(f"serve CLI ({mode}): {report}")
-        if not (K.WRAPPERS[kernel].launches and
-                K.packed_decode_fwd.launches):
-            _fail(f"serve CLI ({mode}): launches {_launches(K)}")
+            _fail(f"{label}: {report}")
+        packed = st["decode_packed_launches"]
+        if eng.decode_mode != decode or not K.WRAPPERS[kernel].launches or \
+                K.packed_decode_fwd.launches != eng.cfg.n_layers * packed or \
+                (decode == "packed" and not 0 < packed == st["decode_rounds"]):
+            _fail(f"{label}: launches {_launches(K)}, decode "
+                  f"{eng.decode_mode} packed {packed} lockstep "
+                  f"{st['decode_lockstep_launches']} of "
+                  f"{st['decode_rounds']} rounds")
+        rounds[f"{mode}/{decode}"] = (packed, st["decode_lockstep_launches"])
     print("serve CLI: python -m repro_torch.launch.serve served 6 requests "
-          "through the kernels in split and fused step modes", flush=True)
+          "through the kernels in split and fused step modes (decode auto) "
+          "and split with --decode-mode packed; decode rounds (packed, "
+          f"lockstep): {rounds}", flush=True)
 
 
 def _timed(step, times: list):
@@ -4925,9 +5414,10 @@ def main():
         + ("none" if k["library_ms"] is None else f"{k['library_ms']:.4f}")
         + f", bound {k['bound_ms']:.4f} by {k['bound_by']}) err "
         f"{k['max_abs_err']:.3g}" for k in kernels), flush=True)
-    launches = serving_phase(dev, args.layers, card, K)
+    launches, auto_launches = serving_phase(dev, args.layers, card, K)
     smoke_identity(dev)
     serve_cli_phase()
+    examples_phase(K)
     dense, packed = train_phase(dev, args.train_layers, card, K, OPS)
     compressed = compressed_train_phase(dev, card, K)
     launches.update(dense)
@@ -4940,6 +5430,9 @@ def main():
         if "launches" in k:  # the paper and 3-body phases counted theirs
             continue
         k["launches"] = launches[k["name"]]
+        if k["name"] in auto_launches:
+            # the same rows on the engine's default decode mode (phase 4b)
+            k["launches_auto_default"] = auto_launches[k["name"]]
         if k["name"] in compressed:
             k["launches_compressed_dp"] = compressed[k["name"]]
         if k["name"] == "tri_attn.packed_fwd":

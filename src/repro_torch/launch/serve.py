@@ -7,7 +7,10 @@ for jamba-1.5-large-398b the selective-scan kernel, under sequential
 admission and lockstep decode, which the engine picks for an arch with
 recurrent layers), or with ``--device cpu`` on the plain PyTorch
 versions. Weights are random from ``--seed``
-(``models.model.init_params``).
+(``models.model.init_params``). Decode rounds take the engine's default,
+``--decode-mode auto``: the packed kernel on position-skewed rounds, the
+lockstep full-cache einsum on the others, by the reference's cost rule
+(``serve/engine.py``); the summary line counts both.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --requests 6
     PYTHONPATH=src python -m repro_torch.launch.serve --step-mode fused
@@ -26,7 +29,7 @@ import numpy as np
 from repro_torch import device as DEV
 from repro_torch.configs import registry as REG
 from repro_torch.models import model as MD
-from repro_torch.serve.engine import Engine
+from repro_torch.serve.engine import DECODE_MODES, Engine
 
 
 def main(argv=None):
@@ -44,11 +47,12 @@ def main(argv=None):
                     help="packed = one ragged launch per admit round; "
                          "sequential = per-token loop (--device cpu only)")
     ap.add_argument("--prefill-block", type=int, default=16)
-    ap.add_argument("--decode-mode", default="packed",
-                    choices=["packed", "lockstep"],
-                    help="packed = one mixed-position launch per decode "
-                         "round; lockstep = full-cache einsum (--device cpu "
-                         "only)")
+    ap.add_argument("--decode-mode", default="auto",
+                    choices=list(DECODE_MODES),
+                    help="auto = packed mixed-position decode on "
+                         "position-skewed rounds, lockstep otherwise; "
+                         "packed = every round; lockstep = every round the "
+                         "full-cache einsum (--device cpu only)")
     ap.add_argument("--decode-block", type=int, default=16)
     ap.add_argument("--step-mode", default="split",
                     choices=["split", "fused"],
@@ -63,7 +67,8 @@ def main(argv=None):
     if impl == "cuda" and attn_only and (args.prefill_mode == "sequential"
                                          or args.decode_mode == "lockstep"):
         ap.error("sequential prefill and lockstep decode run the plain "
-                 "version of attention: pass --device cpu with them")
+                 "version of attention: pass --device cpu with them (auto "
+                 "runs lockstep rounds where its cost rule picks them)")
     params = MD.init_params(cfg, seed=args.seed, device=args.device)
     engine = Engine(params, cfg, slots=args.slots, max_len=args.max_len,
                     temperature=args.temperature, seed=args.seed,

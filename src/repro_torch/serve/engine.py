@@ -1,6 +1,7 @@
 """Batched serving engine (port of ``repro/serve/engine.py``; the
 reference's options that no caller here sets — deadlines, load shedding,
-fifo admission, prompt buckets, the decode auto-mode — are not ported).
+fifo admission, prompt buckets, the decode auto-mode's measured cost table
+(``auto_cost_measure``) — are not ported).
 
 A fixed batch of B slots, each with its own absolute position, so a
 finished slot is refilled without draining the batch. Two step modes:
@@ -8,9 +9,10 @@ finished slot is refilled without draining the batch. Two step modes:
   split  every admit round prefills all its requests in ONE packed ragged
          launch per layer (``decode.packed_prefill``) and splices each
          request's KV rows into its slot; every decode round advances all
-         live slots in one packed launch per layer
-         (``decode.decode_step_packed``), or, with the plain impl only, in
-         the lockstep full-cache einsum;
+         live slots either in one packed launch per layer
+         (``decode.decode_step_packed``) or in the lockstep full-cache
+         einsum (``models.layers.decode_attention``), as ``decode_mode``
+         says (below);
   fused  a round that admits requests does it together with advancing
          every live slot, in ONE mixed launch per layer
          (``decode.fused_step``); a round with nothing to admit is a split
@@ -19,6 +21,26 @@ finished slot is refilled without draining the batch. Two step modes:
 Which requests ride together is cost-ordered: the oldest queued request
 always rides, the remaining free slots alternate the lightest and heaviest
 pending by tile count tri(ceil(S / block)).
+
+Which path a decode round takes (``decode_mode``):
+
+  auto      (the default, as in the reference) a cost crossover per round:
+            with tiles[b] = ceil(kv_len_b / block) over the live slots,
+            the round goes packed only when
+            ratio * sum(tiles) < B * max(tiles), i.e. when lockstep's
+            pad-to-max waste beats the packed round's premium a tile;
+            otherwise lockstep. ``ratio`` is PACKED_TILE_COST_RATIO;
+  packed    every round packed;
+  lockstep  every round the full-cache einsum (plain impl only).
+
+The lockstep einsum is the counterpart of the reference's XLA einsum and
+no kernel, so "auto" with ``decode_impl="cuda"`` runs the packed kernel on
+the rounds the rule sends packed and the einsum on the others: on the
+card a round the rule sends lockstep (a batch without position skew)
+decodes with no hand-written kernel. An explicit "lockstep" with impl
+"cuda" is refused. The reference's decode ladder (packed -> lockstep) is
+not ported: a failing packed round raises ``EngineStepError`` like any
+other, and auto never re-runs it lockstep.
 
 A NaN/Inf guard inspects every round's output. A poisoned admit round is
 retried with bounded, seeded backoff and then walks the admit ladder
@@ -83,6 +105,12 @@ from repro_torch.serve import kv_cache as KV
 
 STATS_LOG_ROUNDS = 1024  # rounds kept by the stats ring logs
 QUARANTINE_ROUNDS = 8    # decode rounds a poisoned slot sits out
+# decode auto-mode: the packed round's cost a tile over lockstep's. 2.3 is
+# the reference's figure, read on its CPU harness (bench_packed); the
+# card's own crossover is measured by chip_smoke.py and kept in PERF.md,
+# and the rule keeps the reference's constant
+PACKED_TILE_COST_RATIO = 2.3
+DECODE_MODES = ("auto", "packed", "lockstep")
 
 
 @dataclasses.dataclass
@@ -141,7 +169,7 @@ class Engine:
                  cache_dtype=torch.float32, temperature: float = 0.0,
                  seed: int = 0, prefill_mode: str = "packed",
                  prefill_block: int = 16, prefill_impl: str = "cuda",
-                 decode_mode: str = "packed", decode_block: int = 16,
+                 decode_mode: str = "auto", decode_block: int = 16,
                  decode_impl: str = "cuda", step_mode: str = "split",
                  retry: Optional[F.RetryPolicy] = None,
                  fault_plan: Optional[F.FaultPlan] = None, clock=None,
@@ -149,7 +177,7 @@ class Engine:
                  device=DEV.DEFAULT_DEVICE):
         if prefill_mode not in ("packed", "sequential"):
             raise ValueError(f"prefill_mode {prefill_mode!r}")
-        if decode_mode not in ("packed", "lockstep"):
+        if decode_mode not in DECODE_MODES:
             raise ValueError(f"decode_mode {decode_mode!r}")
         if step_mode not in ("split", "fused"):
             raise ValueError(f"step_mode {step_mode!r}")
@@ -514,11 +542,19 @@ class Engine:
             raise
 
     # -- decode loop ---------------------------------------------------------
-    def _decode_round(self, live, kv_lens, rnd: int):
+    def _round_mode(self, tiles: List[int]) -> str:
+        """The decode round's path: "packed" or "lockstep" (see the module
+        docstring's cost rule for "auto")."""
+        if self.decode_mode != "auto":
+            return self.decode_mode
+        return ("packed" if PACKED_TILE_COST_RATIO * sum(tiles)
+                < self.B * max(tiles) else "lockstep")
+
+    def _decode_round(self, live, kv_lens, rnd: int, mode: str):
         self._fault("decode", rnd)
-        with TR.span("engine.decode_round", mode=self.decode_mode,
+        with TR.span("engine.decode_round", mode=mode,
                      live=len(live)) as sp:
-            if self.decode_mode == "packed":
+            if mode == "packed":
                 logits, cache, _ = D.decode_step_packed(
                     self.params, self.cfg, self.cache, self.last_tok,
                     self.pos, kv_lens, live, block=self.decode_block,
@@ -573,14 +609,16 @@ class Engine:
             self.slot_req[slot] = None
 
     def step(self):
-        """One decode round across all live slots (packed or lockstep);
-        logits pass the NaN/Inf guard before any token is committed."""
+        """One decode round across all live slots, packed or lockstep as
+        ``_round_mode`` picks; logits pass the NaN/Inf guard before any
+        token is committed."""
         live = [s for s in range(self.B) if self.slot_req[s] is not None]
         if not live:
             return
         pos_np = self.pos.cpu().numpy()
         kv_lens = [int(min(pos_np[s] + 1, self.s_cache)) for s in live]
         tiles = [-(-kl // self.decode_block) for kl in kv_lens]
+        mode = self._round_mode(tiles)
         self._inc("decode_rounds")
         self._inc("decode_tiles_packed", sum(tiles))
         self._inc("decode_tiles_padded", len(live) * max(tiles))
@@ -588,10 +626,10 @@ class Engine:
         self._decode_round_idx += 1
         t0 = float(self.clock())
         try:
-            logits, cache = self._decode_round(live, kv_lens, rnd)
+            logits, cache = self._decode_round(live, kv_lens, rnd, mode)
         except Exception as e:  # noqa: BLE001 — surfaced, not absorbed
             raise EngineStepError("decode", rnd, e) from e
-        self._inc("decode_packed_launches" if self.decode_mode == "packed"
+        self._inc("decode_packed_launches" if mode == "packed"
                   else "decode_lockstep_launches")
         if self._round_watch.observe(float(self.clock()) - t0):
             self._inc_res("rounds_straggler_total")

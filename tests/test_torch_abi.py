@@ -8,8 +8,9 @@
 * every slice's modules (serving, training, the fused step and fleet,
   the paper's experiment, the 3-body workload and the serving CLI, the
   schedule registry and the checker, data-parallel training with the
-  int8 grad compression) import in a process where importing jax is
-  impossible, one parametrised case a slice.
+  int8 grad compression, the nine examples/torch_*.py) import in a
+  process where importing jax is impossible, one parametrised case a
+  slice; the examples' own imports are scanned too.
 * Every ``extern "C"`` entry point of ``src/repro_torch/csrc/*.cu`` is
   bound in ``kernels/build.py`` with one ctypes type per parameter, of
   the right kind (pointer, int or float): the check nvcc and the card
@@ -129,6 +130,26 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert not bad, bad
 
 
+EXAMPLES = ("quickstart", "triangular_attention", "edm_pairwise",
+            "tet_3body", "packed_prefill", "packed_decode", "packed_train",
+            "serve_demo", "fleet_serve")
+
+
+def test_examples_import_neither_jax_nor_the_jax_package():
+    """Each of the reference's nine examples has its port beside it,
+    examples/torch_<name>.py, which imports repro_torch and neither jax
+    nor the JAX package."""
+    files = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert [f.stem for f in files] == sorted(f"torch_{n}" for n in EXAMPLES)
+    assert all((ROOT / "examples" / f"{n}.py").exists() for n in EXAMPLES)
+    for f in files:
+        mods = list(_imports(f))
+        assert any(m.startswith("repro_torch") for m in mods), f.name
+        bad = [m for m in mods
+               if m.split(".")[0] in ("jax", "jaxlib", "flax", "repro")]
+        assert not bad, (f.name, bad)
+
+
 # each slice's modules, imported in a process where jax and the JAX
 # package cannot be imported
 SLICES = {
@@ -189,6 +210,12 @@ SLICES = {
                      "g, e = compressed_psum({'w': torch.ones(3)}, "
                      "{'w': torch.zeros(3)}); "
                      "assert torch.equal(g['w'], torch.ones(3))",
+    "examples": "import glob, importlib.util as U; "
+                f"files = glob.glob({str(ROOT / 'examples')!r} + "
+                "'/torch_*.py'); assert len(files) == 9; "
+                "[U.spec_from_file_location('ex', f).loader.exec_module("
+                "U.module_from_spec(U.spec_from_file_location('ex', f))) "
+                "for f in files]",
 }
 
 

@@ -280,7 +280,8 @@ def test_engine_raises_when_a_kernel_fails(dev, monkeypatch, kernel):
 
     cfg = REG.smoke_config("yi-9b")
     params = MD.init_params(cfg, seed=0, device=dev)
-    eng = Engine(params, cfg, slots=2, max_len=64, device=dev)
+    eng = Engine(params, cfg, slots=2, max_len=64, decode_mode="packed",
+                 device=dev)
     rng = np.random.default_rng(1)
     for uid, s in enumerate((20, 7, 33)):
         eng.submit(rng.integers(1, cfg.vocab_size, size=s), max_new=3,
@@ -291,6 +292,82 @@ def test_engine_raises_when_a_kernel_fails(dev, monkeypatch, kernel):
     st = eng.stats
     assert st["launches_degraded_total"] == st["requests_retried_total"] \
         == st["decode_lockstep_launches"] == 0
+
+
+def test_auto_engine_raises_when_a_packed_round_fails(dev, monkeypatch):
+    """The default engine ("auto") on the card: the first round its cost
+    rule sends packed fails in packed_decode_fwd, and run() raises
+    EngineStepError; no lockstep rung re-runs the round, nothing is
+    degraded or retried."""
+    from repro_torch.configs import registry as REG
+    from repro_torch.models import model as MD
+    from repro_torch.serve.engine import Engine, EngineStepError
+
+    modes = []
+    picked = Engine._round_mode
+
+    def spy(self, tiles):
+        modes.append(picked(self, tiles))
+        return modes[-1]
+
+    def boom(*a, **k):
+        raise RuntimeError("kernel launch failed")
+
+    cfg = REG.smoke_config("yi-9b")
+    params = MD.init_params(cfg, seed=0, device=dev)
+    eng = Engine(params, cfg, slots=4, max_len=128, device=dev)
+    assert eng.decode_mode == "auto"
+    rng = np.random.default_rng(2)
+    # tiles [1, 1, 1, 5] at blk 16: 2.3 * 8 < 4 * 5, so the rule goes packed
+    for uid, s in enumerate((3, 3, 3, 70)):
+        eng.submit(rng.integers(1, cfg.vocab_size, size=s), max_new=4,
+                   uid=uid)
+    monkeypatch.setattr(Engine, "_round_mode", spy)
+    monkeypatch.setattr(K, "packed_decode_fwd", boom)
+    with pytest.raises(EngineStepError, match="kernel launch failed") as info:
+        eng.run()
+    assert info.value.phase == "decode" and modes[-1] == "packed"
+    st = eng.stats
+    assert st["decode_packed_launches"] == 0
+    assert st["decode_lockstep_launches"] == modes.count("lockstep")
+    assert st["launches_degraded_total"] == st["requests_retried_total"] \
+        == 0
+
+
+def test_auto_engine_matches_the_packed_engine(dev):
+    """decode_mode="auto" (the default) on the kernels: the rounds its cost
+    rule sends packed run packed_decode_fwd once a layer, the others the
+    full-cache einsum (no decode kernel), and the greedy tokens equal the
+    packed engine's."""
+    from repro_torch.configs import registry as REG
+    from repro_torch.models import model as MD
+    from repro_torch.serve.engine import Engine
+
+    cfg = REG.smoke_config("yi-9b")
+    params = MD.init_params(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, cfg.vocab_size, size=s)
+               for s in (6, 60, 8, 6, 44, 10, 14, 4)]
+    out, stats, launches = {}, {}, {}
+    for mode in ("packed", "auto"):
+        eng = Engine(params, cfg, slots=4, max_len=128, prefill_block=16,
+                     decode_block=16, decode_mode=mode, device=dev)
+        for uid, p in enumerate(prompts):
+            eng.submit(p, max_new=6, uid=uid)
+        before = K.packed_decode_fwd.launches
+        out[mode] = eng.run()
+        launches[mode] = K.packed_decode_fwd.launches - before
+        stats[mode] = eng.stats
+    st = stats["auto"]
+    assert out["auto"] == out["packed"]
+    assert st["decode_packed_launches"] > 0 and \
+        st["decode_lockstep_launches"] > 0
+    assert st["decode_packed_launches"] + st["decode_lockstep_launches"] \
+        == st["decode_rounds"]
+    for mode in out:
+        assert launches[mode] == \
+            cfg.n_layers * stats[mode]["decode_packed_launches"], mode
+    assert stats["packed"]["decode_lockstep_launches"] == 0
 
 
 def _fused_case(rng, dev, *, blk, d, g, hkv, q_dtype, c_dtype, b=5,

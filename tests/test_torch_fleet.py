@@ -56,10 +56,12 @@ def ctx():
         eng.submit(p, max_new=MAX_NEW, uid=uid)
     baseline = eng.run()
 
-    def make(plan=None, submit=True, step_mode="split", **kw):
+    def make(plan=None, submit=True, step_mode="split", engine_kw=None,
+             **kw):
         kw.setdefault("heartbeat_timeout_s", 5.0)
         fleet = Fleet(params, cfg, engines=2, fault_plan=plan,
-                      engine_kw=dict(ENGINE_KW, step_mode=step_mode), **kw)
+                      engine_kw=dict(ENGINE_KW, step_mode=step_mode,
+                                     **(engine_kw or {})), **kw)
         if submit:
             for uid, p in enumerate(PROMPTS):
                 fleet.submit(p, max_new=MAX_NEW, uid=uid)
@@ -197,12 +199,14 @@ def test_fleet_events_pass_the_validators(ctx, tmp_path):
 def test_real_error_propagates_out_of_the_fleet(ctx, monkeypatch,
                                                 step_mode):
     """A replica's exception that no fault plan injected (here the
-    decode op raising) is not failed over: Fleet.run raises it."""
+    packed decode op raising, on replicas that decode packed) is not
+    failed over: Fleet.run raises it."""
     def boom(*a, **k):
         raise RuntimeError("kernel launch failed")
 
     monkeypatch.setattr(SC, "packed_decode_torch", boom)
-    fleet = ctx["make"](step_mode=step_mode)
+    fleet = ctx["make"](step_mode=step_mode,
+                        engine_kw={"decode_mode": "packed"})
     with pytest.raises(EngineStepError, match="kernel launch failed"):
         fleet.run(max_steps=50)
     assert fleet.stats["fleet_failovers_total"] == 0

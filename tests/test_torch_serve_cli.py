@@ -22,12 +22,17 @@ def test_serve_cli_on_cpu(step_mode, capsys):
     out = capsys.readouterr().out
     assert "5/5 requests, 20 tokens" in out
     assert f"step_mode={step_mode}" in out
-    assert "prefill[packed]" in out and "decode[packed]" in out
+    assert "prefill[packed]" in out and "decode[auto]" in out
     st = engine.stats
+    # the default decode mode: each split round counted as the mode it ran
+    split_rounds = st["decode_packed_launches"] + \
+        st["decode_lockstep_launches"]
     if step_mode == "fused":
         assert st["fused_rounds"] >= 1
+        assert 0 < split_rounds <= st["decode_rounds"]
     else:
         assert st["fused_rounds"] == 0 and st["prefill_launches"] >= 1
+        assert split_rounds == st["decode_rounds"] > 0
 
 
 def test_serve_cli_plain_modes_and_refusals(capsys):
@@ -36,8 +41,8 @@ def test_serve_cli_plain_modes_and_refusals(capsys):
     assert all(r["status"] == "done" for r in engine.report().values())
     assert engine.stats["decode_lockstep_launches"] >= 1
     assert "decode[lockstep]" in capsys.readouterr().out
-    with pytest.raises(SystemExit):  # the port's engine has no auto mode
-        SERVE.main(ARGS + ["--decode-mode", "auto"])
+    with pytest.raises(SystemExit):  # not a decode mode
+        SERVE.main(ARGS + ["--decode-mode", "fused"])
     # the plain-version modes never run on the kernels' path
     for mode in (["--prefill-mode", "sequential"],
                  ["--decode-mode", "lockstep"]):
