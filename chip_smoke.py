@@ -86,6 +86,25 @@ Phases (any failure exits non-zero; nothing is caught):
   4c. the nine examples/torch_*.py, each main() on the card with its own
      assertions, each timed; every tri_attn kernel but the fused step and
      fwd_bb launched by them;
+  4d. the request lifecycle (end of the serving phase, after its
+     snapshot): the fused traffic's 12-prompt burst on the serving
+     weights cut to LIFE_LAYERS layers, the engine's defaults (decode
+     auto), split and fused, on a VirtualClock: unconstrained on a probe
+     that keeps each token's logits, then (a) max_queue_tiles at half the
+     burst's tiles, (b) a 1 s deadline with a 2 s straggler at decode
+     round 2, and the same run snapshotted after one round and restored
+     onto a clock 1000 s later (same statuses and tokens), (c)
+     guard_output=False (tokens bitwise the unconstrained run's); each
+     run: one terminal status a uid, the shed and deadline counters equal
+     the counts, the head never shed, shed outputs empty, done streams
+     and missed prefixes equal to the unconstrained run's or first
+     different where the two runs' logits agree within the bf16 policy,
+     kernel launches == layers x the engine's, no degrade or failure;
+     the median host ms of the unconstrained run's decode-only rounds,
+     and of the output guard's own work (its host copy of a decode
+     round's (4, 64000) logits and the isfinite scan), timed alone on
+     that run's logits with the guard on and off; the {"lifecycle": ...}
+     line and the phase's seconds;
   5. training kernels: tri_attn.fwd and its dq and dk/dv backward at the
      train phase's attention shape (B 1, H 32, Hkv 4, S 4096, D 128, ltm,
      blk 64, bf16) against their plain versions on the same inputs
@@ -1005,9 +1024,9 @@ def serving_phase(dev, layers: int, card: str, K):
 
     # fused mode: 12 prompts with staggered budgets, so that admit rounds
     # carry live decode slots; split mode on the same traffic beside it
-    prompt_lens = [1000, 90, 500, 250, 700, 60, 380, 150, 820, 45, 610, 220]
+    prompt_lens = list(FUSED_LENS)
     prompts = [rng.integers(1, cfg.vocab_size, size=n) for n in prompt_lens]
-    max_new = [8, 40, 16, 32, 24, 12, 36, 20, 28, 10, 18, 30]
+    max_new = list(FUSED_NEW)
     eng = Engine(params, cfg, step_mode="fused", **kw)
     _reset_launches(K)
     results, wall = _serve(eng, prompts, max_new)
@@ -1054,10 +1073,16 @@ def serving_phase(dev, layers: int, card: str, K):
     eng.run()
     del eng
     snapshot_phase(params, cfg, kw, rng, card)
+    life = lifecycle_phase(params, cfg, kw, card, K)
     del params
     torch.cuda.empty_cache()
     return dict(launches, **{"tri_attn.fused_step_fwd": fused_launches}), \
-        auto
+        auto, life
+
+
+# the fused serving phase's traffic, which phase 4d serves too
+FUSED_LENS = (1000, 90, 500, 250, 700, 60, 380, 150, 820, 45, 610, 220)
+FUSED_NEW = (8, 40, 16, 32, 24, 12, 36, 20, 28, 10, 18, 30)
 
 
 def snapshot_phase(params, cfg, kw, rng, card):
@@ -1084,6 +1109,283 @@ def snapshot_phase(params, cfg, kw, rng, card):
     print(f"snapshot: fused engine cut after 5 rounds ({snap_s:.3f} s to "
           f"copy the cache to host), restored on the same params: identical "
           f"tokens for {len(first)} requests; card {card}", flush=True)
+
+
+# phase 4d, the request lifecycle: the fused phase's burst on a
+# VirtualClock under (a) shedding at half its tiles, (b) a 1 s deadline
+# with a 2 s straggler at decode round 2, (c) the guard off; at
+# LIFE_LAYERS of the loaded layers (the phase's time: a decode round is
+# host time that grows with depth)
+LIFE_LAYERS = 24
+LIFE_STRAGGLER = (2, 2.0)  # (decode round, seconds)
+LIFE_DEADLINE_S = 1.0
+LIFE_SNAP_ROUNDS = 1  # rounds before the snapshot under (b)
+LIFE_GUARD_REPS = 200  # timed calls of the guard, each way
+LIFE_TERMINAL = ("done", "shed", "deadline_miss", "failed")
+
+
+def _first_layers(tree, n: int):
+    """Views of the first ``n`` superlayers of a stacked parameter tree."""
+    if isinstance(tree, dict):
+        return {k: _first_layers(v, n) for k, v in tree.items()}
+    return tree[:n]
+
+
+def _life_drive(eng, prompts, budgets):
+    """Submit the burst, then drive ``eng`` round by round to the end;
+    returns the host ms of each decode-only round."""
+    for uid, (p, m) in enumerate(zip(prompts, budgets)):
+        eng.submit(p, max_new=m, uid=uid)
+    reg, times = eng.registry, []
+    while not eng.idle():
+        admits = reg.counter_value("admit_rounds")
+        decodes = reg.counter_value("decode_rounds")
+        t0 = time.perf_counter()
+        eng.round()
+        dt = (time.perf_counter() - t0) * 1e3
+        if reg.counter_value("admit_rounds") == admits and \
+                reg.counter_value("decode_rounds") > decodes:
+            times.append(dt)
+    return times
+
+
+def _life_check(label, eng, base, cfg, n, launches):
+    """The lifecycle contract of one run against the unconstrained probe
+    ``base``: every uid in exactly one terminal status, the counters equal
+    the shed and missed counts, the head (uid 0) never shed and every shed
+    output empty, each done stream and each missed prefix equal to base's
+    or first different at a flip within the bf16 logit policy (phase 4b's
+    rule), kernel launches = layers x the engine's, no degrade or failure.
+    Returns ({status: count}, flips)."""
+    rep = eng.report()
+    uids = [r.uid for r in eng.finished]
+    if sorted(uids) != list(range(n)) or sorted(rep) != list(range(n)) or \
+            any(r["status"] not in LIFE_TERMINAL for r in rep.values()):
+        _fail(f"{label}: not one terminal status a request: {rep}")
+    st = eng.stats
+    status = {u: r["status"] for u, r in rep.items()}
+    counts = {s: sum(v == s for v in status.values())
+              for s in sorted(LIFE_TERMINAL)}
+    if st["requests_shed_total"] != counts["shed"] or \
+            st["deadline_misses_total"] != counts["deadline_miss"]:
+        _fail(f"{label}: counters shed {st['requests_shed_total']} / missed "
+              f"{st['deadline_misses_total']} against {counts}")
+    if status[0] == "shed":
+        _fail(f"{label}: the queue head was shed")
+    if st["launches_degraded_total"] or st["requests_failed_total"]:
+        _fail(f"{label}: degraded={st['launches_degraded_total']} "
+              f"failed={st['requests_failed_total']}")
+    got = {r.uid: r.out for r in eng.finished}
+    want = {r.uid: r.out for r in base.finished}
+    flips = []
+    for u in range(n):
+        out = got[u]
+        if status[u] == "shed":
+            if out:
+                _fail(f"{label}: shed request {u} emitted {out}")
+            continue
+        ref = want[u] if status[u] == "done" else want[u][:len(out)]
+        if len(out) != len(ref) or (status[u] == "done"
+                                    and len(out) != len(want[u])):
+            _fail(f"{label}: request {u} ({status[u]}) emitted {len(out)} "
+                  f"tokens against the unconstrained run's {len(want[u])}")
+        if out == ref:
+            continue
+        step = next(i for i, (a, b) in enumerate(zip(out, ref)) if a != b)
+        lb = base.logits[u, step][:cfg.vocab_size]
+        lg = eng.logits[u, step][:cfg.vocab_size]
+        top = torch.topk(lb, 2).values
+        _close(f"{label}: request {u} logits at token {step}", lg[None],
+               lb[None], _logit_tol(lb))
+        flips.append((u, step, round(float(top[0] - top[1]), 6),
+                      round(float((lg - lb).abs().max()), 6)))
+    _life_launches(label, [eng], cfg.n_layers, launches)
+    return counts, flips
+
+
+def _life_launches(label, engines, n_l, launches):
+    """Rows 1-3's launches over ``engines``' runs == n_l layers x the
+    engines' own counts, and no other kernel launched."""
+    eng_counts = {name: sum(e.stats[name] for e in engines)
+                  for name in ("prefill_launches", "decode_packed_launches",
+                               "fused_launches")}
+    want = {"tri_attn.packed_fwd": n_l * eng_counts["prefill_launches"],
+            "tri_attn.packed_decode_fwd":
+                n_l * eng_counts["decode_packed_launches"],
+            "tri_attn.fused_step_fwd": n_l * eng_counts["fused_launches"]}
+    other = {k: v for k, v in launches.items() if k not in want and v}
+    if any(launches[k] != v for k, v in want.items()) or other:
+        _fail(f"{label}: kernel launches {launches} != {n_l} layers x the "
+              f"engines' {eng_counts}")
+
+
+def _life_guard_ms(eng, Engine):
+    """Median host ms of the output guard alone (Engine._guard_decode:
+    the host copy of a decode round's logits and the isfinite scan), on
+    (B, padded vocab) float32 logits that ``eng``'s run sampled from,
+    with the guard on and off, LIFE_GUARD_REPS calls each, alternating;
+    each call starts on an idle card, as a round's guard waits on the
+    round's own work first."""
+    rows = [eng.logits[key] for key in sorted(eng.logits)][:eng.B]
+    logits = torch.stack(rows)
+    live = list(range(eng.B))
+    times = {True: [], False: []}
+    for _ in range(LIFE_GUARD_REPS):
+        for on in (True, False):
+            eng.guard_output = on
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bad = Engine._guard_decode(eng, logits, live, 0)
+            times[on].append((time.perf_counter() - t0) * 1e3)
+            if bad:
+                _fail(f"lifecycle guard: finite logits flagged in {bad}")
+    eng.guard_output = True
+    return {"on": statistics.median(times[True]),
+            "off": statistics.median(times[False]),
+            "shape": list(logits.shape)}
+
+
+def lifecycle_phase(params, cfg, kw, card, K):
+    """Phase 4d: the request lifecycle on the kernels at full width, the
+    engine's defaults (decode "auto") and the serving phase's settings,
+    in split and fused mode. The fused phase's 12-prompt burst, submitted
+    at once on a VirtualClock: unconstrained (a probe that keeps each
+    token's logits), then (a) max_queue_tiles at half the burst's tiles,
+    (b) deadline_s LIFE_DEADLINE_S with a straggler at decode round 2,
+    and a snapshot of (b) after LIFE_SNAP_ROUNDS restored onto a clock
+    1000 s later, (c) guard_output=False (tokens bitwise the
+    unconstrained run's); every run held by _life_check; the guard's own
+    time (_life_guard_ms). Returns rows 1-3's launches over its runs."""
+    from repro_torch.core import mapping as M
+    from repro_torch.resilience import faults as F
+    from repro_torch.resilience import snapshot as SNAP
+    from repro_torch.serve import engine as E
+
+    t_phase = time.perf_counter()
+    if cfg.n_layers > LIFE_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=LIFE_LAYERS)
+        params = dict(params, layers=_first_layers(params["layers"],
+                                                   LIFE_LAYERS))
+    n_l = cfg.n_layers
+    life_kw = {k: v for k, v in kw.items() if k != "decode_mode"}
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n) for n in FUSED_LENS]
+    budgets = list(FUSED_NEW)
+    n = len(prompts)
+    total = sum(M.tri(-(-s // life_kw["prefill_block"])) for s in FUSED_LENS)
+    rnd, delay = LIFE_STRAGGLER
+
+    def plan():
+        return F.FaultPlan([F.Fault("straggler", "decode", rnd,
+                                    delay_s=delay)])
+
+    settings = (("a", dict(max_queue_tiles=total // 2), None),
+                ("b", dict(deadline_s=LIFE_DEADLINE_S), plan),
+                ("c", dict(guard_output=False), None))
+    launches = {name: 0 for name in ("tri_attn.packed_fwd",
+                                     "tri_attn.packed_decode_fwd",
+                                     "tri_attn.fused_step_fwd")}
+    summary = {"layers": n_l, "burst_tiles": total, "modes": {}}
+
+    def run(label, step_mode, extra, make_plan):
+        eng = _probe_engine(E.Engine, params, cfg, step_mode=step_mode,
+                            clock=F.VirtualClock(), fault_plan=(
+                                make_plan() if make_plan else None),
+                            **life_kw, **extra)
+        if eng.decode_mode != "auto":
+            _fail(f"{label}: the engine's decode mode is {eng.decode_mode}")
+        _reset_launches(K)
+        times = _life_drive(eng, prompts, budgets)
+        counts = _launches(K)
+        for name in launches:
+            launches[name] += counts[name]
+        return eng, times, counts
+
+    for step_mode in ("split", "fused"):
+        base, base_times, counts = run(f"lifecycle {step_mode}", step_mode,
+                                       {}, None)
+        stats, _ = _life_check(f"lifecycle {step_mode} unconstrained", base,
+                               base, cfg, n, counts)
+        if stats["done"] != n:
+            _fail(f"lifecycle {step_mode}: the unconstrained run ended "
+                  f"{stats}")
+        mode_sum = {"unconstrained": stats,
+                    "decode_round_ms": statistics.median(base_times),
+                    "guard_ms": _life_guard_ms(base, E.Engine)}
+        for name, extra, make_plan in settings:
+            label = f"lifecycle {step_mode} ({name})"
+            eng, _, counts = run(label, step_mode, extra, make_plan)
+            stats, flips = _life_check(label, eng, base, cfg, n, counts)
+            row = {"statuses": stats, "flips": flips,
+                   "shed": [u for u, r in eng.report().items()
+                            if r["status"] == "shed"]}
+            if name == "a" and not (stats["shed"] and stats["done"]):
+                _fail(f"{label}: shedding at {total // 2} of {total} tiles "
+                      f"left {stats}")
+            if name == "b":
+                if not stats["deadline_miss"]:
+                    _fail(f"{label}: the straggler missed no deadline")
+                # the same run cut after LIFE_SNAP_ROUNDS rounds, restored
+                # onto a clock 1000 s later with the plan's strikes
+                cut = _probe_engine(E.Engine, params, cfg,
+                                    step_mode=step_mode,
+                                    clock=F.VirtualClock(),
+                                    fault_plan=make_plan(), **life_kw,
+                                    **extra)
+                for uid, (p, m) in enumerate(zip(prompts, budgets)):
+                    cut.submit(p, max_new=m, uid=uid)
+                _reset_launches(K)
+                for _ in range(LIFE_SNAP_ROUNDS):
+                    cut.round()
+                snap = SNAP.snapshot(cut)
+                later = F.VirtualClock(snap.clock_now + 1000.0)
+                resumed = SNAP.restore(snap, params=params, clock=later,
+                                       fault_plan=cut.fault_plan)
+                resumed.run()
+                _life_launches(f"{label}, restored", [cut, resumed], n_l,
+                               _launches(K))
+                mine = {r.uid: (r.status, r.out) for r in eng.finished}
+                again = {r.uid: (r.status, r.out) for r in resumed.finished}
+                if again != mine:
+                    _fail(f"{label}: restored onto a clock 1000 s later, "
+                          f"{ {u: s for u, (s, _) in again.items()} } "
+                          f"against { {u: s for u, (s, _) in mine.items()} }")
+                row["restored_equal"] = True
+                del cut, resumed, snap
+            if name == "c":
+                if {r.uid: r.out for r in eng.finished} != \
+                        {r.uid: r.out for r in base.finished} or flips:
+                    _fail(f"{label}: the guard-free run's tokens differ from "
+                          f"the unconstrained run's")
+                row["logits_bitwise"] = all(
+                    torch.equal(v, base.logits[key])
+                    for key, v in eng.logits.items())
+            mode_sum[name] = row
+            print(f"{label}: {stats}; shed {row['shed']}; flips (uid, token, "
+                  f"unconstrained top-two gap, max |logit diff|) {flips}"
+                  + ("; restored onto a clock 1000 s later: equal"
+                     if name == "b" else "")
+                  + (f"; tokens bitwise the unconstrained run's, logits "
+                     f"bitwise {row['logits_bitwise']}" if name == "c"
+                     else "") + f"; card {card}", flush=True)
+            del eng
+        guard = mode_sum["guard_ms"]
+        print(f"lifecycle {step_mode}: median host ms of a decode-only round"
+              f" {mode_sum['decode_round_ms']:.3f} ({len(base_times)} "
+              f"rounds, {n_l} layers); the guard alone on {guard['shape']} "
+              f"float32 logits: on {guard['on']:.4f}, off "
+              f"{guard['off']:.4f} ms ({LIFE_GUARD_REPS} calls each, "
+              f"alternating), "
+              f"{100 * guard['on'] / mode_sum['decode_round_ms']:.2f}% of "
+              f"the round; card {card}", flush=True)
+        summary["modes"][step_mode] = mode_sum
+        del base
+    summary["seconds"] = round(time.perf_counter() - t_phase, 1)
+    summary["launches"] = launches
+    print(f"lifecycle: phase {summary['seconds']} s; launches {launches}; "
+          f"card {card}", flush=True)
+    print(json.dumps({"lifecycle": summary}), flush=True)
+    return launches
 
 
 # phase 4b, the decode auto-mode: the reference's skew harness
@@ -5414,7 +5716,8 @@ def main():
         + ("none" if k["library_ms"] is None else f"{k['library_ms']:.4f}")
         + f", bound {k['bound_ms']:.4f} by {k['bound_by']}) err "
         f"{k['max_abs_err']:.3g}" for k in kernels), flush=True)
-    launches, auto_launches = serving_phase(dev, args.layers, card, K)
+    launches, auto_launches, life_launches = serving_phase(
+        dev, args.layers, card, K)
     smoke_identity(dev)
     serve_cli_phase()
     examples_phase(K)
@@ -5433,6 +5736,9 @@ def main():
         if k["name"] in auto_launches:
             # the same rows on the engine's default decode mode (phase 4b)
             k["launches_auto_default"] = auto_launches[k["name"]]
+        if k["name"] in life_launches:
+            # rows 1-3 under the request lifecycle's runs (phase 4d)
+            k["launches_lifecycle"] = life_launches[k["name"]]
         if k["name"] in compressed:
             k["launches_compressed_dp"] = compressed[k["name"]]
         if k["name"] == "tri_attn.packed_fwd":

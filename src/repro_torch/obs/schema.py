@@ -31,9 +31,11 @@ ENGINE_COUNTERS = (
 )
 
 # Resilience counters, emitted under these exact names in the per-engine
-# registry and the process-global one; counts of discrete events.
+# registry and the process-global one; counts of discrete events (the
+# reference's seven, in its order).
 RESILIENCE_COUNTERS = (
-    "requests_retried_total", "launches_degraded_total",
+    "requests_retried_total", "deadline_misses_total",
+    "launches_degraded_total", "requests_shed_total",
     "slots_quarantined_total", "requests_failed_total",
     "rounds_straggler_total",
 )

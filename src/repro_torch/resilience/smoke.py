@@ -183,6 +183,9 @@ def engine_tier(args, check) -> None:
             eng.submit(p, max_new=MAX_NEW, uid=uid)
         eng.round()
         eng.round()
+        # a deadline sweep just before the mid-flight snapshot, as the
+        # reference's (each round above sweeps first too)
+        eng._expire_deadlines()
         resumed = Engine.restore(SNAP.snapshot(eng)).run()
         check(resumed == baseline,
               "snapshot mid-run -> restore -> run token-identical")

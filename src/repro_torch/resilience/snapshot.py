@@ -11,7 +11,11 @@ engine's device params, which serving never mutates (at yi-9b's full
 width a host copy would be 17.7 GB a snapshot). ``restore(snap)``
 rebuilds an Engine from the recorded constructor arguments and overwrites
 its state, so ``restore(snap).run()`` resumes token-identically, sampled
-streams included.
+streams included. Request ages survive a move between clocks: each
+request's ``submitted_at`` is rebased by the new clock's reading minus
+the captured one, so deadlines keep measuring elapsed age. A request
+written before requests carried a deadline restores with none, its age
+counted from the capture.
 
 ``to_dir`` / ``from_dir`` persist a snapshot, params included: everything
 is written into ``<dir>.tmp`` and ``os.replace``d into place, so a crash
@@ -65,16 +69,23 @@ def _req_to_dict(req) -> dict:
     return {"uid": int(req.uid), "prompt": [int(t) for t in req.prompt],
             "max_new": int(req.max_new), "out": [int(t) for t in req.out],
             "done": bool(req.done), "status": req.status,
+            "deadline_s": req.deadline_s,
+            "submitted_at": float(req.submitted_at),
             "replays": int(req.replays), "error": req.error}
 
 
-def _req_from_dict(d: dict):
+def _req_from_dict(d: dict, shift: float, captured_at: float):
+    """The request of ``d``, its submit time moved by ``shift`` seconds
+    onto another clock. A dict without ``deadline_s`` / ``submitted_at``
+    (written before requests carried them) has no deadline and counts
+    its age from ``captured_at``, the capture's clock reading."""
     from repro_torch.serve.engine import Request
 
     return Request(uid=d["uid"], prompt=np.asarray(d["prompt"], np.int32),
                    max_new=d["max_new"], out=list(d["out"]), done=d["done"],
-                   status=d["status"], replays=d["replays"],
-                   error=d["error"])
+                   status=d["status"], deadline_s=d.get("deadline_s"),
+                   submitted_at=d.get("submitted_at", captured_at) + shift,
+                   replays=d["replays"], error=d["error"])
 
 
 def _map(tree, fn):
@@ -145,10 +156,16 @@ def restore(snap: EngineSnapshot, *, params=None, fault_plan=None,
     eng.quarantined = dict(snap.quarantined)
     eng._admit_round_idx = snap.admit_round_idx
     eng._decode_round_idx = snap.decode_round_idx
-    eng.slot_req = [None if d is None else _req_from_dict(d)
+    # rebase request ages onto the new clock: the elapsed age deadlines
+    # measure is kept across the restore
+    shift = float(eng.clock()) - snap.clock_now
+    eng.slot_req = [None if d is None
+                    else _req_from_dict(d, shift, snap.clock_now)
                     for d in snap.slot_req]
-    eng.queue = [_req_from_dict(d) for d in snap.queue]
-    eng.finished = [_req_from_dict(d) for d in snap.finished]
+    eng.queue = [_req_from_dict(d, shift, snap.clock_now)
+                 for d in snap.queue]
+    eng.finished = [_req_from_dict(d, shift, snap.clock_now)
+                    for d in snap.finished]
     return eng
 
 

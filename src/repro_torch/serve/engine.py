@@ -1,7 +1,6 @@
 """Batched serving engine (port of ``repro/serve/engine.py``; the
-reference's options that no caller here sets — deadlines, load shedding,
-fifo admission, prompt buckets, the decode auto-mode's measured cost table
-(``auto_cost_measure``) — are not ported).
+reference's measured decode cost table, ``auto_cost_measure``, is not
+ported).
 
 A fixed batch of B slots, each with its own absolute position, so a
 finished slot is refilled without draining the batch. Two step modes:
@@ -18,9 +17,12 @@ finished slot is refilled without draining the batch. Two step modes:
          (``decode.fused_step``); a round with nothing to admit is a split
          decode round.
 
-Which requests ride together is cost-ordered: the oldest queued request
-always rides, the remaining free slots alternate the lightest and heaviest
-pending by tile count tri(ceil(S / block)).
+Which requests ride together (``admit_order``): "cost" (the default) has
+the oldest queued request always ride, then the remaining free slots
+alternate the lightest and heaviest pending by tile count
+tri(ceil(S / block)); "fifo" keeps strict arrival order. Each round's
+choice is logged in stats["admit_order_log"] / ["admit_round_tiles"],
+ring logs of ``stats_log_rounds`` rounds (totals stay exact).
 
 Which path a decode round takes (``decode_mode``):
 
@@ -42,23 +44,47 @@ decodes with no hand-written kernel. An explicit "lockstep" with impl
 not ported: a failing packed round raises ``EngineStepError`` like any
 other, and auto never re-runs it lockstep.
 
-A NaN/Inf guard inspects every round's output. A poisoned admit round is
-retried with bounded, seeded backoff and then walks the admit ladder
-(``resilience.faults.LADDERS``), each transition counted in
-``launches_degraded_total``:
+Request lifecycle. Every submitted request ends in exactly one terminal
+status: done, shed, deadline_miss or failed (``report()``).
+
+  deadlines  ``submit(..., deadline_s=)`` (default: the engine's
+             ``deadline_s``) stamps ``submitted_at`` from the engine's
+             clock; every round first retires the queued and running
+             requests with now - submitted_at > deadline_s as
+             deadline_miss, keeping the tokens emitted so far. A running
+             request's slot is freed with its KV rows in place; the next
+             admit splices over them. A ``VirtualClock`` makes this
+             deterministic: straggler delays and retry backoff advance it.
+  shedding   with ``max_queue_tiles`` > 0, while the queue's
+             tri(ceil(S / prefill_block)) total exceeds it, each submit
+             sheds the heaviest request that is not the queue head (by
+             (tiles, index)), as shed with an empty output. The head is
+             never shed, so backpressure starves nobody.
+
+A NaN/Inf guard (``guard_output``) inspects every round's output. A
+poisoned admit round is retried with bounded, seeded backoff and then
+walks the admit ladder (``resilience.faults.LADDERS``), each transition
+counted in ``launches_degraded_total``:
 
   prefill_impl="torch"   packed -> sequential
   prefill_impl="cuda"    packed (no rung runs the plain version)
 
-A poisoned fused round takes the rung step: fused -> split: its admits are
-requeued at the head and the round re-runs through the split kernels. A
-poisoned decode slot is quarantined and its request replayed from prompt
-+ emitted tokens. Any other exception — a kernel's launch error, a failed
-shape check, a fault a ``FaultPlan`` injects — is neither retried nor
-degraded: it leaves ``run`` as an ``EngineStepError`` (with the round's
-uncommitted admits back at the queue head), so a failing kernel never
-hides behind the plain version. Every request that ``run`` returns ended
-``done`` or ``failed`` (poisoned past the last rung).
+The reference's rung traced -> host (its host-map prefill for a member
+past the traced map envelope) is not ported: an engine whose ``max_len``
+passes LTM_TRACED_MAX_LAM at its block is refused at construction.
+
+A poisoned fused round takes the rung step: fused -> split: its admits
+are requeued at the head and the round re-runs through the split path. A
+poisoned decode slot is quarantined for ``quarantine_rounds`` rounds and
+its request replayed from prompt + emitted tokens (a slot is released at
+once where every slot is quarantined with work queued). With
+``guard_output=False`` no output is inspected (the host copy of the
+logits is made only where a fault plan injects poison there, and an
+injected poison then quarantines nothing). Any other exception — a
+kernel's launch error, a failed shape check, a fault a ``FaultPlan``
+injects — is neither retried nor degraded: it leaves ``run`` as an
+``EngineStepError`` (with the round's uncommitted admits back at the
+queue head), so a failing kernel never hides behind the plain version.
 
 An architecture with a recurrent layer (rwkv6) has no packed or fused
 path: as in the reference, its admits are sequential and its decode
@@ -103,14 +129,13 @@ from repro_torch.resilience import health as H
 from repro_torch.serve import decode as D
 from repro_torch.serve import kv_cache as KV
 
-STATS_LOG_ROUNDS = 1024  # rounds kept by the stats ring logs
-QUARANTINE_ROUNDS = 8    # decode rounds a poisoned slot sits out
 # decode auto-mode: the packed round's cost a tile over lockstep's. 2.3 is
 # the reference's figure, read on its CPU harness (bench_packed); the
 # card's own crossover is measured by chip_smoke.py and kept in PERF.md,
 # and the rule keeps the reference's constant
 PACKED_TILE_COST_RATIO = 2.3
 DECODE_MODES = ("auto", "packed", "lockstep")
+ADMIT_ORDERS = ("cost", "fifo")
 
 
 @dataclasses.dataclass
@@ -120,7 +145,10 @@ class Request:
     max_new: int
     out: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
+    # terminal statuses: done | shed | deadline_miss | failed
     status: str = "queued"
+    deadline_s: Optional[float] = None
+    submitted_at: float = 0.0  # the engine clock's reading at submit
     replays: int = 0
     error: Optional[str] = None
 
@@ -171,8 +199,13 @@ class Engine:
                  prefill_block: int = 16, prefill_impl: str = "cuda",
                  decode_mode: str = "auto", decode_block: int = 16,
                  decode_impl: str = "cuda", step_mode: str = "split",
-                 retry: Optional[F.RetryPolicy] = None,
+                 admit_order: str = "cost",
+                 stats_log_rounds: int = 1024,
                  fault_plan: Optional[F.FaultPlan] = None, clock=None,
+                 retry: Optional[F.RetryPolicy] = None,
+                 deadline_s: Optional[float] = None,
+                 max_queue_tiles: int = 0, quarantine_rounds: int = 8,
+                 guard_output: bool = True,
                  escalate_step_errors: bool = False,
                  device=DEV.DEFAULT_DEVICE):
         if prefill_mode not in ("packed", "sequential"):
@@ -181,6 +214,9 @@ class Engine:
             raise ValueError(f"decode_mode {decode_mode!r}")
         if step_mode not in ("split", "fused"):
             raise ValueError(f"step_mode {step_mode!r}")
+        if admit_order not in ADMIT_ORDERS:
+            raise ValueError(f"admit_order {admit_order!r}; known "
+                             f"{ADMIT_ORDERS}")
         for impl in (prefill_impl, decode_impl):
             if impl not in self.IMPLS:
                 raise ValueError(f"impl {impl!r}; known {self.IMPLS}")
@@ -211,6 +247,10 @@ class Engine:
             prefill_block=prefill_block, prefill_impl=prefill_impl,
             decode_mode=decode_mode, decode_block=decode_block,
             decode_impl=decode_impl, step_mode=step_mode,
+            admit_order=admit_order,
+            stats_log_rounds=stats_log_rounds, deadline_s=deadline_s,
+            max_queue_tiles=max_queue_tiles,
+            quarantine_rounds=quarantine_rounds, guard_output=guard_output,
             device=str(self.device))
         self.params, self.cfg = params, cfg
         self.B, self.max_len = slots, max_len
@@ -244,9 +284,14 @@ class Engine:
             raise ValueError(
                 f"max_len {max_len} at the fused step's block "
                 f"{self.decode_block} exceeds the traced map envelope")
+        self.admit_order = admit_order
         self.retry = retry if retry is not None else F.RetryPolicy(seed=seed)
         self.fault_plan = fault_plan
         self.clock = clock if clock is not None else time.monotonic
+        self.default_deadline_s = deadline_s
+        self.max_queue_tiles = max_queue_tiles
+        self.quarantine_rounds = quarantine_rounds
+        self.guard_output = guard_output
         self.escalate_step_errors = escalate_step_errors
         self.quarantined: Dict[int, int] = {}  # slot -> release round
         self._rolling = cfg.sliding_window is not None
@@ -254,9 +299,9 @@ class Engine:
         self._admit_round_idx = 0
         self._decode_round_idx = 0
         self.registry = MET.Registry("engine")
-        self._admit_order_log = MET.RingLog(maxlen=STATS_LOG_ROUNDS)
-        self._admit_round_tiles = MET.RingLog(maxlen=STATS_LOG_ROUNDS)
-        self._failures = MET.RingLog(maxlen=STATS_LOG_ROUNDS)
+        self._admit_order_log = MET.RingLog(maxlen=stats_log_rounds)
+        self._admit_round_tiles = MET.RingLog(maxlen=stats_log_rounds)
+        self._failures = MET.RingLog(maxlen=stats_log_rounds)
 
     # -- telemetry -----------------------------------------------------------
     def _inc(self, name: str, value: int = 1):
@@ -282,7 +327,10 @@ class Engine:
         return st
 
     def report(self) -> Dict[int, dict]:
-        """Per-request lifecycle report: status, tokens, replays, error."""
+        """Per-request lifecycle report: status (queued, running, or one
+        of the terminal done / shed / deadline_miss / failed), tokens,
+        replays, error. Shed and missed requests are reported, never
+        dropped."""
         reqs = (list(self.finished)
                 + [r for r in self.slot_req if r is not None]
                 + list(self.queue))
@@ -372,7 +420,11 @@ class Engine:
                 raise EngineStepError(phase, rnd, e) from e
 
     # -- admission -----------------------------------------------------------
-    def submit(self, prompt: np.ndarray, max_new: int, uid: int):
+    def submit(self, prompt: np.ndarray, max_new: int, uid: int,
+               deadline_s: Optional[float] = None):
+        """Queue a request, stamped with the engine clock; its deadline
+        is ``deadline_s`` or else the engine's. May shed a queued request
+        (``max_queue_tiles``)."""
         prompt = np.asarray(prompt, np.int32)
         if prompt.size == 0:
             raise ValueError(f"request {uid}: empty prompt")
@@ -381,7 +433,58 @@ class Engine:
                 f"request {uid}: prompt of {prompt.size} tokens exceeds "
                 f"max_len={self.max_len} — its KV splice would overflow "
                 f"the slot cache (raise max_len or truncate)")
-        self.queue.append(Request(uid, prompt, max_new))
+        self.queue.append(Request(
+            uid, prompt, max_new,
+            deadline_s=(self.default_deadline_s if deadline_s is None
+                        else deadline_s),
+            submitted_at=float(self.clock())))
+        self._shed_overload()
+
+    def _shed_overload(self):
+        """While the queue's tile total passes ``max_queue_tiles``, shed
+        the heaviest request that is not the queue head, by (tiles,
+        index). The head always rides the next admit round, so it is
+        never shed, however heavy."""
+        if not self.max_queue_tiles:
+            return
+        while len(self.queue) > 1 and \
+                sum(self._prefill_tiles(r) for r in self.queue) \
+                > self.max_queue_tiles:
+            victim_i = max(range(1, len(self.queue)),
+                           key=lambda i: (self._prefill_tiles(self.queue[i]),
+                                          i))
+            victim = self.queue.pop(victim_i)
+            self._inc_res("requests_shed_total")
+            self._finish(victim, "shed", error=(
+                f"shed: queue over capacity ({self.max_queue_tiles} "
+                f"tiles) and this was the heaviest non-head request"))
+
+    def _expire_deadlines(self):
+        """Retire every queued and running request past its deadline on
+        the engine clock (now - submitted_at > deadline_s) as
+        deadline_miss, with the tokens emitted so far. A running one frees
+        its slot; its KV rows stay until the next admit splices over
+        them."""
+        now = float(self.clock())
+
+        def missed(req):
+            return req.deadline_s is not None and \
+                now - req.submitted_at > req.deadline_s
+
+        for req in [r for r in self.queue if missed(r)]:
+            self.queue.remove(req)
+            self._miss(req, now)
+        for slot in range(self.B):
+            req = self.slot_req[slot]
+            if req is not None and missed(req):
+                self.slot_req[slot] = None
+                self._miss(req, now)
+
+    def _miss(self, req: Request, now: float):
+        self._inc_res("deadline_misses_total")
+        self._finish(req, "deadline_miss", error=(
+            f"deadline {req.deadline_s}s exceeded after "
+            f"{now - req.submitted_at:.3f}s"))
 
     def _prefill_into_slot(self, slot: int, req: Request):
         """Sequential host-map prefill: run the request's feed through
@@ -440,7 +543,7 @@ class Engine:
             sp.attach(states["l0"]["k"])
         if self.fault_plan is not None and self.fault_plan.poisons_admit(rnd):
             states = _poison(states)
-        if not D.states_finite(states):
+        if self.guard_output and not D.states_finite(states):
             raise F.PoisonedOutput(
                 f"admit round {rnd}: non-finite packed prefill states")
         self._inc("prefill_launches")
@@ -459,8 +562,11 @@ class Engine:
         return M.tri(-(-len(req.feed) // self.prefill_block))
 
     def _pick_requests(self, take: int) -> List[Request]:
-        """Pop ``take`` queued requests: the oldest always rides, then the
-        lightest / heaviest pending alternate."""
+        """Pop ``take`` queued requests. "cost": the oldest always rides,
+        then the lightest / heaviest pending alternate (ties in arrival
+        order); "fifo": strict arrival order."""
+        if self.admit_order == "fifo":
+            return [self.queue.pop(0) for _ in range(take)]
         tiles = [self._prefill_tiles(r) for r in self.queue]
         heavy = iter(sorted(range(len(tiles)), key=lambda i: (-tiles[i], i)))
         light = iter(sorted(range(len(tiles)), key=lambda i: (tiles[i], i)))
@@ -570,11 +676,18 @@ class Engine:
     def _guard_decode(self, logits, live, rnd: int) -> List[int]:
         """Live slots whose logits are non-finite (an injected poison
         lands where this guard looks); on a fleet replica any raises
-        before the round commits."""
-        logits_np = logits.float().cpu().numpy()
+        before the round commits. With ``guard_output`` off none: the host
+        copy is made only for a fault plan's poison, which then lands
+        where nothing looks."""
+        if not self.guard_output and self.fault_plan is None:
+            return []
+        # a copy: an injected poison must not reach the logits sampled
+        logits_np = logits.to("cpu", torch.float32, copy=True).numpy()
         if self.fault_plan is not None:
             for s in self.fault_plan.poison_slots(rnd, live):
                 logits_np[s] = np.nan
+        if not self.guard_output:
+            return []
         bad = D.poisoned_slots(logits_np, live)
         if bad and self.escalate_step_errors:
             raise F.PoisonedOutput(
@@ -582,13 +695,13 @@ class Engine:
         return bad
 
     def _quarantine(self, bad: List[int], rnd: int):
-        """Free each poisoned slot for QUARANTINE_ROUNDS rounds and replay
-        its request, prefilled on prompt + emitted tokens, first."""
+        """Free each poisoned slot for ``quarantine_rounds`` rounds and
+        replay its request, prefilled on prompt + emitted tokens, first."""
         replays: List[Request] = []
         for slot in bad:
             req = self.slot_req[slot]
             self.slot_req[slot] = None
-            self.quarantined[slot] = rnd + 1 + QUARANTINE_ROUNDS
+            self.quarantined[slot] = rnd + 1 + self.quarantine_rounds
             req.replays += 1
             replays.append(req)
             self._inc_res("slots_quarantined_total")
@@ -658,8 +771,8 @@ class Engine:
 
         A poisoned output takes the rung step: fused -> split: the admits
         are requeued at the head and the round re-runs through the split
-        kernels (greedy tokens are the same either way). Any other
-        exception requeues the admits and raises EngineStepError."""
+        path (greedy tokens are the same either way). Any other exception
+        requeues the admits and raises EngineStepError."""
         pairs = self._take_admits()
         if not pairs:
             return self.step()
@@ -685,7 +798,7 @@ class Engine:
             if self.fault_plan is not None and \
                     self.fault_plan.poisons_admit(a_rnd):
                 states = _poison(states)
-            if not D.states_finite(states):
+            if self.guard_output and not D.states_finite(states):
                 raise F.PoisonedOutput(
                     f"fused round {d_rnd}: non-finite packed states")
         except F.PoisonedOutput as e:
@@ -740,8 +853,10 @@ class Engine:
         return not self.queue and all(r is None for r in self.slot_req)
 
     def round(self):
-        """ONE scheduling round, the unit a fleet advances a replica by: a
-        fused step, or a split admit + decode pair."""
+        """ONE scheduling round, the unit a fleet advances a replica by:
+        the deadline sweep, then a fused step or a split admit + decode
+        pair."""
+        self._expire_deadlines()
         if self.step_mode == "fused":
             self._release_quarantine()
             if not self.idle():
@@ -751,10 +866,12 @@ class Engine:
         self.step()
 
     def run(self, max_steps: int = 10_000) -> Dict[int, List[int]]:
-        """Drive rounds until drained (or max_steps rounds). Returns
-        {uid: tokens} for every request that reached a terminal state (see
-        report() for statuses); raises EngineStepError when a round raised
-        anything but a poisoned output."""
+        """Drive rounds until drained (or max_steps rounds), each one
+        sweeping deadlines first. Returns {uid: tokens} for every request
+        that reached a terminal state — done, shed, deadline_miss or
+        failed, with the partial outputs of the last three (see report()
+        for statuses); raises EngineStepError when a round raised anything
+        but a poisoned output."""
         for _ in range(max_steps):
             if self.idle():
                 break

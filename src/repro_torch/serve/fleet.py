@@ -159,14 +159,17 @@ class Fleet:
         return min(candidates, key=lambda e: (
             self._outstanding_tiles(self.engines[e]), e))
 
-    def submit(self, prompt: np.ndarray, max_new: int, uid: int):
+    def submit(self, prompt: np.ndarray, max_new: int, uid: int,
+               deadline_s: Optional[float] = None):
         """Route to the live replica with the fewest outstanding tiles
-        (ties to the lowest index)."""
+        (ties to the lowest index), with its deadline. The replica may
+        shed at its own ``max_queue_tiles`` first; the fleet then sheds
+        at ``max_fleet_tiles``."""
         if not self._live():
             self._restore_due(force=True)
         target = self._least_loaded(self._live())
         eng = self.engines[target]
-        eng.submit(prompt, max_new, uid)
+        eng.submit(prompt, max_new, uid, deadline_s=deadline_s)
         tiles = M.tri(-(-int(np.asarray(prompt).size) // eng.prefill_block))
         self._inc("fleet_requests_routed_total", engine=target)
         self._inc("fleet_routed_tiles_total", tiles, engine=target)
@@ -270,12 +273,17 @@ class Fleet:
             "engine", "active", "quarantined",
             {"engine": e, "round": self._round, "consecutive": consec,
              "probation_rounds": window, "reason": reason[:200]})
-        self._terminal.extend(SNAP._req_from_dict(d) for d in snap.finished)
-        inflight = [SNAP._req_from_dict(d) for d in snap.slot_req
+        # ages are rebased as Engine.restore does, so deadlines keep
+        # measuring elapsed age across the move
+        shift, at = float(self.clock()) - snap.clock_now, snap.clock_now
+        self._terminal.extend(SNAP._req_from_dict(d, shift, at)
+                              for d in snap.finished)
+        inflight = [SNAP._req_from_dict(d, shift, at) for d in snap.slot_req
                     if d is not None]
         for r in inflight:
             r.replays += 1
-        moved = inflight + [SNAP._req_from_dict(d) for d in snap.queue]
+        moved = inflight + [SNAP._req_from_dict(d, shift, at)
+                            for d in snap.queue]
         for r in moved:
             r.status, r.done = "queued", False
         live = self._live()

@@ -2237,3 +2237,77 @@ def test_recurrent_training_on_the_card_refuses_the_scan_kernels(dev, arch,
     _, met = step(state, batch)
     assert np.isfinite(float(met["loss"]))
     assert all(f.launches == 0 for f in kern.WRAPPERS.values())
+
+
+def test_kernel_engine_refuses_an_envelope_needing_the_host_rung(dev):
+    """The kernels' admit ladder holds no plain rung and the host-map
+    prefill is not ported: an engine on the card whose max_len would send
+    an admit round past LTM_TRACED_MAX_LAM (the reference's traced -> host)
+    is refused at construction, before its cache is made, in both step
+    modes; the longest max_len inside the envelope passes the check."""
+    from repro_torch.configs import registry as REG
+    from repro_torch.core import mapping as M
+    from repro_torch.models import model as MD
+    from repro_torch.serve import decode as D
+    from repro_torch.serve.engine import Engine
+
+    cfg = REG.smoke_config("yi-9b")
+    params = MD.init_params(cfg, seed=0, device=dev)
+    n = 1
+    while M.tri(n) - 1 <= M.LTM_TRACED_MAX_LAM:
+        n += 1
+    past = (n - 1) * 16 + 1  # n tiles at block 16
+    assert D.traced_prefill_ok([past - 1], 16)
+    kw = dict(slots=2, prefill_block=16, decode_block=16, device=dev)
+    for step_mode in ("split", "fused"):
+        with pytest.raises(ValueError, match="traced map envelope"):
+            Engine(params, cfg, max_len=past, step_mode=step_mode, **kw)
+    Engine(params, cfg, max_len=64, **kw)
+
+
+@pytest.mark.parametrize("step_mode", ["split", "fused"])
+def test_lifecycle_on_the_kernels_matches_plain(dev, step_mode):
+    """A smoke-size float32 engine on the kernels under (a) shedding at
+    max_queue_tiles and (b) a deadline with a straggler on a VirtualClock
+    ends every request as the engine on the plain versions does: the same
+    status per uid, tokens and partial outputs, and the same counters."""
+    from repro_torch.configs import registry as REG
+    from repro_torch.kernels.tri_attn import kernel as TK
+    from repro_torch.models import model as MD
+    from repro_torch.resilience import faults as F
+    from repro_torch.serve.engine import Engine
+
+    cfg = REG.smoke_config("yi-9b")
+    params = MD.init_params(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(9)
+    # tiles at block 16: tri(2), tri(3), tri(1), tri(3), tri(1)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (20, 40, 5, 33, 9)]
+    cases = {"shed": (dict(max_queue_tiles=8), None),
+             "deadline": (dict(deadline_s=1.0), ("straggler", "decode", 2))}
+    for name, (kw, fault) in cases.items():
+        out = {}
+        for impl, device in (("cuda", dev), ("torch", "cpu")):
+            plan = F.FaultPlan([F.Fault(*fault, delay_s=2.0)]) \
+                if fault else None
+            eng = Engine(params if device == dev else _to(params, device),
+                         cfg, slots=2, max_len=64, prefill_block=16,
+                         decode_block=16, prefill_impl=impl,
+                         decode_impl=impl, step_mode=step_mode,
+                         clock=F.VirtualClock(), fault_plan=plan,
+                         device=device, **kw)
+            for uid, p in enumerate(prompts):
+                eng.submit(p, max_new=6, uid=uid)
+            before = TK.packed_fwd.launches + TK.fused_step_fwd.launches
+            res = eng.run()
+            if impl == "cuda":
+                assert TK.packed_fwd.launches + TK.fused_step_fwd.launches \
+                    > before
+            st = eng.stats
+            out[impl] = ({u: r["status"] for u, r in eng.report().items()},
+                         res, st["requests_shed_total"],
+                         st["deadline_misses_total"],
+                         st["launches_degraded_total"])
+        assert out["cuda"] == out["torch"], name
+        statuses = set(out["cuda"][0].values())
+        assert ("shed" if name == "shed" else "deadline_miss") in statuses
